@@ -1,0 +1,83 @@
+"""Carries state across from the JAX package in plain numpy structures.
+
+The port never imports ``repro``; a caller that holds JAX objects (a test)
+extracts plain structures from them and hands those over:
+
+- a table is a column dict of numpy arrays plus a bool valid mask;
+- a catalog is a dict ``name -> (columns, valid)``;
+- an ML function is a dict ``{"name", "n_inputs", "out", "nodes",
+  "selectivity_hint"}`` whose nodes are ``{"id", "kind", "params",
+  "backend", "args"}`` dicts, params as numpy arrays or Python scalars;
+- a logical plan tree is nested ``{"node": class name, "fields": {...}}``
+  dicts, tuples and scalars (node uids included, so ``phys`` keys hold);
+- a physical side table is ``uid -> {"mode", "backend", "n_tiles"}``.
+
+Backend names map one to one: ``jnp`` -> ``torch``, ``pallas`` -> ``kernel``.
+"""
+from __future__ import annotations
+
+from typing import Any, Iterable, Mapping, Tuple
+
+import numpy as np
+
+from repro_torch.core import ir
+from repro_torch.mlfuncs.functions import Atom, MLFunction, MLGraph, MLNode
+from repro_torch.mlfuncs.registry import Registry
+from repro_torch.relational.table import Table
+
+BACKENDS = {"jnp": "torch", "pallas": "kernel"}
+
+
+def backend(name: str) -> str:
+    return BACKENDS.get(name, name)
+
+
+def table(columns: Mapping[str, np.ndarray], valid: np.ndarray,
+          device=None) -> Table:
+    return Table.from_columns(dict(columns), valid=np.asarray(valid, bool),
+                              device=device)
+
+
+def catalog(tables: Mapping[str, Tuple[Mapping[str, np.ndarray], np.ndarray]],
+            device=None) -> ir.Catalog:
+    cat = ir.Catalog()
+    for name, (columns, valid) in tables.items():
+        cat.add(name, table(columns, valid, device))
+    return cat
+
+
+def ml_function(fn: Mapping[str, Any]) -> MLFunction:
+    nodes = [MLNode(id=int(n["id"]),
+                    atom=Atom(n["kind"], dict(n["params"]), backend(n["backend"])),
+                    args=tuple((r[0], int(r[1])) for r in n["args"]))
+             for n in fn["nodes"]]
+    graph = MLGraph(nodes=nodes, out=int(fn["out"]), n_inputs=int(fn["n_inputs"]))
+    return MLFunction(name=fn["name"], graph=graph, n_inputs=int(fn["n_inputs"]),
+                      selectivity_hint=fn.get("selectivity_hint"))
+
+
+def registry(fns: Iterable[Mapping[str, Any]]) -> Registry:
+    reg = Registry()
+    for fn in fns:
+        reg.register(ml_function(fn))
+    return reg
+
+
+def ir_node(plain: Any) -> Any:
+    """An expression or relational node of ``core.ir`` from its plain form."""
+    if isinstance(plain, dict):
+        cls = getattr(ir, plain["node"])
+        if not isinstance(cls, type) or not issubclass(cls, (ir.Expr, ir.RelNode)):
+            raise ValueError(f"not an IR node: {plain['node']}")
+        return cls(**{k: ir_node(v) for k, v in plain["fields"].items()})
+    if isinstance(plain, (tuple, list)):
+        return tuple(ir_node(v) for v in plain)
+    return plain
+
+
+def plan(root: Mapping[str, Any], fns: Iterable[Mapping[str, Any]],
+         phys: Mapping[str, Mapping[str, Any]] = ()) -> ir.Plan:
+    cfgs = {uid: ir.PhysConfig(mode=c["mode"], backend=backend(c["backend"]),
+                               n_tiles=int(c["n_tiles"]))
+            for uid, c in dict(phys).items()}
+    return ir.Plan(root=ir_node(root), registry=registry(fns), phys=cfgs)

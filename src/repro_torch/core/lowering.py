@@ -1,0 +1,100 @@
+"""Lowering pass: logical Plan -> PhysicalPlan.
+
+The tree-order lowering: realization choices come from the plan's physical
+side table (``plan.phys``, keyed by node uid); nodes without an annotation
+get ``ir.DEFAULT_PHYS`` with the tile count sized from the weight (the same
+policy R3-1 uses when it annotates). Adjacent row-local operators (Filter,
+Project, Compact) fuse into a single ``PPipeline`` stage chain: one driver
+per pipeline instead of one interpreter dispatch per logical node.
+
+``backend`` overrides every annotation's backend ('torch' forces ATen ops,
+'kernel' the hand-written kernels) without touching the plan: the paper's
+"re-realize without touching the logical query" knob.
+
+Cost-driven lowering (``costed=True``) is not ported yet (ROADMAP.md,
+queue 1 item 9).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.core import ir
+from repro_torch.core import physical as ph
+
+
+def _config(plan: ir.Plan, node: ir.RelNode,
+            backend: Optional[str]) -> ir.PhysConfig:
+    cfg = plan.phys_for(node)  # resolves the weight-derived n_tiles default
+    if backend is not None:
+        cfg = ir.PhysConfig(mode=cfg.mode, backend=backend, n_tiles=cfg.n_tiles)
+    return cfg
+
+
+_ROW_LOCAL = (ir.Filter, ir.Project, ir.Compact)
+
+
+def _as_stage(node: ir.RelNode) -> ph.Stage:
+    if isinstance(node, ir.Filter):
+        return ph.FilterStage(pred=node.pred)
+    if isinstance(node, ir.Project):
+        return ph.ProjectStage(outputs=node.outputs, keep=node.keep)
+    if isinstance(node, ir.Compact):
+        return ph.CompactStage(capacity=node.capacity)
+    raise TypeError(type(node))
+
+
+def _lower_node(node: ir.RelNode, plan: ir.Plan,
+                backend: Optional[str]) -> ph.PhysNode:
+    if isinstance(node, _ROW_LOCAL):
+        # collect the maximal Filter/Project/Compact chain (Velox-style
+        # pipeline); stages execute source-to-sink, so reverse the walk
+        stages: list = []
+        cur = node
+        while isinstance(cur, _ROW_LOCAL):
+            stages.append(_as_stage(cur))
+            cur = cur.children()[0]
+        return ph.PPipeline(child=_lower_node(cur, plan, backend),
+                            stages=tuple(reversed(stages)))
+    if isinstance(node, ir.Scan):
+        return ph.PScan(table=node.table)
+    if isinstance(node, ir.Join):
+        return ph.PJoin(left=_lower_node(node.left, plan, backend),
+                        right=_lower_node(node.right, plan, backend),
+                        left_key=node.left_key, right_key=node.right_key,
+                        rprefix=node.rprefix)
+    if isinstance(node, ir.CrossJoin):
+        return ph.PCrossJoin(left=_lower_node(node.left, plan, backend),
+                             right=_lower_node(node.right, plan, backend),
+                             aprefix=node.aprefix, bprefix=node.bprefix)
+    if isinstance(node, ir.Aggregate):
+        return ph.PAggregate(child=_lower_node(node.child, plan, backend),
+                             key=node.key, aggs=node.aggs,
+                             num_groups=node.num_groups)
+    if isinstance(node, ir.BlockedMatmul):
+        cfg = _config(plan, node, backend)
+        return ph.PBlockedMatmul(
+            child=_lower_node(node.child, plan, backend),
+            x_col=node.x_col, out_col=node.out_col, fn=node.fn,
+            n_tiles=cfg.n_tiles, mode=cfg.mode, backend=cfg.backend,
+            keep=node.keep)
+    if isinstance(node, ir.ForestRelational):
+        cfg = _config(plan, node, backend)
+        return ph.PForestRelational(
+            child=_lower_node(node.child, plan, backend),
+            x_col=node.x_col, out_col=node.out_col, fn=node.fn,
+            mode=cfg.mode, backend=cfg.backend, keep=node.keep)
+    raise TypeError(type(node))
+
+
+def lower(plan: ir.Plan, catalog: ir.Catalog, *,
+          backend: Optional[str] = None, costed: bool = False) -> ph.PhysicalPlan:
+    """Lower a logical plan to its physical realization in tree order.
+
+    ``catalog`` is the statistics source of cost-driven lowering, which is
+    not ported yet: ``costed=True`` raises ``NotImplementedError``.
+    """
+    if costed:
+        raise NotImplementedError(
+            "costed lowering is not ported yet (ROADMAP.md, queue 1 item 9)")
+    root = _lower_node(plan.root, plan, backend)
+    return ph.PhysicalPlan(root=root, registry=plan.registry)
