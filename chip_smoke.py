@@ -7,10 +7,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and cuDNN.
-2. build: compiles the three CUDA kernels from src/repro_torch/kernels/csrc.
+2. build: compiles the five CUDA kernels from src/repro_torch/kernels/csrc,
+   one nvcc per source, all started together.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
-   the card, at the JAX package's kernel-test shapes and at the main path's
-   shapes (bars: 1e-4 in float32, 3e-2 in bfloat16).
+   the card, at the JAX package's kernel-test shapes and at the main paths'
+   shapes (bars: 1e-4 in float32, 2e-4 for attention in float32, 3e-2 in
+   bfloat16, 1e-2 for flash_attention's main shape in bfloat16, which also
+   runs in float32 at 2e-4).
 4. main path: all 12 workloads at scale 1.0. ``execute`` on the card
    (backend ``torch``) against ``execute_reference`` on the CPU, then the
    kernel path (``core.rules.kernel_plan``: R3-1/R3-2, R4-2, R4-1-fuse, R4-2)
@@ -20,8 +23,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    100-tree depth-9 forest) and rec_q3 at scale 20 (1,320 movies, 4096-d
    tags, a 1.74M-row cross join), through the kernel path and the torch path,
    median of 5 timed runs each and one profiled run each (device busy
-   share, top kernels); then each kernel's time at its main-path shape
-   beside its plain version, one library call, and its bound.
+   share, top kernels).
+6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
+   query heads over 8 KV heads, random weights from a seed):
+   a. float32: prefill(prompt[:, :-1]) and one decode step reproduce
+      forward(prompt)'s last logits within 1e-2 (tests/test_archs.py's
+      bar), B 4 x S 2048;
+   b. the same float32 weights cut to 2 layers, on the card (the kernels)
+      and on the CPU (the plain versions), over one 64-token prompt: hidden
+      states within 1e-4;
+   c. Appendix K's query (examples/serve_llm_udf.py), unoptimized, through
+      ``execute`` with ``llm_summarize`` calling the float32 model; its
+      scores against the factorized evaluation at the .canonical() bar;
+   d. bfloat16: the LM main path, prefill B 4 x 2048 tokens (max_len 4096)
+      and 32 greedy decode steps, with launch counts zeroed just before and
+      read just after (40 flash_attention launches per prefill, 40
+      flash_decode per step); then prefill and decode times (medians of 5
+      after one warm-up, CUDA events), peak memory, one profiled prefill and
+      decode step;
+   e. ``Server``: 8 requests, prompts of 4-11 tokens, max_new 16, batch 4,
+      max_len 256 (launch/serve.py main's settings).
+7. each kernel's time at its main-path shape beside its plain version, one
+   library call, and its bound.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,12 +66,22 @@ import torch  # noqa: E402
 
 from repro_torch.testing import assert_canonical_close  # noqa: E402
 
-F32_TOL, BF16_TOL = 1e-4, 3e-2
+F32_TOL, BF16_TOL, ATTN_TOL = 1e-4, 3e-2, 2e-4
+# flash_attention's main shape in bf16: its outputs average ~i/e keys, so a
+# typical |o| is ~0.05 and 3e-2 would hide a systematic error; one bf16 ulp
+# of an output near 1 is 3.9e-3
+ATTN_BF16_TOL = 1e-2
+CONSISTENCY_TOL = 1e-2  # tests/test_archs.py: decode against forward
+CARD_CPU_TOL = 1e-4  # two f32 layers, card against CPU (phase 6b)
 FULL_SIZE = (("analytics_q1", 100.0), ("rec_q3", 20.0))
 TIMED_RUNS = 5
+LM_ARCH = "granite-3-2b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 2048, 4096, 32
 
-# Data sheet peaks per H100 form factor: (non-tensor f32 FLOP/s, HBM B/s)
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# Data sheet peaks per H100 form factor: (non-tensor f32 FLOP/s, HBM B/s,
+# dense bf16 tensor-core FLOP/s)
+PEAKS = {"PCIe": (51e12, 2.0e12, 756e12), "NVL": (60e12, 3.9e12, 835e12),
+         "SXM": (67e12, 3.35e12, 989e12)}
 
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
@@ -57,14 +90,23 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                         "src/repro/kernels/decision_forest/kernel.py:67"),
     "fused_dense": ("src/repro_torch/kernels/csrc/fused_dense.cu",
                     "src/repro/kernels/fused_dense/kernel.py:61"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:71"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:70"),
 }
+ENGINE_KERNELS = ("block_matmul", "decision_forest", "fused_dense")  # phase 4
+LM_KERNELS = ("flash_attention", "flash_decode")  # phase 6d
 
 
 def _kernel_modules():
     from repro_torch.kernels.block_matmul import ops as bm
     from repro_torch.kernels.decision_forest import ops as df
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fdec
     from repro_torch.kernels.fused_dense import ops as fd
-    return {"block_matmul": bm, "decision_forest": df, "fused_dense": fd}
+    return {"block_matmul": bm, "decision_forest": df, "fused_dense": fd,
+            "flash_attention": fa, "flash_decode": fdec}
 
 
 def reset_launches() -> None:
@@ -120,6 +162,22 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` replayed from a CUDA graph. For work whose
+    kernels are shorter than the host's launch overhead, events around
+    eager calls time the host; a graph replay leaves only the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps)
+
+
 def median_run_ms(fn, runs: int = TIMED_RUNS) -> float:
     """Median of ``runs`` single calls after one warm-up, CUDA events."""
     fn()
@@ -135,10 +193,11 @@ def median_run_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def profile_breakdown(label: str, fn, top: int = 4) -> None:
+def profile_breakdown(label: str, fn, top: int = 4, also: tuple = ()) -> None:
     """One traced call of ``fn``: wall time, device busy time (the sum of
     the device kernels' times; the host ops that launch them are not
-    counted again) and the kernels that take the most of it."""
+    counted again), the kernels that take the most of it, and those outside
+    the top whose names contain a string of ``also``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -153,7 +212,8 @@ def profile_breakdown(label: str, fn, top: int = 4) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    tops = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in rows[:top])
+    shown = rows[:top] + [r for r in rows[top:] if any(a in r[0] for a in also)]
+    tops = "; ".join(f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in shown)
     print(f"[profile] {label}: wall {wall_ms:.3f} ms (traced), device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.0f}%), "
           f"{sum(r[2] for r in rows)} kernels; top: {tops}")
@@ -293,7 +353,7 @@ def phase_main_path() -> dict:
               f"kernel == torch ({time.perf_counter() - t0:.1f} s)")
     launches = read_launches()
     print("[main] kernels " + json.dumps(launches))
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return launches
@@ -331,53 +391,328 @@ def phase_full_size() -> dict:
     return per_run
 
 
+def _attn_inputs(gen, b, hq, hkv, s, d, dtype=torch.float32):
+    """q, k, v as [B,H,S,D] views of [B,S,H,D] tensors, as the model passes
+    its projections."""
+    return [_normal(gen, (b, s, h, d), dtype=dtype).transpose(1, 2)
+            for h in (hq, hkv, hkv)]
+
+
+def lm_shapes() -> dict:
+    """granite-3-2b's attention shapes on the LM main path (phase 6d)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    return {"flash_attention": (LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, cfg.hd),
+            "flash_decode": (LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_MAX_LEN,
+                             LM_PROMPT, cfg.hd)}
+
+
+def phase_attention_parity(shapes: dict) -> dict:
+    """flash_attention and flash_decode against their plain versions."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fdec, ref as fdec_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_decode.ref import decode_partials_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+
+    def attn(q, k, v, causal, tol, label):
+        plain = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=causal).transpose(1, 2)
+        return kernel_vs_plain(fa.flash_attention(q, k, v, causal), plain, tol, label)
+
+    for b, hq, hkv, s, d in [(2, 4, 2, 37, 16), (1, 8, 8, 256, 64), (2, 6, 3, 100, 32)]:
+        for causal in (True, False):
+            attn(*_attn_inputs(gen, b, hq, hkv, s, d), causal, ATTN_TOL,
+                 f"flash_attention {(b, hq, hkv, s, d)} causal={causal}")
+    b, hq, hkv, s, d = shapes["flash_attention"]
+    main_in = _attn_inputs(gen, b, hq, hkv, s, d)
+    f32_err = attn(*main_in, True, ATTN_TOL, "flash_attention main path f32")
+    main_in = [x.to(torch.bfloat16) for x in main_in]
+    errs["flash_attention"] = attn(*main_in, True, ATTN_BF16_TOL,
+                                   "flash_attention main path bf16")
+    del main_in
+    torch.cuda.empty_cache()
+    print(f"[parity] flash_attention ok: 3 test shapes x 2 causal settings, f32 at "
+          f"{ATTN_TOL:g}; main path B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal: f32 "
+          f"max|err|={f32_err:.3g} (bar {ATTN_TOL:g}), bf16 "
+          f"max|err|={errs['flash_attention']:.3g} (bar {ATTN_BF16_TOL:g})")
+
+    def partials(got, want, label):
+        return max(kernel_vs_plain(x, y, ATTN_TOL, f"{label} {part}")
+                   for x, y, part in zip(got, want, ("acc", "m", "l")))
+
+    for bh, g, d, s in [(4, 6, 32, 300), (2, 8, 64, 1024), (1, 1, 16, 50)]:
+        q, k, v = (_normal(gen, sh) for sh in ((bh, g, d), (bh, s, d), (bh, s, d)))
+        want = decode_partials_plain(q, k[:, :, None], v[:, :, None], s, d ** -0.5)
+        partials(fdec.decode_partials(q, k, v), [w[:, 0] for w in want],
+                 f"flash_decode {(bh, g, d, s)}")
+        kernel_vs_plain(fdec.decode_attention(q, k, v), fdec_ref.decode_attention(q, k, v),
+                        ATTN_TOL, f"flash_decode attention {(bh, g, d, s)}")
+    q, k, v = (_normal(gen, sh) for sh in ((3, 4, 32), (3, 384, 32), (3, 384, 32)))
+    parts = [fdec.decode_partials(q, k[:, lo:hi], v[:, lo:hi])
+             for lo, hi in [(0, 128), (128, 256), (256, 384)]]
+    kernel_vs_plain(fdec_ref.merge_partials(*zip(*parts)), fdec_ref.decode_attention(q, k, v),
+                    ATTN_TOL, "flash_decode shard merge")
+    b, hq, hkv, cap, filled, d = shapes["flash_decode"]
+    q = _normal(gen, (b, hq, d), dtype=torch.bfloat16)
+    kc, vc = (_normal(gen, (b, cap, hkv, d), dtype=torch.bfloat16) for _ in range(2))
+    n = torch.tensor(filled, dtype=torch.int32, device="cuda")
+    errs["flash_decode"] = partials(
+        fdec.gqa_decode_partials(q, kc, vc, n),
+        decode_partials_plain(q, kc, vc, filled, d ** -0.5), "flash_decode main path")
+    print(f"[parity] flash_decode ok: 3 test shapes and the shard merge, f32 at "
+          f"{ATTN_TOL:g}; main path B{b} Hq{hq} Hkv{hkv} D{d}, {filled} of {cap} "
+          f"slots filled, bf16 cache, max|err|={errs['flash_decode']:.3g} "
+          f"(bar {ATTN_TOL:g})")
+    return errs
+
+
+def _lm_cfg(dtype: str, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), dtype=dtype, **kw)
+
+
+def _prompt(gen, cfg, b, s):
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+
+
+def phase_lm_f32() -> None:
+    """6a-c on granite-3-2b's full width in float32."""
+    from repro_torch.core.executor import execute
+    from repro_torch.launch.serve_llm_udf import llm_udf_query
+    from repro_torch.models import lm
+    cfg = _lm_cfg("float32")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = _prompt(gen, cfg, LM_BATCH, LM_PROMPT)
+    h = lm.forward(params, cfg, prompt)
+    assert h.shape == (LM_BATCH, LM_PROMPT, cfg.d_model) and bool(h.isfinite().all())
+    full = h[:, -1].float() @ params["embed"].float().T
+    del h
+    _, cache = lm.prefill(params, cfg, prompt[:, :-1], max_len=LM_PROMPT)
+    dec, cache = lm.make_decode_step(cfg)(params, cache, prompt[:, -1])
+    err = float((dec[:, :cfg.vocab] - full[:, :cfg.vocab]).abs().max())
+    if not err < CONSISTENCY_TOL or int(cache["len"]) != LM_PROMPT:
+        raise AssertionError(f"{LM_ARCH} f32: decode/forward mismatch {err}")
+    del cache, dec, full
+    print(f"[lm] {LM_ARCH} f32 full width ({cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params): prefill(prompt[:, :-1]) + 1 "
+          f"decode step == forward's last logits, B{LM_BATCH} S{LM_PROMPT}, "
+          f"max|err|={err:.3g} (bar {CONSISTENCY_TOL:g}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # 6b: the first two layers, card (kernels) against CPU (plain versions)
+    two = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "blocks": {k: w[:2] for k, w in params["blocks"].items()}}
+    two_cpu = {"embed": two["embed"].cpu(), "final_norm": two["final_norm"].cpu(),
+               "blocks": {k: w.cpu() for k, w in two["blocks"].items()}}
+    cfg2 = _lm_cfg("float32", n_layers=2)
+    tok64 = prompt[:1, :64]
+    on_card = lm.forward(two, cfg2, tok64).cpu()
+    on_cpu = lm.forward(two_cpu, cfg2, tok64.cpu())
+    err = kernel_vs_plain(on_card, on_cpu, CARD_CPU_TOL, "card vs cpu")
+    print(f"[lm] card vs CPU, 2 layers at full width, f32, one 64-token prompt: "
+          f"hidden states max|err|={err:.3g} (bar rtol=atol={CARD_CPU_TOL:g})")
+    del two, two_cpu
+
+    # 6c: Appendix K's query with llm_summarize on this model
+    t0 = time.perf_counter()
+    plan, catalog, calls = llm_udf_query(params, cfg, device="cuda")
+    out = execute(plan, catalog, device="cuda").canonical()
+    llm_rows = calls["n"]
+    assert_finite(out, "llm_udf")
+    llm = plan.registry.get("llm_summarize")
+    rec = plan.registry.get("recommend")
+    u = llm.apply(catalog.tables["users"]["user_desc"])
+    mv = llm.apply(catalog.tables["movies"]["movie_desc"])
+    uid = torch.as_tensor(out["user_id"], dtype=torch.long, device="cuda")
+    mid = torch.as_tensor(out["movie_id"], dtype=torch.long, device="cuda")
+    want = dict(out, score=rec.apply(u[uid], mv[mid]).cpu().numpy())
+    assert_canonical_close(want, out, "llm_udf factorized")
+    print(f"[lm] Appendix K query, unoptimized, f32 {LM_ARCH}: {len(out['score'])} "
+          f"rows, {llm_rows} LLM rows summarized; scores == factorized evaluation "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del params
+
+
+def phase_lm_bf16() -> tuple:
+    """6d-e on granite-3-2b in bfloat16; returns the LM main path's launch
+    counts and its cache (for the kernel times)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = _lm_cfg("bfloat16")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = _prompt(gen, cfg, LM_BATCH, LM_PROMPT)
+    step = lm.make_decode_step(cfg)
+
+    def generate(cache, tok):
+        for _ in range(LM_STEPS):
+            logits, cache = step(params, cache, tok)
+            tok = logits.argmax(-1)
+        return logits, cache
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, cache = lm.prefill(params, cfg, prompt, max_len=LM_MAX_LEN)
+    tok0 = logits.argmax(-1)
+    last, _ = generate(cache, tok0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("[main] lm kernels " + json.dumps(launches))
+    want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * LM_STEPS}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"LM main path launches {launches}, want {want}")
+    assert bool(logits.isfinite().all()) and bool(last[:, :cfg.vocab].isfinite().all())
+
+    prefill_ms = median_run_ms(lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN))
+    len0 = torch.tensor(LM_PROMPT, dtype=torch.int32, device="cuda")
+    run_ms = median_run_ms(lambda: generate(dict(cache, len=len0), tok0))
+    print(f"[lm] {LM_ARCH} bf16 full width, B{LM_BATCH}: prefill {LM_PROMPT} tokens "
+          f"{prefill_ms:.3f} ms ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tok/s); "
+          f"decode {LM_STEPS} steps at {LM_PROMPT}+ filled slots {run_ms / LM_STEPS:.3f} "
+          f"ms/step ({LM_BATCH * LM_STEPS / run_ms * 1e3:.1f} tok/s); medians of "
+          f"{TIMED_RUNS}; peak memory {peak_gb:.2f} GB")
+    profile_breakdown(f"{LM_ARCH} prefill B{LM_BATCH}xS{LM_PROMPT}",
+                      lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN))
+    # flash_decode is two kernels per launch counted: fdk::decode_chunk and
+    # fdk::decode_merge
+    profile_breakdown(f"{LM_ARCH} decode step B{LM_BATCH} at {LM_PROMPT} slots",
+                      lambda: step(params, dict(cache, len=len0), tok0), also=("fdk::",))
+
+    server = serve.Server(cfg, batch=LM_BATCH, max_len=256, device="cuda", params=params)
+    requests = serve.synthetic_requests(cfg, 8, 16)
+    t0 = time.perf_counter()
+    steps = serve.serve(server, requests)
+    dt = time.perf_counter() - t0
+    bad = [r.rid for r in requests
+           if not r.done or len(r.out) != len(r.prompt) + r.max_new
+           or not all(0 <= t < cfg.vocab for t in r.out)]
+    if bad:
+        raise AssertionError(f"server: requests {bad} not served right")
+    # a functional check of the server: 8 short requests are no measurement
+    # of serving, so their rate is printed but not kept as a metric
+    print(f"[serve] {LM_ARCH} bf16: {len(requests)} requests served in {dt:.2f} s, "
+          f"{steps} decode steps, {len(requests) * 16 / dt:.1f} tok/s (batch "
+          f"{LM_BATCH}, max_len 256; functional run, not a serving benchmark)")
+    del server, params
+    return launches, cache
+
+
+def phase_attention_times(shapes: dict, launches: dict, errs: dict, card: str,
+                          cache: dict) -> list:
+    """Both attention kernels at the LM main path's shapes. Decode runs over
+    the 40 layers of the main path's own cache in turn, so each call finds
+    its layer cold in L2, as in a decode step; its calls are shorter than
+    their host overhead, so they are timed from a CUDA graph replay."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fdec
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_decode.ref import decode_partials_plain
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    b, hq, hkv, s, d = shapes["flash_attention"]
+    q, k, v = _attn_inputs(gen, b, hq, hkv, s, d, torch.bfloat16)
+    pairs = s * (s + 1) // 2  # causal (row, col) pairs per head
+    rows.append(kernel_row(
+        "flash_attention", lambda: fa.flash_attention(q, k, v, True),
+        lambda: flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        4.0 * b * hq * d * pairs, 2.0 * b * s * d * (2 * hq + 2 * hkv),
+        (b, hq, hkv, s, d, "causal bf16"), launches, errs, card, bf16=True))
+    del q, k, v
+    torch.cuda.empty_cache()
+    b, hq, hkv, cap, filled, d = shapes["flash_decode"]
+    n_layers = cache["k"].shape[0]
+    q = _normal(gen, (b, hq, d), dtype=torch.bfloat16)
+    n = torch.tensor(filled, dtype=torch.int32, device="cuda")
+    ks, vs = cache["k"], cache["v"]
+    q1 = q.view(b, hq, 1, d)
+    rows.append(kernel_row(
+        "flash_decode",
+        lambda: [fdec.gqa_decode_partials(q, ks[i], vs[i], n) for i in range(n_layers)],
+        lambda: [decode_partials_plain(q, ks[i], vs[i], n, d ** -0.5)
+                 for i in range(n_layers)],
+        lambda: [F.scaled_dot_product_attention(
+            q1, ks[i, :, :filled].transpose(1, 2), vs[i, :, :filled].transpose(1, 2),
+            enable_gqa=True) for i in range(n_layers)],
+        4.0 * b * hq * d * filled,
+        2.0 * (b * hq * d + 2 * b * filled * hkv * d) + 4.0 * (b * hq * d + 2 * b * hq),
+        (b, hq, hkv, f"{filled}/{cap} slots", d, "bf16"), launches, errs, card,
+        bf16=True, per_call=n_layers, graph=True))
+    return rows
+
+
+def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
+               errs, card, bf16=False, per_call=1, graph=False) -> dict:
+    """One kernel's JSON row: its time, its plain version's and one library
+    call's (mean ms of one call; ``per_call`` calls per timed lambda, timed
+    from a CUDA graph replay if ``graph``), and the bound from the
+    operations and bytes of one call."""
+    form, (f32_peak, bytes_peak, bf16_peak) = card_peaks(card)
+    flops_peak = bf16_peak if bf16 else f32_peak
+    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+    timer = graph_ms if graph else cuda_ms
+    row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+           "replaces": KERNELS[name][1], "launches": launches[name],
+           "max_abs_err": errs[name], "ms": timer(kernel) / per_call,
+           "plain_ms": timer(plain) / per_call, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": timer(library) / per_call if library else None}
+    lib_ms = f"{row['library_ms']:.4f} ms" if library else "none"
+    # with graph timing, also the same calls eager, host overhead included
+    eager = (f"; eager, host overhead included: kernel {cuda_ms(kernel) / per_call:.4f}"
+             f" ms, library {cuda_ms(library) / per_call:.4f} ms" if graph else "")
+    print(f"[time] {name} {shape}{' (graph replay)' if graph else ''}: "
+          f"kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {lib_ms}, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s "
+          f"{'bf16 tensor' if bf16 else 'f32'}, {bytes_peak / 1e12:g} TB/s){eager}")
+    return row
+
+
 def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
                        card: str) -> list:
     from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
     from repro_torch.kernels.decision_forest import ops as df, ref as df_ref
     from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
-    form, (flops_peak, bytes_peak) = card_peaks(card)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-
-    def record(name, kernel, plain, library, flops, nbytes, shape):
-        t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
-        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
-               "replaces": KERNELS[name][1], "launches": launches[name],
-               "max_abs_err": errs[name], "ms": cuda_ms(kernel),
-               "plain_ms": cuda_ms(plain), "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": cuda_ms(library) if library else None}
-        lib_ms = f"{row['library_ms']:.4f} ms" if library else "none"
-        print(f"[time] {name} {shape}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {lib_ms}, bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s f32, "
-              f"{bytes_peak / 1e12:g} TB/s)")
-        rows.append(row)
-
     m, k, n, t = shapes["block_matmul"]
     x, w = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5)
-    record("block_matmul", lambda: bm.block_matmul(x, w, t),
-           lambda: bm_ref.block_matmul(x, w, t), lambda: torch.matmul(x, w),
-           2.0 * m * n * k, 4.0 * (m * k + k * n + m * n), (m, k, n, t))
+    rows.append(kernel_row(
+        "block_matmul", lambda: bm.block_matmul(x, w, t),
+        lambda: bm_ref.block_matmul(x, w, t), lambda: torch.matmul(x, w),
+        2.0 * m * n * k, 4.0 * (m * k + k * n + m * n), (m, k, n, t),
+        launches, errs, card))
     del x, w
     m, k, n, act = shapes["fused_dense"]
     x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), _normal(gen, (n,))
     # library yardstick: one addmm, i.e. bias + product without the activation
-    record("fused_dense", lambda: fd.fused_dense(x, w, b, act),
-           lambda: fd_ref.fused_dense(x, w, b, act), lambda: torch.addmm(b, x, w),
-           2.0 * m * n * k + 2.0 * m * n, 4.0 * (m * k + k * n + n + m * n),
-           (m, k, n, act))
+    rows.append(kernel_row(
+        "fused_dense", lambda: fd.fused_dense(x, w, b, act),
+        lambda: fd_ref.fused_dense(x, w, b, act), lambda: torch.addmm(b, x, w),
+        2.0 * m * n * k + 2.0 * m * n, 4.0 * (m * k + k * n + n + m * n),
+        (m, k, n, act), launches, errs, card))
     del x, w, b
     torch.cuda.empty_cache()
     n, d, t, depth = shapes["decision_forest"]
     args = _forest_inputs(gen, n, d, t, depth)
     nn = 2 ** depth - 1
-    record("decision_forest", lambda: df.forest_predict(*args),
-           lambda: df_ref.forest_predict(*args), None,
-           float(n) * t * (depth + 1),
-           4.0 * (n * d + t * (2 * nn + 2 ** depth) + n), (n, d, t, depth))
+    rows.append(kernel_row(
+        "decision_forest", lambda: df.forest_predict(*args),
+        lambda: df_ref.forest_predict(*args), None,
+        float(n) * t * (depth + 1),
+        4.0 * (n * d + t * (2 * nn + 2 ** depth) + n), (n, d, t, depth),
+        launches, errs, card))
     return rows
 
 
@@ -386,9 +721,14 @@ def main() -> int:
     phase_build()
     shapes = main_path_shapes()
     errs = phase_parity(shapes)
+    errs.update(phase_attention_parity(lm_shapes()))
     launches = phase_main_path()
     phase_full_size()
+    phase_lm_f32()
+    torch.cuda.empty_cache()
+    lm_launches, cache = phase_lm_bf16()
     rows = phase_kernel_times(shapes, launches, errs, card)
+    rows += phase_attention_times(lm_shapes(), lm_launches, errs, card, cache)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ extracts plain structures from them and hands those over:
   "backend", "args"}`` dicts, params as numpy arrays or Python scalars;
 - a logical plan tree is nested ``{"node": class name, "fields": {...}}``
   dicts, tuples and scalars (node uids included, so ``phys`` keys hold);
-- a physical side table is ``uid -> {"mode", "backend", "n_tiles"}``.
+- a physical side table is ``uid -> {"mode", "backend", "n_tiles"}``;
+- an LM's params are the JAX param tree as nested dicts of numpy arrays
+  (``np.asarray`` of a bf16 JAX array is an ``ml_dtypes.bfloat16`` array).
 
 Backend names map one to one: ``jnp`` -> ``torch``, ``pallas`` -> ``kernel``.
 """
@@ -19,8 +21,10 @@ from __future__ import annotations
 from typing import Any, Iterable, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import ir
+from repro_torch.kernels.common import resolve_device
 from repro_torch.mlfuncs.functions import Atom, MLFunction, MLGraph, MLNode
 from repro_torch.mlfuncs.registry import Registry
 from repro_torch.relational.table import Table
@@ -81,3 +85,22 @@ def plan(root: Mapping[str, Any], fns: Iterable[Mapping[str, Any]],
                                n_tiles=int(c["n_tiles"]))
             for uid, c in dict(phys).items()}
     return ir.Plan(root=ir_node(root), registry=registry(fns), phys=cfgs)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], device=None,
+                         dtype: torch.dtype | None = None) -> dict:
+    """The port's LM param dict from the JAX param tree as numpy arrays.
+    ``torch.from_numpy`` refuses ``ml_dtypes.bfloat16``, so every leaf goes
+    through float32, which holds bf16 exactly, and then to ``dtype``
+    (default: bf16 for bf16 leaves, else float32)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        want = dtype or (torch.bfloat16 if bf16 else torch.float32)
+        return t.to(device=dev, dtype=want)
+
+    return {k: lm_params_from_numpy(v, dev, dtype) if isinstance(v, Mapping)
+            else leaf(v) for k, v in tree.items()}

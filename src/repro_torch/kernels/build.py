@@ -5,7 +5,8 @@ arch=compute_90a,code=sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
 at the repository root; the hash covers the source and the shared headers,
 so an edited source builds anew. The libraries have a plain C interface:
 pointers and the stream are ``c_void_p``, sizes ``c_int``, and every entry
-point returns ``cudaGetLastError()`` after its launch.
+point returns ``cudaGetLastError()`` after its launch. Strides go as a
+host array of ``long long``.
 """
 from __future__ import annotations
 
@@ -24,14 +25,21 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C signature of every entry point: name -> (library, argtypes)
 SIGNATURES = {
     "block_matmul": ("block_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "fused_dense": ("fused_dense", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "forest_predict": ("decision_forest", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _I, _I, _I, _F, _STRIDES, _P]),
+    "flash_decode": ("flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                      _STRIDES, _P]),
 }
-LIBRARIES = ("block_matmul", "decision_forest", "fused_dense")
+LIBRARIES = ("block_matmul", "decision_forest", "fused_dense", "flash_attention",
+             "flash_decode")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # library -> loaded shared object

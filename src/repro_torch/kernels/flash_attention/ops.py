@@ -1,0 +1,70 @@
+"""Wrapper of the flash_attention kernel (``csrc/flash_attention.cu``).
+
+Replaces ``src/repro/kernels/flash_attention/ops.py::flash_attention`` and
+the Pallas kernel behind it (``kernel.py::flash_attention_pallas``), with
+the same signature: q [B,Hq,S,D], k and v [B,Hkv,S,D] -> [B,Hq,S,D], scale
+``D**-0.5``. On CPU tensors it runs the plain version
+(``ref.flash_attention_plain``); on CUDA tensors it launches the
+kernel. The kernel reads KV head ``h // (Hq/Hkv)`` in place (no repeat
+copy), takes any strides over B, H and S with unit stride on D (the model
+hands in ``[B,S,H,D]`` projections as transposed views), and masks a
+ragged S itself (no padding copies). The output has q's layout.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, common
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 160)  # instantiated in csrc/flash_attention.cu
+launches = 0  # kernel launches since the last reset
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, Hq, S, D]; k,v: [B, Hkv, Skv, D] with Hq % Hkv == 0."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal).transpose(1, 2)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride on D")
+    out = torch.empty_like(q)  # keeps q's layout when q is a dense view
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
+                                         for i in range(3)))
+    with torch.cuda.device(q.device):
+        rc = build.entry("flash_attention")(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            b, hq, hkv, sq, skv, d, int(causal), DTYPES[q.dtype], d ** -0.5,
+            strides, ctypes.c_void_p(common.stream_ptr(q)))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: launch failed, CUDA error {rc}")
+    launches += 1
+    return out

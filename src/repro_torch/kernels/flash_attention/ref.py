@@ -1,0 +1,70 @@
+"""Plain versions of the flash_attention kernel.
+
+``attention`` is the naive oracle of ``repro.kernels.flash_attention.ref``.
+``flash_attention_plain`` is ``repro.models.layers.jnp_flash_attention``
+copied op for op: the kernel's plain version, which its wrapper runs on CPU
+tensors and the model runs on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG = -1e30  # the masked-score sentinel of the JAX package
+
+
+def attention(q, k, v, causal: bool = True, scale: float | None = None):
+    """q,k,v: [BH, S, D] (kv may have different S)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = s.shape[1], s.shape[2]
+        mask = torch.tril(torch.ones((sq, sk), dtype=torch.bool, device=q.device),
+                          diagonal=sk - sq)
+        s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, chunk: int = 1024,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,S,H,hd]; k,v: [B,Skv,Hkv,hd]. Online-softmax loop over KV
+    chunks; the causal mask is aligned top-left (``rows >= cols``)."""
+    b, s, h, hd = q.shape
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    group = h // hkv
+    scale = scale if scale is not None else hd ** -0.5
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kc = k.reshape(b, n_chunks, chunk, hkv, hd)
+    vc = v.reshape(b, n_chunks, chunk, hkv, dv)
+    qg = q.reshape(b, s, hkv, group, hd).float()
+    rows = torch.arange(s, device=q.device)
+    acc = torch.zeros((b, hkv, s, group, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, s, group), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, s, group), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        sc = torch.einsum("bsngd,bcnd->bnsgc", qg, kc[:, ci].float()) * scale
+        cols = ci * chunk + torch.arange(chunk, device=q.device)
+        valid = cols[None, :] < skv
+        if causal:
+            valid = valid & (rows[:, None] >= cols[None, :])
+        sc = torch.where(valid[None, None, :, None, :], sc, NEG)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bnsgc,bcnd->bnsgd", p, vc[:, ci].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, h, dv).to(q.dtype)

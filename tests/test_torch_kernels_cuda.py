@@ -7,7 +7,7 @@ it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes are those of ``tests/test_kernels.py``; bars 1e-4 in float32 and
-3e-2 in bfloat16, with TF32 off.
+3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off.
 """
 import numpy as np
 import pytest
@@ -15,9 +15,12 @@ import torch
 
 from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
 from repro_torch.kernels.decision_forest import ops as df, ref as df_ref
+from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+from repro_torch.kernels.flash_decode import ops as fdec, ref as fdec_ref
 from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
 
 F32_TOL, BF16_TOL = 1e-4, 3e-2
+ATTN_TOL = 2e-4
 
 
 @pytest.fixture
@@ -97,3 +100,135 @@ def test_kernels_refuse_non_contiguous(cuda_device):
     x = torch.ones((8, 6), device=cuda_device).t()
     with pytest.raises(ValueError):
         bm.block_matmul(x, torch.ones((8, 4), device=cuda_device))
+
+
+def _attn_tol(dtype):
+    return ATTN_TOL if dtype == "float32" else BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 4, 2, 37, 16), (1, 8, 8, 256, 64),
+                                          (2, 6, 3, 100, 32), (1, 4, 1, 70, 128),
+                                          (1, 2, 1, 65, 160)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel(cuda_device, b, hq, hkv, s, d, causal, dtype):
+    rng = np.random.default_rng(s + d)
+    td = getattr(torch, dtype)
+    q, k, v = (_normal(rng, sh, cuda_device).to(td)
+               for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal)
+    assert fa.launches == before + 1 and got.dtype == td and got.shape == q.shape
+    want = fa_ref.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), causal=causal).transpose(1, 2)
+    tol = _attn_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_strided_views(cuda_device):
+    """[B,S,H,D] projections go in as transposed views, as the model passes
+    them; the output keeps q's layout, so its transpose back is contiguous."""
+    rng = np.random.default_rng(5)
+    b, s, hq, hkv, d = 2, 130, 8, 2, 64
+    qs, ks, vs = (_normal(rng, sh, cuda_device)
+                  for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    got = fa.flash_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa_ref.flash_attention_plain(qs, ks, vs, causal=True)
+    torch.testing.assert_close(got.transpose(1, 2), want, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,g,d,s", [(4, 6, 32, 300), (2, 8, 64, 1024),
+                                      (1, 1, 16, 50), (3, 4, 160, 520)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel(cuda_device, bh, g, d, s, dtype):
+    rng = np.random.default_rng(bh + s)
+    td = getattr(torch, dtype)
+    q, k, v = (_normal(rng, sh, cuda_device).to(td)
+               for sh in ((bh, g, d), (bh, s, d), (bh, s, d)))
+    before = fdec.launches
+    got = fdec.decode_partials(q, k, v)
+    assert fdec.launches == before + 1
+    want = fdec_ref.decode_partials_plain(q, k[:, :, None], v[:, :, None], s, d ** -0.5)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y[:, 0], rtol=ATTN_TOL, atol=ATTN_TOL)
+    torch.testing.assert_close(fdec.decode_attention(q, k, v),
+                               fdec_ref.decode_attention(q, k, v),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_shard_merge(cuda_device):
+    rng = np.random.default_rng(0)
+    bh, g, d, s = 3, 4, 32, 384
+    q, k, v = (_normal(rng, sh, cuda_device) for sh in ((bh, g, d), (bh, s, d), (bh, s, d)))
+    parts = [fdec.decode_partials(q, k[:, lo:hi], v[:, lo:hi])
+             for lo, hi in [(0, 128), (128, 256), (256, 384)]]
+    torch.testing.assert_close(fdec_ref.merge_partials(*zip(*parts)),
+                               fdec_ref.decode_attention(q, k, v),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filled", [1, 255, 256, 700, 1024, 1500])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_model_cache(cuda_device, filled, dtype):
+    """The model's call: cache [B,S,Hkv,D] read through strides, the filled
+    length as an int32 on the card (past S it means all slots)."""
+    rng = np.random.default_rng(filled)
+    td = getattr(torch, dtype)
+    b, hq, hkv, s, d = 4, 32, 8, 1024, 64
+    q = _normal(rng, (b, hq, d), cuda_device).to(td)
+    kc, vc = (_normal(rng, (b, s, hkv, d), cuda_device).to(td) for _ in range(2))
+    n = torch.tensor(filled, dtype=torch.int32, device=cuda_device)
+    got = fdec.gqa_decode_partials(q, kc, vc, n)
+    want = fdec_ref.decode_partials_plain(q, kc, vc, filled, d ** -0.5)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_bad_operands(cuda_device):
+    x = torch.ones((1, 2, 8, 24), device=cuda_device)  # head dim 24: no instance
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x)
+    y = torch.ones((1, 2, 16, 8), device=cuda_device).transpose(2, 3)  # D stride 16
+    with pytest.raises(ValueError):
+        fa.flash_attention(y, y, y)
+    q = torch.ones((2, 9, 16), device=cuda_device)  # group of 9 > 8
+    kv = torch.ones((2, 40, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        fdec.decode_partials(q, kv, kv)
+    kv_odd = torch.ones((2, 41 * 16 + 1), device=cuda_device)[:, 1:].view(2, 41, 16)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        fdec.decode_partials(torch.ones((2, 4, 16), device=cuda_device), kv_odd, kv_odd)
+
+
+@pytest.mark.cuda
+def test_lm_smoke_on_card_matches_cpu(cuda_device):
+    """granite's smoke config in float32: forward, prefill and a decode step
+    through the kernels on the card against the plain versions on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), dtype="float32")
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    p_gpu = {"embed": p_cpu["embed"].to(cuda_device),
+             "final_norm": p_cpu["final_norm"].to(cuda_device),
+             "blocks": {k: w.to(cuda_device) for k, w in p_cpu["blocks"].items()}}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    before = (fa.launches, fdec.launches)
+    h = lm.forward(p_gpu, cfg, toks.to(cuda_device))
+    lg, cache = lm.prefill(p_gpu, cfg, toks[:, :-1].to(cuda_device), max_len=64)
+    dl, _ = lm.make_decode_step(cfg)(p_gpu, cache, toks[:, -1].to(cuda_device))
+    assert (fa.launches - before[0], fdec.launches - before[1]) == (2 * cfg.n_layers,
+                                                                    cfg.n_layers)
+    h_c = lm.forward(p_cpu, cfg, toks)
+    lg_c, cache_c = lm.prefill(p_cpu, cfg, toks[:, :-1], max_len=64)
+    dl_c, _ = lm.make_decode_step(cfg)(p_cpu, cache_c, toks[:, -1])
+    for got, want in ((h, h_c), (lg, lg_c), (dl, dl_c)):
+        torch.testing.assert_close(got.cpu(), want, rtol=ATTN_TOL, atol=ATTN_TOL)

@@ -23,12 +23,15 @@ from repro.core import executor as jex
 from repro.core.rules import ALL_RULES as J_RULES
 from repro.data import workloads as jwl
 from repro_torch import convert
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import evaluator, ir
 from repro_torch.core import executor as tex
 from repro_torch.core.lowering import lower
 from repro_torch.core.rules import ALL_RULES as T_RULES, kernel_plan
 from repro_torch.data import workloads as twl
 from repro_torch.kernels import common
+from repro_torch.launch import serve
+from repro_torch.models import lm
 from repro_torch.relational.table import Table
 from repro_torch.testing import assert_canonical_close
 
@@ -228,6 +231,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tex.execute(w.plan, w.catalog)
     with pytest.raises(RuntimeError, match="CUDA"):
         tex.execute_reference(w.plan, w.catalog)
+    cfg = get_smoke_config("granite-3-2b")
+    for entry in (lambda: lm.init_params(cfg), lambda: lm.init_cache(cfg, 1, 8),
+                  lambda: serve.Server(cfg, batch=1, max_len=8),
+                  lambda: convert.lm_params_from_numpy({"w": np.ones(2, np.float32)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert common.resolve_device("cpu") == torch.device("cpu")
 
 
