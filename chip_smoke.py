@@ -8,12 +8,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and cuDNN.
 2. build: compiles the five CUDA kernels from src/repro_torch/kernels/csrc,
-   one nvcc per source, all started together.
+   one nvcc per source, all started together; checks in their SASS
+   (cuobjdump) that the bf16 attention instances run on tensor cores.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
    the card, at the JAX package's kernel-test shapes and at the main paths'
    shapes (bars: 1e-4 in float32, 2e-4 for attention in float32, 3e-2 in
    bfloat16, 1e-2 for flash_attention's main shape in bfloat16, which also
-   runs in float32 at 2e-4).
+   runs in float32 at 2e-4); flash_attention's tensor-core instance also at
+   head dims 128 and 160 with a ragged S, and flash_decode called three
+   times and replayed three times from a CUDA graph, all equal.
 4. main path: all 12 workloads at scale 1.0. ``execute`` on the card
    (backend ``torch``) against ``execute_reference`` on the CPU, then the
    kernel path (``core.rules.kernel_plan``: R3-1/R3-2, R4-2, R4-1-fuse, R4-2)
@@ -39,12 +42,13 @@ Phases, each printing its own lines; any failure exits non-zero:
       and 32 greedy decode steps, with launch counts zeroed just before and
       read just after (40 flash_attention launches per prefill, 40
       flash_decode per step); then prefill and decode times (medians of 5
-      after one warm-up, CUDA events), peak memory, one profiled prefill and
-      decode step;
+      after one warm-up, CUDA events), peak memory, one profiled prefill
+      (top 8 kernels) and decode step;
    e. ``Server``: 8 requests, prompts of 4-11 tokens, max_new 16, batch 4,
       max_len 256 (launch/serve.py main's settings).
 7. each kernel's time at its main-path shape beside its plain version, one
-   library call, and its bound.
+   library call, and its bound; its achieved TFLOP/s or GB/s and its share
+   of the bound.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -246,6 +250,38 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib}: {line.strip()}")
+    phase_sass(build)
+
+
+# kernel instances that must run on tensor cores: (library, mangled-name
+# pattern, the instruction their SASS must hold)
+TENSOR_CORE_KERNELS = (("flash_attention", r"flash_fwd_bf16ILi(\d+)E", "HGMMA"),
+                       ("flash_decode", r"decode_tcILi(\d+)E", "HMMA"))
+
+
+def phase_sass(build) -> None:
+    """The bf16 attention instances' SASS (cuobjdump of the built
+    libraries) holds tensor-core instructions: HGMMA (wgmma) in
+    flash_attention, HMMA (mma.sync) in flash_decode."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, pattern, want in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([tool, "--dump-sass", str(build._lib_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                found = re.search(pattern, line)
+                name = found.group(1) if found else None
+                if name:
+                    counts[name] = 0
+            elif name and want in line:
+                counts[name] += 1
+        print(f"[sass] {lib}: {want} per bf16 instance by head dim " + json.dumps(counts))
+        if not counts or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: bf16 instances without {want}: {counts}")
 
 
 def _normal(gen, shape, scale=1.0, dtype=torch.float32):
@@ -419,24 +455,36 @@ def phase_attention_parity(shapes: dict) -> dict:
     def attn(q, k, v, causal, tol, label):
         plain = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=causal).transpose(1, 2)
-        return kernel_vs_plain(fa.flash_attention(q, k, v, causal), plain, tol, label)
+        got = fa.flash_attention(q, k, v, causal)
+        err = kernel_vs_plain(got, plain, tol, label)
+        # the largest |err| / (atol + rtol |want|): the bar is met below 1
+        ratio = float(((got.float() - plain.float()).abs()
+                       / (tol + tol * plain.float().abs())).max())
+        return err, ratio
 
     for b, hq, hkv, s, d in [(2, 4, 2, 37, 16), (1, 8, 8, 256, 64), (2, 6, 3, 100, 32)]:
         for causal in (True, False):
             attn(*_attn_inputs(gen, b, hq, hkv, s, d), causal, ATTN_TOL,
                  f"flash_attention {(b, hq, hkv, s, d)} causal={causal}")
+    # the tensor-core instance at the widest head dims, ragged S
+    for b, hq, hkv, s, d in [(1, 8, 2, 333, 128), (2, 4, 1, 129, 160)]:
+        for causal in (True, False):
+            attn(*_attn_inputs(gen, b, hq, hkv, s, d, torch.bfloat16), causal, BF16_TOL,
+                 f"flash_attention bf16 {(b, hq, hkv, s, d)} causal={causal}")
     b, hq, hkv, s, d = shapes["flash_attention"]
     main_in = _attn_inputs(gen, b, hq, hkv, s, d)
-    f32_err = attn(*main_in, True, ATTN_TOL, "flash_attention main path f32")
+    f32_err, _ = attn(*main_in, True, ATTN_TOL, "flash_attention main path f32")
     main_in = [x.to(torch.bfloat16) for x in main_in]
-    errs["flash_attention"] = attn(*main_in, True, ATTN_BF16_TOL,
-                                   "flash_attention main path bf16")
+    errs["flash_attention"], ratio = attn(*main_in, True, ATTN_BF16_TOL,
+                                          "flash_attention main path bf16")
     del main_in
     torch.cuda.empty_cache()
     print(f"[parity] flash_attention ok: 3 test shapes x 2 causal settings, f32 at "
-          f"{ATTN_TOL:g}; main path B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal: f32 "
+          f"{ATTN_TOL:g}; bf16 at D 128 and 160, ragged S, x 2 causal settings, at "
+          f"{BF16_TOL:g}; main path B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal: f32 "
           f"max|err|={f32_err:.3g} (bar {ATTN_TOL:g}), bf16 "
-          f"max|err|={errs['flash_attention']:.3g} (bar {ATTN_BF16_TOL:g})")
+          f"max|err|={errs['flash_attention']:.3g} (bar rtol=atol={ATTN_BF16_TOL:g}; "
+          f"largest |err| / (atol + rtol |want|) = {ratio:.3f})")
 
     def partials(got, want, label):
         return max(kernel_vs_plain(x, y, ATTN_TOL, f"{label} {part}")
@@ -458,13 +506,31 @@ def phase_attention_parity(shapes: dict) -> dict:
     q = _normal(gen, (b, hq, d), dtype=torch.bfloat16)
     kc, vc = (_normal(gen, (b, cap, hkv, d), dtype=torch.bfloat16) for _ in range(2))
     n = torch.tensor(filled, dtype=torch.int32, device="cuda")
+    got = fdec.gqa_decode_partials(q, kc, vc, n)
     errs["flash_decode"] = partials(
-        fdec.gqa_decode_partials(q, kc, vc, n),
-        decode_partials_plain(q, kc, vc, filled, d ** -0.5), "flash_decode main path")
+        got, decode_partials_plain(q, kc, vc, filled, d ** -0.5), "flash_decode main path")
+    # repeated calls, and replays of one captured call, give equal results
+    # (the merge's per-(b, h) tickets are left at zero by every call)
+    outs = [fdec.gqa_decode_partials(q, kc, vc, n) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fdec.gqa_decode_partials(q, kc, vc, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fdec.gqa_decode_partials(q, kc, vc, n)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append([x.clone() for x in captured])
+    for i, out in enumerate(outs):
+        for x, y, part in zip(out, got, ("acc", "m", "l")):
+            kernel_vs_plain(x, y, 0.0, f"flash_decode repeat {i} {part}")
     print(f"[parity] flash_decode ok: 3 test shapes and the shard merge, f32 at "
           f"{ATTN_TOL:g}; main path B{b} Hq{hq} Hkv{hkv} D{d}, {filled} of {cap} "
           f"slots filled, bf16 cache, max|err|={errs['flash_decode']:.3g} "
-          f"(bar {ATTN_TOL:g})")
+          f"(bar {ATTN_TOL:g}); 3 repeated calls and 3 graph replays equal")
     return errs
 
 
@@ -579,9 +645,7 @@ def phase_lm_bf16() -> tuple:
           f"ms/step ({LM_BATCH * LM_STEPS / run_ms * 1e3:.1f} tok/s); medians of "
           f"{TIMED_RUNS}; peak memory {peak_gb:.2f} GB")
     profile_breakdown(f"{LM_ARCH} prefill B{LM_BATCH}xS{LM_PROMPT}",
-                      lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN))
-    # flash_decode is two kernels per launch counted: fdk::decode_chunk and
-    # fdk::decode_merge
+                      lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN), top=8)
     profile_breakdown(f"{LM_ARCH} decode step B{LM_BATCH} at {LM_PROMPT} slots",
                       lambda: step(params, dict(cache, len=len0), tok0), also=("fdk::",))
 
@@ -667,11 +731,14 @@ def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": timer(library) / per_call if library else None}
     lib_ms = f"{row['library_ms']:.4f} ms" if library else "none"
+    rate = (f"{flops / row['ms'] / 1e9:.1f} TFLOP/s" if row["bound_by"] == "operations"
+            else f"{nbytes / row['ms'] / 1e6:.1f} GB/s")
     # with graph timing, also the same calls eager, host overhead included
     eager = (f"; eager, host overhead included: kernel {cuda_ms(kernel) / per_call:.4f}"
              f" ms, library {cuda_ms(library) / per_call:.4f} ms" if graph else "")
     print(f"[time] {name} {shape}{' (graph replay)' if graph else ''}: "
-          f"kernel {row['ms']:.4f} ms, plain "
+          f"kernel {row['ms']:.4f} ms ({rate}, {100 * row['bound_ms'] / row['ms']:.1f}% "
+          f"of the bound), plain "
           f"{row['plain_ms']:.4f} ms, library {lib_ms}, bound "
           f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
           f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s "

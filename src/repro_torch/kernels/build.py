@@ -34,9 +34,10 @@ SIGNATURES = {
     "forest_predict": ("decision_forest", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                             _I, _I, _I, _F, _STRIDES, _P]),
-    "flash_decode": ("flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+    "flash_decode": ("flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                       _STRIDES, _P]),
+    "flash_decode_chunk": ("flash_decode", [_I, _I]),
 }
 LIBRARIES = ("block_matmul", "decision_forest", "fused_dense", "flash_attention",
              "flash_decode")

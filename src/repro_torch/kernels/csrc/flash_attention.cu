@@ -7,39 +7,54 @@
 // runs, src/repro/models/layers.py::jnp_flash_attention.
 //
 // Bound on the H100: operations. At the model's prefill shape (B 4, S 2048,
-// 32 query heads over 8 KV heads, D 64, causal) the work is 68.7 GFLOP
-// against 84 MB of q, k, v and o, about 800 FLOP per byte. This first
-// design computes in f32 FMA (no tensor cores), so its own ceiling is the
-// 67 TFLOP/s f32 rate rather than the 989 TFLOP/s bf16 tensor-core rate the
-// bound is stated against; f32 math keeps the 2e-4 bar of the f32 path.
-// Measured at that shape it reaches about a third of the f32 FMA rate: the
-// inner loops make one shared-memory load per two FMAs (PERF.md).
+// 32 query heads over 8 KV heads, D 64, causal, bf16) the work is 68.7
+// GFLOP against 84 MB of q, k, v and o, about 800 FLOP per byte: 0.069 ms
+// at the 989 TFLOP/s of the bf16 tensor cores.
 //
-// Design. One 256-thread block per (b*Hq + h, 64-row q tile); b*Hq + h is
-// the grid's x (no 65535 limit), and the grid's y walks the tiles from the
-// last to the first, so the long causal tiles start first. The q tile is
-// staged once in shared memory as f32; each 64-key K/V tile after it.
-// S = Q K^T is a 64x64 register-tiled product: thread (ty, tx) owns rows
-// ty + 16*i and cols tx + 16*j (i, j < 4), so the 16 threads of one row
-// sit in one half-warp and the row max and row sum are xor-shuffles. P
-// goes through shared memory into O += P V, where the thread owns rows
-// ty + 16*i and D/16 columns tx + 16*c. Rows padded to D + 1 floats keep
-// the column reads of a warp on distinct banks. The running max m, sum l
-// and the accumulator stay in registers; o = acc / max(l, 1e-30) is stored
-// once in the input type.
+// Two instances, picked by the input type in the C entry below:
 //
-// Differences from the TPU version: the KV head h / G is read in place
-// (no repeat copy), strides over B, H and S are arguments (unit stride on
-// D), ragged S is masked on load and on store (no padding copies), and KV
-// tiles that the causal mask covers entirely are skipped. That skip is
-// exact: once the first tile has set m, such a tile's p = exp(-1e30 - m)
-// is 0 and its alpha is 1.
+// bf16: tensor cores (flash_fwd_bf16). One 256-thread block per (b*Hq + h,
+// 128-row q tile), two warpgroups of 64 rows each. The q tile is copied
+// once into shared memory; K and V arrive in 64-key tiles by cp.async
+// 16-byte copies into a ring of two stages, so tile j+1 is in flight while
+// tile j is computed (rows past Skv are zero-filled by the copy). Tiles are
+// stored in the swizzled layouts wgmma reads (wgmma.cuh): rows of 128 bytes
+// (D >= 64, as 64-column atoms; D 160 takes three, the last half used), 64
+// bytes (D 32) or 32 bytes (D 16). Per tile and warpgroup:
+//   S = Q K^T  wgmma m64n64k16, Q and K from shared memory, both K-major
+//              (K's [key, D] rows are what B wants; no transpose copy);
+//   softmax    on the accumulator fragments: each thread holds 2 rows x 16
+//              columns, the row max is a max over the 4 threads of a quad,
+//              the scale is folded with log2(e) into exp2, and only tiles
+//              on the causal diagonal or past Skv are masked; the row sum
+//              stays per thread until the end;
+//   O += P V   wgmma m64nNk16 (N <= 64 per instruction), A = P converted to
+//              bf16 in place: the f32 accumulator fragment of S is the
+//              register layout A takes, so P never goes through shared
+//              memory; B = V from shared memory, MN-major (transpose bit).
+// P in bf16 is what the TPU kernel computes too: its jnp.dot(p, v) rounds
+// p to bf16 on the MXU at default precision. m, l and O stay in f32.
+//
+// f32: CUDA cores (flash_fwd_f32). The f32 path's 2e-4 bar rules out bf16
+// tensor cores and TF32, so it computes in f32 FMA: one 256-thread block per
+// (b*Hq + h, 64-row q tile), 64x64 register tiles (thread (ty, tx) owns rows
+// ty + 16*i and cols tx + 16*j), P through shared memory. Its ceiling is the
+// 67 TFLOP/s f32 rate; the LM's timed path is bf16.
+//
+// Both: the KV head h / G is read in place (no repeat copy), strides over
+// B, H and S are arguments (unit stride on D), ragged S is masked on load
+// and on store (no padding copies), the grid's x is b*Hq + h (no 65535
+// limit) and its y walks the q tiles from the last to the first so the long
+// causal tiles start first, and KV tiles that the causal mask covers
+// entirely are skipped. That skip is exact: once the first tile has set m,
+// such a tile's p = exp(-1e30 - m) is 0 and its alpha is 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace fa {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 256;
 constexpr float NEG = -1e30f;
 
 struct Strides { long long b, h, s; };
@@ -54,21 +69,235 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---------------------------------------------------------------------------
+// bf16: wgmma
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int WGS = 2, BQ = 64 * WGS, BKV = 64, THREADS = 128 * WGS, STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Geo {
+  static constexpr int ACOLS = D >= 64 ? 64 : D;  // bf16 columns of an atom
+  static constexpr int SW = ACOLS * 2;              // bytes per atom row
+  static constexpr int CHUNKS = SW / 16;            // 16-byte chunks per atom row
+  static constexpr int NATOM = (D + ACOLS - 1) / ACOLS;
+  static constexpr int Q_ATOM = BQ * SW;
+  static constexpr int KV_ATOM = BKV * SW;
+  static constexpr int Q_BYTES = NATOM * Q_ATOM;
+  static constexpr int KV_BYTES = NATOM * KV_ATOM;  // K or V, one stage
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;  // + alignment
+  static_assert(D % 16 == 0 && ACOLS % 16 == 0, "head dim");
+};
+
+// rows [row0, row0 + n) of a [rows, D] bf16 matrix (row stride `stride`)
+// into the atoms at `dst`, rows at or past `limit` zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          long long stride, int row0, int n, int limit,
+                                          int atom_bytes) {
+  using G = Geo<D>;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < n * CPR; i += THREADS) {
+    const int r = i / CPR, ci = i % CPR, row = row0 + r;
+    const bool ok = row < limit;
+    const __nv_bfloat16* s = ok ? src + row * stride + ci * 8 : src;
+    hop::cp_async16(dst + (ci / G::CHUNKS) * atom_bytes +
+                        hop::swizzle<G::SW>(r, ci % G::CHUNKS), s, ok);
+  }
 }
+
+// O (+)= P V over one atom of V's columns; o holds D/2 accumulators
+template <int D, int A>
+__device__ __forceinline__ void pv_atom(float (&o)[D / 2], const uint32_t* pa,
+                                        uint32_t v_kk) {
+  using G = Geo<D>;
+  constexpr int N = D - A * G::ACOLS < G::ACOLS ? D - A * G::ACOLS : G::ACOLS;
+  const uint64_t db = hop::make_desc<G::SW>(v_kk + A * G::KV_ATOM, 8 * G::SW);
+  if constexpr (N == 64) hop::wgmma_rs_n64<A * 32>(o, pa, db);
+  else if constexpr (N == 32) hop::wgmma_rs_n32<A * 32>(o, pa, db);
+  else hop::wgmma_rs_n16<A * 32>(o, pa, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Params p) {
+  using G = Geo<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (hop::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + G::Q_BYTES;  // stage st: K, then V
+
+  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
+  const int q0 = tile * BQ;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + hk * p.ks.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + hk * p.vs.h;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, quad = lane % 4;
+  const int row0 = q0 + 64 * wg;               // this warpgroup's first row
+  const int ra = row0 + 16 * warp + lane / 4;  // the thread's rows: ra, ra + 8
+
+  const int n_all = (p.skv + BKV - 1) / BKV;
+  int n_kv = n_all, wg_tiles = row0 < p.sq ? n_all : 0;
+  if (p.causal) {
+    n_kv = min(n_all, (min(q0 + BQ, p.sq) - 1) / BKV + 1);
+    if (row0 < p.sq) wg_tiles = min(n_all, (min(row0 + 64, p.sq) - 1) / BKV + 1);
+  }
+
+  auto load_kv = [&](int st, int j) {
+    const uint32_t ks = kv_s + st * 2 * G::KV_BYTES;
+    load_tile<D>(ks, k, p.ks.s, j * BKV, BKV, p.skv, G::KV_ATOM);
+    load_tile<D>(ks + G::KV_BYTES, v, p.vs.s, j * BKV, BKV, p.skv, G::KV_ATOM);
+  };
+  load_tile<D>(q_s, q, p.qs.s, q0, BQ, p.sq, G::Q_ATOM);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_kv) load_kv(st, st);
+    hop::cp_async_commit();
+  }
+
+  float s[32], acc[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t pa[16];
+  const float sl2 = p.scale * LOG2E;
+
+  for (int j = 0; j < n_kv; ++j) {
+    hop::cp_async_wait<STAGES - 2>();  // tile j has landed (this thread's copies)
+    hop::fence_proxy_async();
+    __syncthreads();  // ... everyone's; and tile j-1's stage is free again
+    {
+      const int jn = j + STAGES - 1;
+      if (jn < n_kv) load_kv(jn % STAGES, jn);
+      hop::cp_async_commit();
+    }
+    if (j >= wg_tiles) continue;  // uniform per warpgroup
+    const uint32_t k_s = kv_s + (j % STAGES) * 2 * G::KV_BYTES, v_s = k_s + G::KV_BYTES;
+
+    // S = Q K^T
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int atom = kk / (G::ACOLS / 16);
+      const uint32_t off = (kk % (G::ACOLS / 16)) * 32;  // 16 columns, in bytes
+      const uint64_t da =
+          hop::make_desc<G::SW>(q_s + atom * G::Q_ATOM + 64 * wg * G::SW + off, 16);
+      const uint64_t db = hop::make_desc<G::SW>(k_s + atom * G::KV_ATOM + off, 16);
+      hop::wgmma_ss_n64<0>(s, da, db, kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(s);
+
+    // online softmax on the fragments: s[4i + e] is row ra + 8 * (e / 2),
+    // column c0 + 8 i + 2 quad + e % 2
+    const int c0 = j * BKV;
+    const bool edge = c0 + BKV > p.skv || (p.causal && c0 + BKV - 1 > row0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * i + e] * sl2;
+        if (edge) {
+          const int col = c0 + 8 * i + 2 * quad + (e & 1), row = ra + 8 * (e >> 1);
+          if (col >= p.skv || (p.causal && row < col)) x = NEG;
+        }
+        s[4 * i + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = hop::exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float pv = hop::exp2_approx(s[i] - m[(i >> 1) & 1]);
+      s[i] = pv;
+      l[(i >> 1) & 1] += pv;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = hop::pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    // O += P V: A's k-step kk is S's columns 16 kk .. 16 kk + 15, i.e.
+    // registers pa[4 kk .. 4 kk + 3]
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t v_kk = v_s + kk * 16 * G::SW;
+      pv_atom<D, 0>(acc, pa + 4 * kk, v_kk);
+      if constexpr (G::NATOM > 1) pv_atom<D, 1>(acc, pa + 4 * kk, v_kk);
+      if constexpr (G::NATOM > 2) pv_atom<D, 2>(acc, pa + 4 * kk, v_kk);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);
+  }
+  hop::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = ra + 8 * r;
+    if (row >= p.sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* orow = o + row * p.os.s + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int n_bh, cudaStream_t stream) {
+  constexpr int bytes = Geo<D>::SMEM;
+  static bool configured = false;  // the attribute is set once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(n_bh, (p.sq + BQ - 1) / BQ);
+  flash_fwd_bf16<D><<<grid, THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int BQ = 64, BKV = 64, THREADS = 256;
 
 template <int D>
 constexpr int smem_floats() {
   return BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
   constexpr int LD = D + 1, LP = BKV + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;             // [BQ][LD]
@@ -79,15 +308,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
   const int tile = gridDim.y - 1 - blockIdx.y;
   const int bh = blockIdx.x, b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
   const int q0 = tile * BQ;
-  const T* q = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.ks.b + hk * p.ks.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.vs.b + hk * p.vs.h;
-  T* o = static_cast<T*>(p.o) + b * p.os.b + h * p.os.h;
+  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + hk * p.ks.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + hk * p.vs.h;
+  float* o = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D, row = q0 + r;
-    Qs[r * LD + d] = row < p.sq ? to_f32(q[row * p.qs.s + d]) : 0.f;
+    Qs[r * LD + d] = row < p.sq ? q[row * p.qs.s + d] : 0.f;
   }
 
   float acc[4][DC], m[4], l[4];
@@ -108,8 +337,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
     for (int i = tid; i < BKV * D; i += THREADS) {
       const int c = i / D, d = i % D, col = c0 + c;
       const bool in = col < p.skv;
-      Ks[c * LD + d] = in ? to_f32(k[col * p.ks.s + d]) : 0.f;
-      Vs[c * D + d] = in ? to_f32(v[col * p.vs.s + d]) : 0.f;
+      Ks[c * LD + d] = in ? k[col * p.ks.s + d] : 0.f;
+      Vs[c * D + d] = in ? v[col * p.vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -184,42 +413,45 @@ __global__ void __launch_bounds__(THREADS) flash_fwd(Params p) {
     if (row >= p.sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      o[row * p.os.s + tx + 16 * cc] = from_f32<T>(acc[i][cc] / den);
+    for (int cc = 0; cc < DC; ++cc) o[row * p.os.s + tx + 16 * cc] = acc[i][cc] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, int n_bh, cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<D>() * sizeof(float);
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(n_bh, (p.sq + BQ - 1) / BQ);
-  flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd_f32<D><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int n_bh, int d, cudaStream_t stream) {
+}  // namespace simt
+
+template <bool BF16>
+cudaError_t dispatch(const Params& p, int n_bh, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(p, n_bh, stream);
-    case 32: return launch<T, 32>(p, n_bh, stream);
-    case 64: return launch<T, 64>(p, n_bh, stream);
-    case 128: return launch<T, 128>(p, n_bh, stream);
-    case 160: return launch<T, 160>(p, n_bh, stream);
+    case 16: return BF16 ? tc::launch<16>(p, n_bh, s) : simt::launch<16>(p, n_bh, s);
+    case 32: return BF16 ? tc::launch<32>(p, n_bh, s) : simt::launch<32>(p, n_bh, s);
+    case 64: return BF16 ? tc::launch<64>(p, n_bh, s) : simt::launch<64>(p, n_bh, s);
+    case 128: return BF16 ? tc::launch<128>(p, n_bh, s) : simt::launch<128>(p, n_bh, s);
+    case 160: return BF16 ? tc::launch<160>(p, n_bh, s) : simt::launch<160>(p, n_bh, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace fa
 
-// dtype: 0 = float32, 1 = bfloat16. strides: (b, h, s) for q, k, v and o in
-// elements, 12 values; D has unit stride.
+// dtype: 0 = float32 (CUDA-core instance), 1 = bfloat16 (tensor-core
+// instance; q, k and v 16-byte aligned with strides a multiple of 8).
+// strides: (b, h, s) for q, k, v and o in elements, 12 values; D has unit
+// stride.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                                int D, int causal, int dtype, float scale,
@@ -242,7 +474,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(fa::dispatch<float>(p, B * Hq, D, s));
-  if (dtype == 1) return static_cast<int>(fa::dispatch<__nv_bfloat16>(p, B * Hq, D, s));
+  if (dtype == 0) return static_cast<int>(fa::dispatch<false>(p, B * Hq, D, s));
+  if (dtype == 1) return static_cast<int>(fa::dispatch<true>(p, B * Hq, D, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

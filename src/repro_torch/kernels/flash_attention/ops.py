@@ -5,10 +5,13 @@ the Pallas kernel behind it (``kernel.py::flash_attention_pallas``), with
 the same signature: q [B,Hq,S,D], k and v [B,Hkv,S,D] -> [B,Hq,S,D], scale
 ``D**-0.5``. On CPU tensors it runs the plain version
 (``ref.flash_attention_plain``); on CUDA tensors it launches the
-kernel. The kernel reads KV head ``h // (Hq/Hkv)`` in place (no repeat
-copy), takes any strides over B, H and S with unit stride on D (the model
-hands in ``[B,S,H,D]`` projections as transposed views), and masks a
-ragged S itself (no padding copies). The output has q's layout.
+kernel: bf16 on the tensor cores, f32 on the CUDA cores (the f32 bar of
+2e-4 rules out bf16 products and TF32). The kernel reads KV head
+``h // (Hq/Hkv)`` in place (no repeat copy), takes any strides over B, H
+and S with unit stride on D (the model hands in ``[B,S,H,D]`` projections
+as transposed views), and masks a ragged S itself (no padding copies). The
+output has q's layout. The bf16 instance copies rows in 16-byte pieces, so
+its operands must start on 16 bytes with strides a multiple of 8.
 """
 from __future__ import annotations
 
@@ -53,6 +56,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride on D")
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16
+                                          or any(t.stride(i) % 8 for i in range(3))):
+            raise ValueError(f"flash_attention: bf16 {name} must be 16-byte "
+                             "aligned at every row")
     out = torch.empty_like(q)  # keeps q's layout when q is a dense view
     if out.numel() == 0:
         return out

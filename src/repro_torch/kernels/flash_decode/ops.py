@@ -16,7 +16,12 @@ Two entry points share the kernel:
   no host sync.
 
 Both return float32 (acc, m, l) partials, unnormalized, for the
-log-sum-exp merge of ``ref.merge_partials``.
+log-sum-exp merge of ``ref.merge_partials``. The kernel cuts the cache
+into chunks shared out over ``split_blocks`` blocks per (b, h) and merges
+their partials in the same launch: the last block of each (b, h) to finish
+merges, found through a per-(b, h) int32 ticket that it resets to zero. The tickets live in one buffer per
+device, made once with ``torch.zeros``; calls on one device are therefore
+ordered on one stream, as the model's are.
 """
 from __future__ import annotations
 
@@ -30,8 +35,33 @@ from repro_torch.kernels.flash_decode.ref import decode_partials_plain
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 160)  # instantiated in csrc/flash_decode.cu
 MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
-CHUNK = 256  # cache slots per block; blocks past the filled length exit early
+MAX_SPLIT = 64  # blocks per (b, h), so partials per merge
 launches = 0  # kernel launches since the last reset
+_tickets = {}  # device -> int32 zeros, one per (b, h); grown, never freed
+
+
+def chunk_slots(d: int, dtype: torch.dtype) -> int:
+    """Cache slots per chunk of the kernel instance for (d, dtype)."""
+    return build.entry("flash_decode_chunk")(d, DTYPES[dtype])
+
+
+def split_blocks(n_bh: int, n_chunks: int, dev: torch.device) -> int:
+    """Blocks per (b, h): enough for about two blocks an SM over all
+    (b, h), a power of two, at most ``n_chunks`` and ``MAX_SPLIT``. Each
+    takes every ``split``-th chunk, so a long cache needs no more blocks
+    and a block past the filled length exits at once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = 1 << max(0, (-(-2 * sms // n_bh) - 1).bit_length())
+    return max(1, min(want, n_chunks, MAX_SPLIT))
+
+
+def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's merge tickets, at least ``n``. A buffer is never freed,
+    so a captured CUDA graph keeps a valid one."""
+    bufs = _tickets.setdefault(dev, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=dev))
+    return bufs[-1]
 
 
 def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, valid_len,
@@ -62,13 +92,14 @@ def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, valid_len,
     l = torch.empty((b, h, g), dtype=torch.float32, device=dev)
     if acc.numel() == 0:
         return acc, m, l
-    n_split = common.cdiv(n_slots, CHUNK)
-    if n_split > 1:  # per-chunk partials, merged by the kernel's second pass
-        parts = (torch.empty((n_split, b, h, g, d), dtype=torch.float32, device=dev),
-                 torch.empty((2, n_split, b, h, g), dtype=torch.float32, device=dev))
-        part_ptrs = (parts[0].data_ptr(), parts[1][0].data_ptr(), parts[1][1].data_ptr())
+    split = split_blocks(b * h, common.cdiv(n_slots, chunk_slots(d, q4.dtype)), dev)
+    if split > 1:  # per-block partials, merged in the same launch
+        parts = (torch.empty((split, b, h, g, d), dtype=torch.float32, device=dev),
+                 torch.empty((2, split, b, h, g), dtype=torch.float32, device=dev))
+        part_ptrs = (parts[0].data_ptr(), parts[1][0].data_ptr(), parts[1][1].data_ptr(),
+                     _ticket_buffer(dev, b * h).data_ptr())
     else:
-        part_ptrs = (0, 0, 0)
+        part_ptrs = (0, 0, 0, 0)
     if isinstance(valid_len, torch.Tensor):
         if valid_len.dtype != torch.int32 or valid_len.device != dev \
                 or valid_len.numel() != 1:
@@ -85,8 +116,8 @@ def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, valid_len,
             ctypes.c_void_p(v4.data_ptr()), ctypes.c_void_p(acc.data_ptr()),
             ctypes.c_void_p(m.data_ptr()), ctypes.c_void_p(l.data_ptr()),
             *(ctypes.c_void_p(p) for p in part_ptrs),
-            ctypes.c_void_p(len_ptr), len_host, b, h, g, n_slots, d, CHUNK,
-            n_split, DTYPES[q4.dtype], d ** -0.5, strides,
+            ctypes.c_void_p(len_ptr), len_host, b, h, g, n_slots, d,
+            split, DTYPES[q4.dtype], d ** -0.5, strides,
             ctypes.c_void_p(common.stream_ptr(q4)))
     if rc != 0:
         raise RuntimeError(f"flash_decode: launch failed, CUDA error {rc}")

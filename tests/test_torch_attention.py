@@ -33,7 +33,11 @@ def _close(got, want, tol=ATTN_TOL):
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 4, 2, 37, 16), (1, 8, 8, 256, 64),
-                                          (2, 6, 3, 100, 32)])
+                                          (2, 6, 3, 100, 32),
+                                          # ragged S at the card kernel's tile
+                                          # edges, its widest head dims, group 8
+                                          (1, 2, 1, 1, 16), (1, 4, 2, 63, 64),
+                                          (1, 4, 2, 65, 128), (1, 8, 1, 129, 160)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_pallas(b, hq, hkv, s, d, causal):
     q, k, v = _inputs(s + d, (b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))
@@ -51,12 +55,14 @@ def test_flash_attention_matches_pallas(b, hq, hkv, s, d, causal):
            j_fa_ref.attention(jnp.asarray(qq), jnp.asarray(kk), jnp.asarray(vv), causal))
 
 
-@pytest.mark.parametrize("s,skv,chunk,causal", [(37, 37, 16, True), (20, 45, 8, True),
-                                                 (33, 19, 1024, False)])
-def test_flash_attention_plain_matches_jnp_twin(s, skv, chunk, causal):
+@pytest.mark.parametrize("s,skv,chunk,causal,hd", [
+    (37, 37, 16, True, 16), (20, 45, 8, True, 16), (33, 19, 1024, False, 16),
+    (65, 130, 64, True, 64)], ids=["37-37-16-True", "20-45-8-True", "33-19-1024-False",
+                                   "65-130-64-True-hd64"])
+def test_flash_attention_plain_matches_jnp_twin(s, skv, chunk, causal, hd):
     """Several chunks, a ragged last chunk and Skv != S, against
     ``jnp_flash_attention`` with the same arguments, in [B,S,H,hd]."""
-    q, k, v = _inputs(s + skv, (2, s, 6, 16), (2, skv, 3, 16), (2, skv, 3, 16))
+    q, k, v = _inputs(s + skv, (2, s, 6, hd), (2, skv, 3, hd), (2, skv, 3, hd))
     want = jL.jnp_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                   causal=causal, chunk=chunk)
     got = tL.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
@@ -65,7 +71,11 @@ def test_flash_attention_plain_matches_jnp_twin(s, skv, chunk, causal):
 
 
 @pytest.mark.parametrize("bh,g,d,s", [(4, 6, 32, 300), (2, 8, 64, 1024),
-                                      (1, 1, 16, 50)])
+                                      (1, 1, 16, 50),
+                                      # S on both sides of the card kernel's
+                                      # 128-slot chunk (64 at D 160 in bf16)
+                                      (2, 4, 64, 127), (2, 4, 64, 128),
+                                      (2, 4, 64, 129), (1, 8, 160, 65)])
 def test_flash_decode_matches_pallas(bh, g, d, s):
     q, k, v = _inputs(bh + s, (bh, g, d), (bh, s, d), (bh, s, d))
     jq, jk, jv = map(jnp.asarray, (q, k, v))
@@ -94,11 +104,14 @@ def test_flash_decode_shard_merge():
     _close(merged, j_fd_ref.merge_partials(*map(list, zip(*jparts))))
 
 
-@pytest.mark.parametrize("valid_len", [1, 13, 40, 64])
+@pytest.mark.parametrize("valid_len", [1, 13, 40, 64, 127, 128, 129, 257])
 def test_decode_partials_valid_len_matches_jnp_twin(valid_len):
     """``valid_len < S`` masks the unfilled slots, as ``_decode_partials_jnp``
-    does; the model's wrapper takes the length as a tensor too."""
-    b, hq, hkv, s, d = 2, 8, 2, 64, 16
+    does; the model's wrapper takes the length as a tensor too. Past 64 the
+    cache has 512 slots: lengths on both sides of the card kernel's 128-slot
+    chunk and one past half the cache."""
+    b, hq, hkv, d = 2, 8, 2, 16
+    s = 64 if valid_len <= 64 else 512
     q, k, v = _inputs(valid_len, (b, hq, d), (b, s, hkv, d), (b, s, hkv, d))
     want = jL._decode_partials_jnp(*map(jnp.asarray, (q, k, v)), valid_len, d ** -0.5)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))

@@ -6,8 +6,9 @@ it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
-Shapes are those of ``tests/test_kernels.py``; bars 1e-4 in float32 and
-3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off.
+Shapes are those of ``tests/test_kernels.py`` and, for the attention
+kernels, S on both sides of their tiles and chunks; bars 1e-4 in float32
+and 3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off.
 """
 import numpy as np
 import pytest
@@ -127,17 +128,36 @@ def test_flash_attention_kernel(cuda_device, b, hq, hkv, s, d, causal, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_strided_views(cuda_device):
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_bf16_edges(cuda_device, d, s, causal):
+    """The tensor-core instance at every head dim, S on both sides of its
+    64-key and 128-row tiles."""
+    rng = np.random.default_rng(s * d)
+    q, k, v = (_normal(rng, sh, cuda_device).to(torch.bfloat16)
+               for sh in ((2, 4, s, d), (2, 2, s, d), (2, 2, s, d)))
+    got = fa.flash_attention(q, k, v, causal)
+    want = fa_ref.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), causal=causal).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, "float32"), (128, "bfloat16")])
+def test_flash_attention_kernel_strided_views(cuda_device, d, dtype):
     """[B,S,H,D] projections go in as transposed views, as the model passes
     them; the output keeps q's layout, so its transpose back is contiguous."""
     rng = np.random.default_rng(5)
-    b, s, hq, hkv, d = 2, 130, 8, 2, 64
-    qs, ks, vs = (_normal(rng, sh, cuda_device)
+    td = getattr(torch, dtype)
+    b, s, hq, hkv = 2, 130, 8, 2
+    qs, ks, vs = (_normal(rng, sh, cuda_device).to(td)
                   for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
     got = fa.flash_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2))
     assert got.transpose(1, 2).is_contiguous()
     want = fa_ref.flash_attention_plain(qs, ks, vs, causal=True)
-    torch.testing.assert_close(got.transpose(1, 2), want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    tol = _attn_tol(dtype)
+    torch.testing.assert_close(got.transpose(1, 2).float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -174,7 +194,7 @@ def test_flash_decode_kernel_shard_merge(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("filled", [1, 255, 256, 700, 1024, 1500])
+@pytest.mark.parametrize("filled", [1, 127, 128, 129, 255, 256, 513, 700, 1024, 1500])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_kernel_model_cache(cuda_device, filled, dtype):
     """The model's call: cache [B,S,Hkv,D] read through strides, the filled
@@ -189,6 +209,39 @@ def test_flash_decode_kernel_model_cache(cuda_device, filled, dtype):
     want = fdec_ref.decode_partials_plain(q, kc, vc, filled, d ** -0.5)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_repeats_and_graph_replays(cuda_device, dtype):
+    """The chunks' partials are merged in the same launch by the last block
+    of each (b, h), found through a ticket it resets: three calls in a row
+    and three replays of a captured call give the same result."""
+    rng = np.random.default_rng(3)
+    td = getattr(torch, dtype)
+    b, hq, hkv, s, d = 4, 32, 8, 1024, 64
+    q = _normal(rng, (b, hq, d), cuda_device).to(td)
+    kc, vc = (_normal(rng, (b, s, hkv, d), cuda_device).to(td) for _ in range(2))
+    n = torch.tensor(700, dtype=torch.int32, device=cuda_device)
+    first = fdec.gqa_decode_partials(q, kc, vc, n)
+    for x, y in zip(first, fdec_ref.decode_partials_plain(q, kc, vc, 700, d ** -0.5)):
+        torch.testing.assert_close(x, y, rtol=ATTN_TOL, atol=ATTN_TOL)
+    outs = [fdec.gqa_decode_partials(q, kc, vc, n) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fdec.gqa_decode_partials(q, kc, vc, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fdec.gqa_decode_partials(q, kc, vc, n)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append([x.clone() for x in captured])
+    for out in outs:
+        for x, y in zip(out, first):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
