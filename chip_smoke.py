@@ -9,14 +9,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    TF32 off for matmuls and cuDNN.
 2. build: compiles the five CUDA kernels from src/repro_torch/kernels/csrc,
    one nvcc per source, all started together; checks in their SASS
-   (cuobjdump) that the bf16 attention instances run on tensor cores.
+   (cuobjdump) that every instance of the two GEMMs (block_matmul and
+   fused_dense: f32 and bf16, 16-byte and element copies) and the bf16
+   attention instances run on tensor cores.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
    the card, at the JAX package's kernel-test shapes and at the main paths'
    shapes (bars: 1e-4 in float32, 2e-4 for attention in float32, 3e-2 in
    bfloat16, 1e-2 for flash_attention's main shape in bfloat16, which also
-   runs in float32 at 2e-4); flash_attention's tensor-core instance also at
-   head dims 128 and 160 with a ragged S, and flash_decode called three
-   times and replayed three times from a CUDA graph, all equal.
+   runs in float32 at 2e-4); the GEMMs also at rows and pointers that are
+   not 16-byte aligned and at K = 4096 with N(0,1) weights, with the largest
+   |err| over the bar printed at their main shapes and repeat calls
+   bit-equal; flash_attention's tensor-core instance also at head dims 128
+   and 160 with a ragged S, and flash_decode called three times and replayed
+   three times from a CUDA graph, all equal.
 4. main path: all 12 workloads at scale 1.0. ``execute`` on the card
    (backend ``torch``) against ``execute_reference`` on the CPU, then the
    kernel path (``core.rules.kernel_plan``: R3-1/R3-2, R4-2, R4-1-fuse, R4-2)
@@ -48,7 +53,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       max_len 256 (launch/serve.py main's settings).
 7. each kernel's time at its main-path shape beside its plain version, one
    library call, and its bound; its achieved TFLOP/s or GB/s and its share
-   of the bound.
+   of the bound. The f32 GEMMs' bound is the least time for f32-accurate work
+   on the tensor cores, 3 x 2MNK at the TF32 rate (their three-way split),
+   with the CUDA-core f32 bound printed beside it.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,9 +90,10 @@ LM_ARCH = "granite-3-2b"
 LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 2048, 4096, 32
 
 # Data sheet peaks per H100 form factor: (non-tensor f32 FLOP/s, HBM B/s,
-# dense bf16 tensor-core FLOP/s)
-PEAKS = {"PCIe": (51e12, 2.0e12, 756e12), "NVL": (60e12, 3.9e12, 835e12),
-         "SXM": (67e12, 3.35e12, 989e12)}
+# dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s)
+PEAKS = {"PCIe": (51e12, 2.0e12, 756e12, 378e12),
+         "NVL": (60e12, 3.9e12, 835e12, 417.5e12),
+         "SXM": (67e12, 3.35e12, 989e12, 494.7e12)}
 
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "block_matmul": ("src/repro_torch/kernels/csrc/block_matmul.cu",
@@ -253,35 +261,47 @@ def phase_build() -> None:
     phase_sass(build)
 
 
-# kernel instances that must run on tensor cores: (library, mangled-name
-# pattern, the instruction their SASS must hold)
-TENSOR_CORE_KERNELS = (("flash_attention", r"flash_fwd_bf16ILi(\d+)E", "HGMMA"),
-                       ("flash_decode", r"decode_tcILi(\d+)E", "HMMA"))
+# kernel instances that must run on tensor cores: (library, what an instance
+# is named by, mangled-name pattern, instances, the instruction their SASS
+# must hold)
+TENSOR_CORE_KERNELS = (
+    ("block_matmul", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
+    ("block_matmul", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
+    ("fused_dense", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
+    ("fused_dense", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
+    ("flash_attention", "bf16 head dim", r"flash_fwd_bf16ILi(\d+)E", 5, "HGMMA"),
+    ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA"))
+_READABLE = {"1": "16-byte", "0": "element"}
 
 
 def phase_sass(build) -> None:
-    """The bf16 attention instances' SASS (cuobjdump of the built
-    libraries) holds tensor-core instructions: HGMMA (wgmma) in
-    flash_attention, HMMA (mma.sync) in flash_decode."""
+    """Tensor-core instructions in the SASS (cuobjdump of the built
+    libraries): HGMMA (wgmma) in every f32 instance of the two GEMMs and
+    every bf16 flash_attention instance, HMMA (mma.sync) in every bf16
+    instance of the GEMMs and of flash_decode's sweep."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, pattern, want in TENSOR_CORE_KERNELS:
-        sass = subprocess.run([tool, "--dump-sass", str(build._lib_path(lib))],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
+    dumps = {}
+    for lib, named_by, pattern, instances, want in TENSOR_CORE_KERNELS:
+        if lib not in dumps:
+            dumps[lib] = subprocess.run([tool, "--dump-sass", str(build._lib_path(lib))],
+                                        capture_output=True, text=True, check=True,
+                                        timeout=120).stdout
         counts, name = {}, None
-        for line in sass.splitlines():
+        for line in dumps[lib].splitlines():
             if "Function :" in line:
                 found = re.search(pattern, line)
-                name = found.group(1) if found else None
+                name = ("/".join(_READABLE.get(g, g) for g in found.groups())
+                        if found else None)
                 if name:
                     counts[name] = 0
             elif name and want in line:
                 counts[name] += 1
-        print(f"[sass] {lib}: {want} per bf16 instance by head dim " + json.dumps(counts))
-        if not counts or min(counts.values()) == 0:
-            raise AssertionError(f"{lib}: bf16 instances without {want}: {counts}")
+        print(f"[sass] {lib}: {want} per instance by {named_by} " + json.dumps(counts))
+        if len(counts) != instances or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: want {instances} instances, each with "
+                                 f"{want}: {counts}")
 
 
 def _normal(gen, shape, scale=1.0, dtype=torch.float32):
@@ -309,6 +329,31 @@ def main_path_shapes() -> dict:
     }
 
 
+def bar_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The largest |err| / (tol + tol |want|): the bar is met below 1."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+# GEMM shapes (m, k, n, n_tiles): the JAX package's kernel-test shapes, then
+# rows of x, w or out that are not 16-byte aligned (the element-copy
+# instance); K = 4096 with N(0,1) weights is the three-way split's hardest
+# case
+GEMM_TEST_SHAPES = [(10, 16, 40, 4), (130, 300, 520, 8), (64, 512, 1024, 16)]
+GEMM_RAGGED_SHAPES = [(7, 12, 5, 2), (130, 200, 70, 3), (33, 300, 70, 3), (5, 13, 7, 1)]
+GEMM_LONG_K = (300, 4096, 256, 2)
+
+
+def _offset_view(gen, shape, dtype):
+    """A contiguous tensor whose data starts 4 bytes past a 16-byte boundary."""
+    numel = shape[0] * shape[1]
+    base = _normal(gen, (numel + 4,), dtype=dtype)
+    off = 4 // base.element_size()
+    view = base[off:off + numel].view(shape)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
 def phase_parity(shapes: dict) -> dict:
     """Kernel against plain version; returns max |err| at main-path shapes."""
     from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
@@ -316,30 +361,60 @@ def phase_parity(shapes: dict) -> dict:
     from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    for m, k, n, t in [(10, 16, 40, 4), (130, 300, 520, 8), (64, 512, 1024, 16)]:
-        x, w = _normal(gen, (m, k)), _normal(gen, (k, n))
-        kernel_vs_plain(bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t),
-                        F32_TOL, f"block_matmul {m}x{k}x{n}/{t}")
-    xb, wb = _normal(gen, (64, 96), dtype=torch.bfloat16), _normal(gen, (96, 32), dtype=torch.bfloat16)
-    kernel_vs_plain(bm.block_matmul(xb, wb, 2), bm_ref.block_matmul(xb, wb, 2),
-                    BF16_TOL, "block_matmul bf16")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        dt = str(dtype)[6:]
+        for m, k, n, t in GEMM_TEST_SHAPES + GEMM_RAGGED_SHAPES + [(64, 96, 32, 2)]:
+            x, w = _normal(gen, (m, k), dtype=dtype), _normal(gen, (k, n), dtype=dtype)
+            kernel_vs_plain(bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t),
+                            tol, f"block_matmul {m}x{k}x{n}/{t} {dt}")
+        for operand in ("x", "w"):
+            x = (_offset_view if operand == "x" else _normal)(gen, (96, 256), dtype=dtype)
+            w = (_offset_view if operand == "w" else _normal)(gen, (256, 160), dtype=dtype)
+            kernel_vs_plain(bm.block_matmul(x, w, 2), bm_ref.block_matmul(x, w, 2),
+                            tol, f"block_matmul {dt}, {operand} 4 bytes off 16")
+    m, k, n, t = GEMM_LONG_K
+    x, w = _normal(gen, (m, k)), _normal(gen, (k, n))
+    got, want = bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t)
+    kernel_vs_plain(got, want, F32_TOL, f"block_matmul {m}x{k}x{n}/{t} N(0,1) weights")
+    long_k = bar_ratio(got, want, F32_TOL)
     m, k, n, t = shapes["block_matmul"]
     x, w = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5)
-    errs["block_matmul"] = kernel_vs_plain(
-        bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t), F32_TOL,
-        f"block_matmul main path {m}x{k}x{n}/{t}")
-    print(f"[parity] block_matmul ok: 4 test shapes + bf16; main path "
-          f"{m}x{k}x{n} n_tiles={t} max|err|={errs['block_matmul']:.3g}")
+    got = bm.block_matmul(x, w, t)
+    want = bm_ref.block_matmul(x, w, t)
+    errs["block_matmul"] = kernel_vs_plain(got, want, F32_TOL,
+                                           f"block_matmul main path {m}x{k}x{n}/{t}")
+    ratio = bar_ratio(got, want, F32_TOL)
+    for i in range(2):
+        kernel_vs_plain(bm.block_matmul(x, w, t), got, 0.0, f"block_matmul repeat {i}")
+    print(f"[parity] block_matmul ok: {len(GEMM_TEST_SHAPES)} test shapes, "
+          f"{len(GEMM_RAGGED_SHAPES)} ragged shapes, 2 pointer offsets and (64, 96, 32), "
+          f"f32 and bf16; {GEMM_LONG_K} N(0,1) f32 largest |err| / bar {long_k:.3f}; "
+          f"main path {m}x{k}x{n} n_tiles={t} max|err|={errs['block_matmul']:.3g}, "
+          f"largest |err| / bar {ratio:.3f} (bar rtol=atol={F32_TOL:g}); "
+          f"2 repeats bit-equal")
 
-    for m, k, n in [(7, 12, 5), (130, 200, 70), (256, 512, 128), (1, 128, 128)]:
+    for m, k, n in [(7, 12, 5), (130, 200, 70), (256, 512, 128), (1, 128, 128),
+                    (5, 13, 7), (33, 300, 70)]:
         for act in fd_ref.ACTS:
             x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n)), _normal(gen, (n,))
             kernel_vs_plain(fd.fused_dense(x, w, b, act), fd_ref.fused_dense(x, w, b, act),
                             F32_TOL, f"fused_dense {m}x{k}x{n} {act}")
+    for m, k, n in [(64, 96, 32), (7, 12, 5), (130, 200, 70), (256, 512, 128)]:
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x, w, b = (_normal(gen, s, dtype=dtype) for s in ((m, k), (k, n), (n,)))
+            kernel_vs_plain(fd.fused_dense(x, w, b, "relu"),
+                            fd_ref.fused_dense(x, w, b, "relu"), tol,
+                            f"fused_dense {m}x{k}x{n} {dtype}")
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        x, w, b = (_normal(gen, s, dtype=dtype) for s in ((64, 96), (96, 32), (32,)))
-        kernel_vs_plain(fd.fused_dense(x, w, b, "relu"), fd_ref.fused_dense(x, w, b, "relu"),
-                        tol, f"fused_dense {dtype}")
+        x = _offset_view(gen, (96, 256), dtype)
+        w, b = _normal(gen, (256, 160), dtype=dtype), _normal(gen, (160,), dtype=dtype)
+        kernel_vs_plain(fd.fused_dense(x, w, b, "gelu"), fd_ref.fused_dense(x, w, b, "gelu"),
+                        tol, f"fused_dense {dtype}, x 4 bytes off 16")
+    m, k, n, _ = GEMM_LONG_K
+    x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n)), _normal(gen, (n,))
+    kernel_vs_plain(fd.fused_dense(x, w, b, "identity"),
+                    fd_ref.fused_dense(x, w, b, "identity"), F32_TOL,
+                    f"fused_dense {m}x{k}x{n} N(0,1) weights")
     try:
         fd.fused_dense(x, w, b, "softmax")
         raise AssertionError("fused_dense accepted softmax")
@@ -347,13 +422,21 @@ def phase_parity(shapes: dict) -> dict:
         pass
     m, k, n, act = shapes["fused_dense"]
     x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), _normal(gen, (n,))
-    errs["fused_dense"] = kernel_vs_plain(
-        fd.fused_dense(x, w, b, act), fd_ref.fused_dense(x, w, b, act), F32_TOL,
-        f"fused_dense main path {m}x{k}x{n}")
-    del x, w, b
-    print(f"[parity] fused_dense ok: 4 test shapes x {len(fd_ref.ACTS)} activations, "
-          f"f32 + bf16, softmax refused; main path {m}x{k}x{n} {act} "
-          f"max|err|={errs['fused_dense']:.3g}")
+    got = fd.fused_dense(x, w, b, act)
+    want = fd_ref.fused_dense(x, w, b, act)
+    errs["fused_dense"] = kernel_vs_plain(got, want, F32_TOL,
+                                          f"fused_dense main path {m}x{k}x{n}")
+    ratio = bar_ratio(got, want, F32_TOL)
+    del want
+    for i in range(2):
+        kernel_vs_plain(fd.fused_dense(x, w, b, act), got, 0.0, f"fused_dense repeat {i}")
+    del x, w, b, got
+    torch.cuda.empty_cache()
+    print(f"[parity] fused_dense ok: 6 f32 shapes x {len(fd_ref.ACTS)} activations, "
+          f"4 shapes f32 + bf16, x 4 bytes off 16 in f32 + bf16, {GEMM_LONG_K[:3]} "
+          f"N(0,1) f32, softmax refused; main path {m}x{k}x{n} {act} "
+          f"max|err|={errs['fused_dense']:.3g}, largest |err| / bar {ratio:.3f} "
+          f"(bar rtol=atol={F32_TOL:g}); 2 repeats bit-equal")
 
     for n, d, t, depth in [(20, 8, 4, 3), (150, 16, 10, 5), (64, 29, 25, 6)]:
         args = _forest_inputs(gen, n, d, t, depth)
@@ -456,11 +539,7 @@ def phase_attention_parity(shapes: dict) -> dict:
         plain = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=causal).transpose(1, 2)
         got = fa.flash_attention(q, k, v, causal)
-        err = kernel_vs_plain(got, plain, tol, label)
-        # the largest |err| / (atol + rtol |want|): the bar is met below 1
-        ratio = float(((got.float() - plain.float()).abs()
-                       / (tol + tol * plain.float().abs())).max())
-        return err, ratio
+        return kernel_vs_plain(got, plain, tol, label), bar_ratio(got, plain, tol)
 
     for b, hq, hkv, s, d in [(2, 4, 2, 37, 16), (1, 8, 8, 256, 64), (2, 6, 3, 100, 32)]:
         for causal in (True, False):
@@ -715,14 +794,23 @@ def phase_attention_times(shapes: dict, launches: dict, errs: dict, card: str,
 
 
 def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
-               errs, card, bf16=False, per_call=1, graph=False) -> dict:
+               errs, card, bf16=False, per_call=1, graph=False,
+               split_flops=None) -> dict:
     """One kernel's JSON row: its time, its plain version's and one library
     call's (mean ms of one call; ``per_call`` calls per timed lambda, timed
     from a CUDA graph replay if ``graph``), and the bound from the
-    operations and bytes of one call."""
-    form, (f32_peak, bytes_peak, bf16_peak) = card_peaks(card)
-    flops_peak = bf16_peak if bf16 else f32_peak
-    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bytes_peak * 1e3
+    operations and bytes of one call. ``split_flops`` (2MNK of an f32 GEMM
+    on the tensor cores) makes the operations bound 3 x split_flops at the
+    TF32 rate, f32-accurate work by the three-way split; the CUDA-core f32
+    bound of ``flops`` is printed beside it."""
+    form, (f32_peak, bytes_peak, bf16_peak, tf32_peak) = card_peaks(card)
+    if split_flops:
+        t_ops, unit = 3 * split_flops / tf32_peak * 1e3, "3xTF32 tensor"
+        flops_peak = tf32_peak
+    else:
+        flops_peak, unit = (bf16_peak, "bf16 tensor") if bf16 else (f32_peak, "f32")
+        t_ops = flops / flops_peak * 1e3
+    t_bytes = nbytes / bytes_peak * 1e3
     timer = graph_ms if graph else cuda_ms
     row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
            "replaces": KERNELS[name][1], "launches": launches[name],
@@ -736,13 +824,16 @@ def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
     # with graph timing, also the same calls eager, host overhead included
     eager = (f"; eager, host overhead included: kernel {cuda_ms(kernel) / per_call:.4f}"
              f" ms, library {cuda_ms(library) / per_call:.4f} ms" if graph else "")
+    simt = (f"; CUDA-core f32 bound {max(flops / f32_peak * 1e3, t_bytes):.4f} ms "
+            f"({f32_peak / 1e12:g} TFLOP/s)" if split_flops else "")
     print(f"[time] {name} {shape}{' (graph replay)' if graph else ''}: "
           f"kernel {row['ms']:.4f} ms ({rate}, {100 * row['bound_ms'] / row['ms']:.1f}% "
           f"of the bound), plain "
           f"{row['plain_ms']:.4f} ms, library {lib_ms}, bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-          f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s "
-          f"{'bf16 tensor' if bf16 else 'f32'}, {bytes_peak / 1e12:g} TB/s){eager}")
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}"
+          f"{', ' + unit if row['bound_by'] == 'operations' else ''} "
+          f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s {unit}, "
+          f"{bytes_peak / 1e12:g} TB/s){simt}{eager}")
     return row
 
 
@@ -759,7 +850,7 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
         "block_matmul", lambda: bm.block_matmul(x, w, t),
         lambda: bm_ref.block_matmul(x, w, t), lambda: torch.matmul(x, w),
         2.0 * m * n * k, 4.0 * (m * k + k * n + m * n), (m, k, n, t),
-        launches, errs, card))
+        launches, errs, card, split_flops=2.0 * m * n * k))
     del x, w
     m, k, n, act = shapes["fused_dense"]
     x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), _normal(gen, (n,))
@@ -768,7 +859,7 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
         "fused_dense", lambda: fd.fused_dense(x, w, b, act),
         lambda: fd_ref.fused_dense(x, w, b, act), lambda: torch.addmm(b, x, w),
         2.0 * m * n * k + 2.0 * m * n, 4.0 * (m * k + k * n + n + m * n),
-        (m, k, n, act), launches, errs, card))
+        (m, k, n, act), launches, errs, card, split_flops=2.0 * m * n * k))
     del x, w, b
     torch.cuda.empty_cache()
     n, d, t, depth = shapes["decision_forest"]

@@ -4,14 +4,17 @@
 // (block_matmul_pallas), the fused realization of rule R3-1's
 // tensor-relational matmul.
 //
-// Bound on the H100: operations. At the main path's shape (1320 x 4096 @
-// 4096 x 2048) the product does 22 GFLOP against 66 MB of traffic, far above
-// the card's FLOP-per-byte balance, and f32 parity at 1e-4 rules out the
-// TF32 tensor cores, so the ceiling is the non-tensor f32 FMA rate. The
-// design keeps the FMA units fed from registers: a 128 x 128 block tile with
-// an 8 x 8 register tile per thread reuses each shared-memory value eight
-// times (tiled_gemm.cuh).
-#include "tiled_gemm.cuh"
+// Bound on the H100: operations on the tensor cores. At the main path's
+// shape (1320 x 4096 @ 4096 x 2048) the product does 22 GFLOP against 66 MB
+// of traffic, far above the card's FLOP-per-byte balance. f32 keeps the
+// 1e-4 bar by the three-way TF32 split of tc_gemm.cuh (3 TF32 products per
+// f32 product), so the least time is 3 x 2MNK at the TF32 tensor-core rate.
+// The design feeds wgmma from a ring of cp.async stages of 64 x 128 x 32
+// tiles, splits each operand once (w^T in registers, x's slice in shared
+// memory), sums each K slice apart so the tensor cores' rounding does not
+// drift, and cuts each weight tile of the relation into 128-wide column
+// blocks (tc_gemm.cuh).
+#include "tc_gemm.cuh"
 
 namespace bm {
 struct Identity {
@@ -24,14 +27,14 @@ extern "C" int block_matmul(const void* x, const void* w, void* out, int M,
                             int N, int K, int tile_w, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return rt::launch_tiled_gemm(static_cast<const float*>(x),
-                                 static_cast<const float*>(w),
-                                 static_cast<float*>(out), M, N, K, tile_w,
-                                 bm::Identity{}, s);
+    return rt::launch_tc_gemm(static_cast<const float*>(x),
+                              static_cast<const float*>(w),
+                              static_cast<float*>(out), M, N, K, tile_w,
+                              bm::Identity{}, s);
   if (dtype == 1)
-    return rt::launch_tiled_gemm(static_cast<const __nv_bfloat16*>(x),
-                                 static_cast<const __nv_bfloat16*>(w),
-                                 static_cast<__nv_bfloat16*>(out), M, N, K,
-                                 tile_w, bm::Identity{}, s);
+    return rt::launch_tc_gemm(static_cast<const __nv_bfloat16*>(x),
+                              static_cast<const __nv_bfloat16*>(w),
+                              static_cast<__nv_bfloat16*>(out), M, N, K,
+                              tile_w, bm::Identity{}, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -237,12 +237,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a2
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -364,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2) decode_tc(Params p) 
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
         uint32_t b[4];
-        ldmatrix_x4_trans(vrow + 16 * n, b);
+        hop::ldmatrix_x4_trans(vrow + 16 * n, b);
         mma_bf16(o[n], ph0, ph2, b[0], b[1]);
         mma_bf16(o[n], pl0, pl2, b[0], b[1]);
         mma_bf16(o[n + 1], ph0, ph2, b[2], b[3]);

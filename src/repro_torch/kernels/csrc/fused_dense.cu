@@ -5,12 +5,15 @@
 // R4-1-fuse creates from a matmul -> bias -> act chain.
 //
 // Bound on the H100: operations for the main path's layers (K and N of 256
-// and up give 64+ FLOP per byte, above the f32 FMA roofline's balance),
-// bytes for thin layers. The design shares block_matmul's register-tiled
-// f32 core and applies bias and activation to the accumulator in registers
-// before the single store, so the pre-activation never makes a round trip
-// through device memory.
-#include "tiled_gemm.cuh"
+// give 3 x 2MNK TF32 tensor-core operations in f32, by tc_gemm.cuh's
+// three-way split, against 4 bytes per element of x and of out), bytes for
+// thin layers. The design shares block_matmul's tensor-core core (wgmma fed
+// by a ring of cp.async stages; the blocks over one slice of x rows run
+// together, so x is read from device memory about once) and applies bias
+// and activation to the accumulator fragments in registers before the
+// single store, so the pre-activation never makes a round trip through
+// device memory.
+#include "tc_gemm.cuh"
 
 namespace fd {
 
@@ -51,12 +54,12 @@ extern "C" int fused_dense(const void* x, const void* w, const void* b,
   if (act < fd::kIdentity || act > fd::kSquaredRelu)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return rt::launch_tiled_gemm(
+    return rt::launch_tc_gemm(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(out), M, N, K, N,
         fd::BiasAct<float>{static_cast<const float*>(b), act}, s);
   if (dtype == 1)
-    return rt::launch_tiled_gemm(
+    return rt::launch_tc_gemm(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
         M, N, K, N,

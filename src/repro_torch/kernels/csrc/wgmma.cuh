@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the attention kernels: cp.async copies
-// into shared memory, the shared-memory matrix descriptor of wgmma, the
-// wgmma synchronisation instructions, and the m64nNk16 bf16 products the
-// kernels issue (f32 accumulators in registers).
+// Hopper building blocks shared by the kernels: cp.async copies into shared
+// memory and ldmatrix fragment loads (attention and the GEMM core), the
+// shared-memory matrix descriptor of wgmma, the wgmma synchronisation
+// instructions, and the attention kernels' m64nNk16 bf16 products
+// (f32 accumulators in registers).
 //
 // Swizzled tiles. A tile is stored as atoms of rows of SW bytes (SW = 32,
 // 64 or 128: the row width, 16, 32 or 64 bf16 values), 8 rows of an atom
@@ -29,6 +30,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
+// 4 bytes, for operands whose rows are not 16-byte aligned (.ca: the
+// 16-byte-only .cg does not take it)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -40,6 +47,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // (wgmma reads its shared operands through the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, lanes 8i-8i+7 addressing the
+// rows of matrix i; .trans hands each lane a column pair instead of a row
+// pair (the B fragment of mma.sync from a row-major [K][N] tile)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // byte offset of 16-byte chunk c of row r in a swizzled atom of SW-byte rows

@@ -8,7 +8,11 @@ it runs where only PyTorch is installed:
 
 Shapes are those of ``tests/test_kernels.py`` and, for the attention
 kernels, S on both sides of their tiles and chunks; bars 1e-4 in float32
-and 3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off.
+and 3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off. The
+two GEMMs (block_matmul, fused_dense) run float32 on the TF32 tensor cores
+by a three-way split: they are also held at 1e-4 at K = 4096 with N(0,1)
+weights, at rows and pointers that are not 16-byte aligned (their
+element-copy instance), and to bit-equal repeat calls.
 """
 import numpy as np
 import pytest
@@ -36,9 +40,15 @@ def _normal(rng, shape, dev):
     return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
 
+# the JAX package's kernel-test shapes, then shapes whose rows of x, w or
+# out are not 16-byte aligned in one dtype or both (N or K % 8 != 0)
+GEMM_SHAPES = [(10, 16, 40, 4), (130, 300, 520, 8), (64, 512, 1024, 16),
+               (7, 12, 5, 2), (130, 200, 70, 3), (33, 300, 70, 3), (5, 13, 7, 1),
+               (40, 36, 44, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,t", [(10, 16, 40, 4), (130, 300, 520, 8),
-                                     (64, 512, 1024, 16)])
+@pytest.mark.parametrize("m,k,n,t", GEMM_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_matmul_kernel(cuda_device, m, k, n, t, dtype):
     rng = np.random.default_rng(m + n)
@@ -67,15 +77,83 @@ def test_fused_dense_kernel(cuda_device, m, k, n, act):
 
 
 @pytest.mark.cuda
-def test_fused_dense_kernel_bf16(cuda_device):
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("m,k,n", [(64, 96, 32), (7, 12, 5), (130, 200, 70),
+                                   (256, 512, 128), (1, 128, 128), (33, 300, 70)])
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_fused_dense_kernel_bf16(cuda_device, m, k, n, act):
+    rng = np.random.default_rng(m + k + n)
     x, w, b = (_normal(rng, s, cuda_device).to(torch.bfloat16)
-               for s in ((64, 96), (96, 32), (32,)))
-    torch.testing.assert_close(fd.fused_dense(x, w, b, "relu").float(),
-                               fd_ref.fused_dense(x, w, b, "relu").float(),
+               for s in ((m, k), (k, n), (n,)))
+    before = fd.launches
+    got = fd.fused_dense(x, w, b, act)
+    assert fd.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), fd_ref.fused_dense(x, w, b, act).float(),
                                rtol=BF16_TOL, atol=BF16_TOL)
     with pytest.raises(ValueError):
         fd.fused_dense(x, w, b, "softmax")
+
+
+def _gemm_tol(dtype):
+    return F32_TOL if dtype == "float32" else BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_gemm_kernels_pointer_offset(cuda_device, dtype, operand):
+    """A contiguous slice that starts 4 bytes past a 16-byte boundary goes
+    to the element-copy instance and gives the plain version's result."""
+    rng = np.random.default_rng(7)
+    td = getattr(torch, dtype)
+    m, k, n = 96, 256, 160
+    shape = (m, k) if operand == "x" else (k, n)
+    base = _normal(rng, (shape[0] * shape[1] + 4,), cuda_device).to(td)
+    offset = 4 // base.element_size()
+    sliced = base[offset:offset + shape[0] * shape[1]].view(shape)
+    assert sliced.is_contiguous() and sliced.data_ptr() % 16 == 4
+    other = _normal(rng, (k, n) if operand == "x" else (m, k), cuda_device).to(td)
+    x, w = (sliced, other) if operand == "x" else (other, sliced)
+    b = _normal(rng, (n,), cuda_device).to(td)
+    tol = _gemm_tol(dtype)
+    before = (bm.launches, fd.launches)
+    got_bm, got_fd = bm.block_matmul(x, w, 2), fd.fused_dense(x, w, b, "tanh")
+    assert (bm.launches, fd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got_bm.float(), bm_ref.block_matmul(x, w, 2).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got_fd.float(), fd_ref.fused_dense(x, w, b, "tanh").float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,t", [(65, 4096, 130, 4), (300, 4096, 256, 2)])
+def test_gemm_kernels_k4096_f32(cuda_device, m, k, n, t):
+    """The hardest case for the three-way split: a long K with N(0,1)
+    weights, where one TF32 product misses the 1e-4 bar many times over."""
+    rng = np.random.default_rng(k + n)
+    x, w, b = (_normal(rng, s, cuda_device) for s in ((m, k), (k, n), (n,)))
+    torch.testing.assert_close(bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t),
+                               rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(fd.fused_dense(x, w, b, "identity"),
+                               fd_ref.fused_dense(x, w, b, "identity"),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 512, 256), (130, 200, 70)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_kernels_repeat_bit_equal(cuda_device, m, k, n, dtype):
+    """No atomics: three calls in a row give the same bits, in both the
+    16-byte-copy (first shape) and the element-copy instance."""
+    rng = np.random.default_rng(m)
+    td = getattr(torch, dtype)
+    x, w, b = (_normal(rng, s, cuda_device).to(td) for s in ((m, k), (k, n), (n,)))
+    before = (bm.launches, fd.launches)
+    first = (bm.block_matmul(x, w, 3), fd.fused_dense(x, w, b, "sigmoid"))
+    for _ in range(2):
+        again = (bm.block_matmul(x, w, 3), fd.fused_dense(x, w, b, "sigmoid"))
+        for got, want in zip(again, first):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (bm.launches, fd.launches) == (before[0] + 3, before[1] + 3)
 
 
 @pytest.mark.cuda

@@ -173,8 +173,10 @@ def test_kmeans_assign_matches_jax():
 # kernels: wrappers (plain versions on the CPU) against the Pallas kernels
 # ---------------------------------------------------------------------------
 
+# the JAX package's kernel-test shapes, then ragged ones whose rows are not
+# 16-byte aligned (the CUDA kernels' element-copy instance on the card)
 @pytest.mark.parametrize("m,k,n", [(7, 12, 5), (130, 200, 70), (256, 512, 128),
-                                   (1, 128, 128)])
+                                   (1, 128, 128), (5, 13, 7), (33, 300, 70)])
 @pytest.mark.parametrize("act", ACTS)
 def test_fused_dense_matches_pallas(m, k, n, act):
     rng = _rng(m + k + n)
@@ -209,7 +211,8 @@ def test_fused_dense_refuses_unknown_activations():
 
 
 @pytest.mark.parametrize("m,k,n,t", [(10, 16, 40, 4), (130, 300, 520, 8),
-                                     (64, 512, 1024, 16)])
+                                     (64, 512, 1024, 16), (33, 300, 70, 3),
+                                     (5, 13, 7, 1), (7, 12, 5, 2)])
 def test_block_matmul_matches_pallas(m, k, n, t):
     rng = _rng(m + n)
     x, w = _f32(rng, (m, k)), _f32(rng, (k, n))
