@@ -8,10 +8,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and cuDNN.
 2. build: compiles the five CUDA kernels from src/repro_torch/kernels/csrc,
-   one nvcc per source, all started together; checks in their SASS
-   (cuobjdump) that every instance of the two GEMMs (block_matmul and
-   fused_dense: f32 and bf16, 16-byte and element copies) and the bf16
-   attention instances run on tensor cores.
+   one nvcc per source, all started together; prints ptxas's registers,
+   shared memory and spills per decision_forest instance (and fails on a
+   spill); checks in their SASS (cuobjdump) that every instance of the two
+   GEMMs (block_matmul and fused_dense: f32 and bf16, 16-byte and element
+   copies) and the bf16 attention instances run on tensor cores.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
    the card, at the JAX package's kernel-test shapes and at the main paths'
    shapes (bars: 1e-4 in float32, 2e-4 for attention in float32, 3e-2 in
@@ -21,7 +22,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    |err| over the bar printed at their main shapes and repeat calls
    bit-equal; flash_attention's tensor-core instance also at head dims 128
    and 160 with a ragged S, and flash_decode called three times and replayed
-   three times from a CUDA graph, all equal.
+   three times from a CUDA graph, all equal; decision_forest also at n not a
+   multiple of its row tile, n < 32, T not a multiple of its tree chunk,
+   d = 4096 (rows from global memory), the five workload forests, ties at
+   the thresholds and feat out of range, with repeat calls bit-equal.
 4. main path: all 12 workloads at scale 1.0. ``execute`` on the card
    (backend ``torch``) against ``execute_reference`` on the CPU, then the
    kernel path (``core.rules.kernel_plan``: R3-1/R3-2, R4-2, R4-1-fuse, R4-2)
@@ -55,7 +59,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    library call, and its bound; its achieved TFLOP/s or GB/s and its share
    of the bound. The f32 GEMMs' bound is the least time for f32-accurate work
    on the tensor cores, 3 x 2MNK at the TF32 rate (their three-way split),
-   with the CUDA-core f32 bound printed beside it.
+   with the CUDA-core f32 bound printed beside it. decision_forest's bound
+   is bytes; beside it the line prints its design's floor, the
+   shared-memory requests of its walk at one wavefront per SM per clock.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -235,13 +241,20 @@ def profile_breakdown(label: str, fn, top: int = 4, also: tuple = ()) -> None:
 # phases
 # ---------------------------------------------------------------------------
 
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _n_sm() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
+    print(_smi("name,power.limit"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -255,10 +268,39 @@ def phase_build() -> None:
     secs = build.build()
     print(f"[build] {len(build.LIBRARIES)} libraries in {secs:.1f} s")
     for lib, log in sorted(build.build_log.items()):
+        if lib == "decision_forest":
+            forest_ptxas(log)
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib}: {line.strip()}")
     phase_sass(build)
+
+
+def forest_ptxas(log: str) -> None:
+    """ptxas's registers, shared memory and spills for each decision_forest
+    instance (ROWS rows x TREES trees a thread, rows staged or read from
+    global memory); fails on a spill."""
+    import re
+    name, spills = None, {}
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*forest_kernelILi(\d)ELi(\d)ELb([01])E", line)
+        if entry:
+            rows, trees, staged = entry.groups()
+            name = (f"forest_kernel<{rows} rows, {trees} trees, "
+                    f"{'rows staged' if staged == '1' else 'rows from global'}>")
+        elif name and "spill" in line:
+            props = line.split(":")[-1].strip()
+            spills[name] = [int(v) for v in re.findall(r"(\d+) bytes spill", props)]
+        elif name and "registers" in line:
+            static = re.search(r"(\d+) bytes smem", line)
+            print(f"[build] decision_forest {name}: {line.split(':')[-1].strip()}; "
+                  f"{spills.get(name)} bytes spill stores / loads; shared memory "
+                  f"{static.group(1) if static else 0} bytes static, the rest dynamic "
+                  f"from ops.forest_tiling")
+            name = None
+    if len(spills) != 10 or any(sum(v) for v in spills.values()):
+        raise AssertionError(f"decision_forest: want 10 instances, none spilling: {spills}")
 
 
 # kernel instances that must run on tensor cores: (library, what an instance
@@ -342,6 +384,15 @@ def bar_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
 GEMM_TEST_SHAPES = [(10, 16, 40, 4), (130, 300, 520, 8), (64, 512, 1024, 16)]
 GEMM_RAGGED_SHAPES = [(7, 12, 5, 2), (130, 200, 70, 3), (33, 300, 70, 3), (5, 13, 7, 1)]
 GEMM_LONG_K = (300, 4096, 256, 2)
+# forest shapes (n, d, T, depth): the JAX package's kernel-test shapes, then
+# n not a multiple of the row tile, n < 32, T not a multiple of the tree
+# chunk, and d = 4096 (rows read from global memory); then the forests of
+# retail_q2, simple_q2, analytics_q1, analytics_q2 and analytics_q3
+FOREST_TEST_SHAPES = [(20, 8, 4, 3), (150, 16, 10, 5), (64, 29, 25, 6),
+                      (1001, 29, 100, 9), (7, 29, 100, 9), (3000, 29, 23, 9),
+                      (500, 4096, 30, 9)]
+FOREST_WORKLOAD_SHAPES = [(3000, 32, 160, 6), (3000, 40, 50, 6), (3000, 29, 100, 9),
+                          (3000, 96, 1, 9), (3000, 128, 100, 9)]
 
 
 def _offset_view(gen, shape, dtype):
@@ -438,16 +489,36 @@ def phase_parity(shapes: dict) -> dict:
           f"max|err|={errs['fused_dense']:.3g}, largest |err| / bar {ratio:.3f} "
           f"(bar rtol=atol={F32_TOL:g}); 2 repeats bit-equal")
 
-    for n, d, t, depth in [(20, 8, 4, 3), (150, 16, 10, 5), (64, 29, 25, 6)]:
+    for n, d, t, depth in FOREST_TEST_SHAPES + FOREST_WORKLOAD_SHAPES:
         args = _forest_inputs(gen, n, d, t, depth)
         kernel_vs_plain(df.forest_predict(*args), df_ref.forest_predict(*args),
                         F32_TOL, f"forest {n}x{d} T={t} D={depth}")
+    # x and thresholds on a few integers, so that many compares tie (strict
+    # >); then feat out of range on both sides (clamped, as JAX gathers)
+    x, feat, thresh, leaf = _forest_inputs(gen, 3000, 29, 40, 9)
+    x, thresh = x.round(), thresh.round()
+    kernel_vs_plain(df.forest_predict(x, feat, thresh, leaf),
+                    df_ref.forest_predict(x, feat, thresh, leaf), F32_TOL, "forest ties")
+    feat = torch.randint(-40, 70, feat.shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    kernel_vs_plain(df.forest_predict(x, feat, thresh, leaf),
+                    df_ref.forest_predict(x, feat, thresh, leaf), F32_TOL,
+                    "forest feat out of range")
     args = _forest_inputs(gen, *shapes["decision_forest"])
-    errs["decision_forest"] = kernel_vs_plain(
-        df.forest_predict(*args), df_ref.forest_predict(*args), F32_TOL,
-        "forest main path")
-    print(f"[parity] decision_forest ok: 3 test shapes; main path "
-          f"{shapes['decision_forest']} max|err|={errs['decision_forest']:.3g}")
+    got = df.forest_predict(*args)
+    errs["decision_forest"] = kernel_vs_plain(got, df_ref.forest_predict(*args), F32_TOL,
+                                              "forest main path")
+    for i in range(2):
+        kernel_vs_plain(df.forest_predict(*args), got, 0.0, f"forest repeat {i}")
+    n, d, t, depth = shapes["decision_forest"]
+    print(f"[parity] decision_forest ok: {len(FOREST_TEST_SHAPES)} test shapes (ragged "
+          f"n, n < 32, T not a multiple of the tree chunk, d 4096 from global memory), "
+          f"the {len(FOREST_WORKLOAD_SHAPES)} workload forests at "
+          f"{FOREST_WORKLOAD_SHAPES[0][0]} rows, ties at the thresholds, feat out of "
+          f"range; main path {shapes['decision_forest']} "
+          f"({df.forest_tiling(n, d, t, depth, _n_sm())}) "
+          f"max|err|={errs['decision_forest']:.3g} (bar rtol=atol={F32_TOL:g}); "
+          f"2 repeats bit-equal")
     return errs
 
 
@@ -795,14 +866,15 @@ def phase_attention_times(shapes: dict, launches: dict, errs: dict, card: str,
 
 def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
                errs, card, bf16=False, per_call=1, graph=False,
-               split_flops=None) -> dict:
+               split_flops=None, note=None) -> dict:
     """One kernel's JSON row: its time, its plain version's and one library
     call's (mean ms of one call; ``per_call`` calls per timed lambda, timed
     from a CUDA graph replay if ``graph``), and the bound from the
     operations and bytes of one call. ``split_flops`` (2MNK of an f32 GEMM
     on the tensor cores) makes the operations bound 3 x split_flops at the
     TF32 rate, f32-accurate work by the three-way split; the CUDA-core f32
-    bound of ``flops`` is printed beside it."""
+    bound of ``flops`` is printed beside it. ``note(kernel_ms)`` adds text to
+    the printed line."""
     form, (f32_peak, bytes_peak, bf16_peak, tf32_peak) = card_peaks(card)
     if split_flops:
         t_ops, unit = 3 * split_flops / tf32_peak * 1e3, "3xTF32 tensor"
@@ -833,7 +905,7 @@ def kernel_row(name, kernel, plain, library, flops, nbytes, shape, launches,
           f"{row['bound_ms']:.4f} ms by {row['bound_by']}"
           f"{', ' + unit if row['bound_by'] == 'operations' else ''} "
           f"({form} peaks: {flops_peak / 1e12:g} TFLOP/s {unit}, "
-          f"{bytes_peak / 1e12:g} TB/s){simt}{eager}")
+          f"{bytes_peak / 1e12:g} TB/s){simt}{eager}{note(row['ms']) if note else ''}")
     return row
 
 
@@ -865,12 +937,24 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
     n, d, t, depth = shapes["decision_forest"]
     args = _forest_inputs(gen, n, d, t, depth)
     nn = 2 ** depth - 1
+    # beside the roofline: the design's floor, its shared-memory requests
+    # (n*T*D lookups, 32 a warp step at 3 wavefronts) at one wavefront per
+    # SM per clock, at the SM clock nvidia-smi reads as its maximum
+    n_sm = _n_sm()
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    floor_ms = df.request_floor_ms(n, t, depth, n_sm, max_mhz * 1e6)
     rows.append(kernel_row(
         "decision_forest", lambda: df.forest_predict(*args),
         lambda: df_ref.forest_predict(*args), None,
         float(n) * t * (depth + 1),
         4.0 * (n * d + t * (2 * nn + 2 ** depth) + n), (n, d, t, depth),
-        launches, errs, card))
+        launches, errs, card,
+        note=lambda ms: (
+            f"; design floor (shared-memory requests: {n}x{t}x{depth} lookups, "
+            f"{df.WAVEFRONTS_PER_STEP} wavefronts a warp step, {n_sm} SMs at "
+            f"{max_mhz:g} MHz) {floor_ms:.4f} ms, {100 * floor_ms / ms:.1f}% of it; "
+            f"SM clock after the timing {_smi('clocks.sm')}; tiling "
+            f"{df.forest_tiling(n, d, t, depth, n_sm)}")))
     return rows
 
 

@@ -12,7 +12,10 @@ and 3e-2 in bfloat16 (2e-4 in float32 for attention), with TF32 off. The
 two GEMMs (block_matmul, fused_dense) run float32 on the TF32 tensor cores
 by a three-way split: they are also held at 1e-4 at K = 4096 with N(0,1)
 weights, at rows and pointers that are not 16-byte aligned (their
-element-copy instance), and to bit-equal repeat calls.
+element-copy instance), and to bit-equal repeat calls. decision_forest is
+held at the workload forests' shapes, at row and tree counts off its tiles,
+at d = 4096 (rows read from global memory), at ties and out-of-range
+features, and to bit-equal repeat calls.
 """
 import numpy as np
 import pytest
@@ -156,22 +159,95 @@ def test_gemm_kernels_repeat_bit_equal(cuda_device, m, k, n, dtype):
     assert (bm.launches, fd.launches) == (before[0] + 3, before[1] + 3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d,t,depth", [(20, 8, 4, 3), (150, 16, 10, 5),
-                                         (64, 29, 25, 6)])
-def test_decision_forest_kernel(cuda_device, n, d, t, depth):
-    rng = np.random.default_rng(n + d)
+def _forest(rng, n, d, t, depth, dev, feat_lo=0, feat_hi=None):
     nn = 2 ** depth - 1
-    x = _normal(rng, (n, d), cuda_device)
-    feat = torch.as_tensor(rng.integers(0, d, (t, nn)).astype(np.int32)).to(cuda_device)
-    thresh, leaf = _normal(rng, (t, nn), cuda_device), _normal(rng, (t, 2 ** depth), cuda_device)
+    x = _normal(rng, (n, d), dev)
+    feat = rng.integers(feat_lo, d if feat_hi is None else feat_hi, (t, nn))
+    return (x, torch.as_tensor(feat.astype(np.int32)).to(dev),
+            _normal(rng, (t, nn), dev), _normal(rng, (t, 2 ** depth), dev))
+
+
+def _forest_check(args):
     before = df.launches
-    got = df.forest_predict(x, feat, thresh, leaf)
+    got = df.forest_predict(*args)
     assert df.launches == before + 1
-    torch.testing.assert_close(got, df_ref.forest_predict(x, feat, thresh, leaf),
-                               rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(got, df_ref.forest_predict(*args), rtol=F32_TOL, atol=F32_TOL)
+    return got
+
+
+# the JAX package's kernel-test shapes; the forests of retail_q2, simple_q2,
+# analytics_q1, analytics_q2 and analytics_q3; n not a multiple of the row
+# tile; n < 32; T not a multiple of the tree chunk (at depth 9, 18 trees
+# beside 32 rows of 29 features, 11 beside 768 rows at n = 70,000); d = 4096,
+# whose 32-row tile does not fit in shared memory (the instance that reads
+# rows from global memory)
+FOREST_SHAPES = [(20, 8, 4, 3), (150, 16, 10, 5), (64, 29, 25, 6),
+                 (3000, 32, 160, 6), (3000, 40, 50, 6), (3000, 29, 100, 9),
+                 (3000, 96, 1, 9), (3000, 128, 100, 9),
+                 (1001, 29, 100, 9), (7, 29, 100, 9), (70000, 29, 100, 9),
+                 (500, 4096, 30, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,t,depth", FOREST_SHAPES)
+def test_decision_forest_kernel(cuda_device, n, d, t, depth):
+    args = _forest(np.random.default_rng(n + d), n, d, t, depth, cuda_device)
+    got = _forest_check(args)
     # trees are summed in a fixed order without atomics: repeat runs agree bit for bit
-    torch.testing.assert_close(got, df.forest_predict(x, feat, thresh, leaf), rtol=0, atol=0)
+    before = df.launches
+    torch.testing.assert_close(got, df.forest_predict(*args), rtol=0, atol=0)
+    assert df.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,walk_trees,tsplit", [(1, 2, 8), (1, 2, 2), (1, 4, 1),
+                                                    (2, 2, 1), (3, 2, 1), (4, 2, 1)])
+@pytest.mark.parametrize("stage_x", [True, False])
+@pytest.mark.parametrize("stages", [1, 2])
+def test_decision_forest_kernel_instances(cuda_device, rows, walk_trees, tsplit,
+                                          stage_x, stages):
+    """Every kernel instance, with one and two tree buffers and with the
+    trees split over 1, 2 and 8 groups of warps, at n and T off its row
+    tile, tree chunk and walk group."""
+    n, d, t, depth = 2500, 29, 23, 9
+    threads, chunk = 256, 5
+    bm = threads // tsplit * rows
+    tiling = df.ForestTiling(bm=bm, threads=threads, rows=rows, walk_trees=walk_trees,
+                             chunk=chunk, stages=stages, tsplit=tsplit, stage_x=stage_x,
+                             smem=(bm * d * 4 if stage_x else 0)
+                             + stages * chunk * df.tree_bytes(depth))
+    args = _forest(np.random.default_rng(rows + 10 * stages + tsplit), n, d, t, depth,
+                   cuda_device)
+    before = df.launches
+    got = df.launch(*args, tiling)
+    assert df.launches == before + 1
+    torch.testing.assert_close(got, df_ref.forest_predict(*args), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_decision_forest_kernel_no_rows(cuda_device):
+    """n = 0 gives an empty result and launches nothing, as before."""
+    args = _forest(np.random.default_rng(0), 0, 29, 100, 9, cuda_device)
+    before = df.launches
+    got = df.forest_predict(*args)
+    assert got.shape == (0,) and got.device.type == "cuda" and df.launches == before
+
+
+@pytest.mark.cuda
+def test_decision_forest_kernel_ties(cuda_device):
+    """x and thresholds on a few integers: many compares tie, and a tie goes
+    left (strict >)."""
+    x, feat, thresh, leaf = _forest(np.random.default_rng(1), 3000, 29, 40, 9, cuda_device)
+    _forest_check((x.round(), feat, thresh.round(), leaf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(3000, 29), (500, 4096)])
+def test_decision_forest_kernel_clamps_feat(cuda_device, n, d):
+    """feat below 0 and at or above d clamps to [0, d-1], as JAX's gathers
+    do, in both instances (rows staged and rows from global memory)."""
+    _forest_check(_forest(np.random.default_rng(2), n, d, 30, 9, cuda_device,
+                          feat_lo=-40, feat_hi=d + 40))
 
 
 @pytest.mark.cuda

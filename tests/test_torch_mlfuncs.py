@@ -229,8 +229,12 @@ def test_block_matmul_checks_operands():
         t_bm.block_matmul(torch.ones((2, 3)), torch.ones((3, 5), dtype=torch.bfloat16))
 
 
+# the JAX package's kernel-test shapes, then the forests of retail_q2,
+# simple_q2, analytics_q1, analytics_q2 and analytics_q3 at a few rows
 @pytest.mark.parametrize("n,d,t,depth", [(20, 8, 4, 3), (150, 16, 10, 5),
-                                         (64, 29, 25, 6)])
+                                         (64, 29, 25, 6), (50, 32, 160, 6),
+                                         (45, 40, 50, 6), (40, 29, 100, 9),
+                                         (33, 96, 1, 9), (20, 128, 100, 9)])
 def test_decision_forest_matches_pallas(n, d, t, depth):
     rng = _rng(n + d)
     p = _forest_params(rng, t, depth, d)
