@@ -14,28 +14,51 @@ Phases, each printing its own lines; any failure exits non-zero:
    GEMMs (block_matmul and fused_dense: f32 and bf16, 16-byte and element
    copies) and the bf16 attention instances run on tensor cores.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
-   the card, at the JAX package's kernel-test shapes and at the main paths'
-   shapes (bars: 1e-4 in float32, 2e-4 for attention in float32, 3e-2 in
-   bfloat16, 1e-2 for flash_attention's main shape in bfloat16, which also
-   runs in float32 at 2e-4); the GEMMs also at rows and pointers that are
-   not 16-byte aligned and at K = 4096 with N(0,1) weights, with the largest
-   |err| over the bar printed at their main shapes and repeat calls
-   bit-equal; flash_attention's tensor-core instance also at head dims 128
-   and 160 with a ragged S, and flash_decode called three times and replayed
-   three times from a CUDA graph, all equal; decision_forest also at n not a
-   multiple of its row tile, n < 32, T not a multiple of its tree chunk,
-   d = 4096 (rows from global memory), the five workload forests, ties at
-   the thresholds and feat out of range, with repeat calls bit-equal.
+   the card, at the JAX package's kernel-test shapes and, for the attention
+   kernels, at the LM path's shapes (bars: 1e-4 in float32, 2e-4 for
+   attention in float32, 3e-2 in bfloat16, 1e-2 for flash_attention's main
+   shape in bfloat16, which also runs in float32 at 2e-4); the GEMMs also
+   at rows and pointers that are not 16-byte aligned and at K = 4096 with
+   N(0,1) weights; flash_attention's tensor-core instance also at head dims
+   128 and 160 with a ragged S, and flash_decode called three times and
+   replayed three times from a CUDA graph, all equal; decision_forest also
+   at n not a multiple of its row tile, n < 32, T not a multiple of its tree
+   chunk, d = 4096 (rows from global memory), the five workload forests,
+   ties at the thresholds and feat out of range. The engine kernels'
+   main-path shapes come in phase 5a.
 4. main path: all 12 workloads at scale 1.0. ``execute`` on the card
    (backend ``torch``) against ``execute_reference`` on the CPU, then the
    kernel path (``core.rules.kernel_plan``: R3-1/R3-2, R4-2, R4-1-fuse, R4-2)
    against the torch result, at rtol=atol=5e-4 with int columns and row sets
    exact. Launch counts are zeroed just before and read just after.
+   ``execute`` lowers by cost, under the profile of the card.
+4a. [lower]: ``cost.DeviceProfile.detect("cuda")`` must be the H100 prior on
+   an H100; the host time of one eager torch operator and of one relational
+   operator (the cost model's ``op_overhead_s``); costed lowering of the 12
+   workloads at scale 1.0 under the profile, as built and with R3-1/R3-2
+   applied and their realizations left to lowering: tree-order and chosen
+   cost, candidates scored, decision signature, sites that chose the kernel.
+4b. [plan]: the 12 workloads at scale 1.0 through ``unoptimized``,
+   ``heuristic``, ``greedy`` and ``vanilla_mcts`` (40 iterations, seed 0)
+   with ``planner.analytic_cost_fn`` under the profile and the workload's
+   memory budget; each chosen plan executed on the card against the CPU
+   reference at the bar, with each kernel it names launched. Launch counts
+   are read around each search and each execution; ``[main] optimizer
+   kernels`` sums the executions' and prints the searches' beside them
+   (the compact rule counts a filter's rows by running it).
 5. full size: analytics_q1 at scale 100 (289,000 rows x 29 features, a
    100-tree depth-9 forest) and rec_q3 at scale 20 (1,320 movies, 4096-d
-   tags, a 1.74M-row cross join), through the kernel path and the torch path,
-   median of 5 timed runs each and one profiled run each (device busy
-   share, top kernels).
+   tags, a 1.74M-row cross join), through the kernel path, the torch path
+   and the plan ``vanilla_mcts`` chooses, median of 5 timed runs each and
+   one profiled run each (device busy share, top kernels); the host time of
+   the costed lowering each ``execute`` makes (median of 5). Each engine
+   kernel's wrapper records the largest operand shape it gets in these
+   runs: the main path's shapes of phases 5a and 7.
+5a. the engine kernels' parity at those shapes: max |err| and the largest
+   |err| over the bar, two repeat calls bit-equal.
+5b. [reuse]: ``ReusableMCTS`` over 20 template queries at scale 0.5 with a
+   fixed structural ``embed_fn``: collision rate and node-store bytes,
+   every result against the reference interpreter on the CPU.
 6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
    query heads over 8 KV heads, random weights from a seed):
    a. float32: prefill(prompt[:, :-1]) and one decode step reproduce
@@ -68,6 +91,7 @@ The line before the last is the per-kernel JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -208,6 +232,18 @@ def median_run_ms(fn, runs: int = TIMED_RUNS) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def median_host_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median of ``runs`` single calls after one warm-up, host clock, for
+    work that runs on the host only."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -358,17 +394,48 @@ def _forest_inputs(gen, n, d, t, depth):
             _normal(gen, (t, nn)), _normal(gen, (t, 2 ** depth)))
 
 
-def main_path_shapes() -> dict:
-    """The largest shape each kernel gets on the full-size runs."""
-    n_movies = max(24, int(66 * 20.0))  # movielens.build at rec_q3's scale 20
+def _engine_wrappers() -> dict:
+    """kernel -> (wrapper's module, its name, the shape of one call's
+    operands: (m, k, n, n_tiles), (m, k, n, act) or (n, d, T, depth))."""
+    from repro_torch.kernels.block_matmul import ops as bm
+    from repro_torch.kernels.decision_forest import ops as df
+    from repro_torch.kernels.fused_dense import ops as fd
     return {
-        # rec_q3 at scale 20: the autoencoder's 4096 x 2048 weight, n_tiles 16
-        "block_matmul": (n_movies, 4096, 2048, 16),
-        # rec_q3 at scale 20: cos_sim's towers over the 1320^2-row cross join
-        "fused_dense": (n_movies * n_movies, 256, 256, "identity"),
-        # analytics_q1 at scale 100: 289,000 rows x 29, 100 trees of depth 9
-        "decision_forest": (max(256, int(2890 * 100.0)), 29, 100, 9),
+        "block_matmul": (bm, "block_matmul", lambda x, w, n_tiles=8: (
+            x.shape[0], x.shape[1], w.shape[1], n_tiles)),
+        "fused_dense": (fd, "fused_dense", lambda x, w, b, act="identity": (
+            x.shape[0], x.shape[1], w.shape[1], act)),
+        "decision_forest": (df, "forest_predict", lambda x, feat, thresh, leaf: (
+            x.shape[0], x.shape[1], feat.shape[0], leaf.shape[1].bit_length() - 1)),
     }
+
+
+def _work(shape: tuple) -> int:
+    return int(np.prod([v for v in shape if isinstance(v, int)]))
+
+
+@contextlib.contextmanager
+def recording_shapes(seen: dict):
+    """Inside it, each engine kernel's wrapper keeps in ``seen[kernel]`` the
+    largest operand shape (by the product of its sizes) of its calls on
+    the card. The plans look the wrappers up at each call, so they go
+    through the recorder; the calls and their launch counts are unchanged."""
+    saved = []
+    for name, (mod, attr, key) in _engine_wrappers().items():
+        fn = getattr(mod, attr)
+
+        def recorder(*a, _fn=fn, _name=name, _key=key, **kw):
+            shape = _key(*a, **kw)
+            if a[0].is_cuda and _work(shape) > _work(seen.get(_name, ())):
+                seen[_name] = shape
+            return _fn(*a, **kw)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, recorder)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def bar_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -405,13 +472,12 @@ def _offset_view(gen, shape, dtype):
     return view
 
 
-def phase_parity(shapes: dict) -> dict:
-    """Kernel against plain version; returns max |err| at main-path shapes."""
+def phase_parity() -> None:
+    """Each engine kernel against its plain version at the test shapes."""
     from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
     from repro_torch.kernels.decision_forest import ops as df, ref as df_ref
     from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dt = str(dtype)[6:]
         for m, k, n, t in GEMM_TEST_SHAPES + GEMM_RAGGED_SHAPES + [(64, 96, 32, 2)]:
@@ -428,21 +494,10 @@ def phase_parity(shapes: dict) -> dict:
     got, want = bm.block_matmul(x, w, t), bm_ref.block_matmul(x, w, t)
     kernel_vs_plain(got, want, F32_TOL, f"block_matmul {m}x{k}x{n}/{t} N(0,1) weights")
     long_k = bar_ratio(got, want, F32_TOL)
-    m, k, n, t = shapes["block_matmul"]
-    x, w = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5)
-    got = bm.block_matmul(x, w, t)
-    want = bm_ref.block_matmul(x, w, t)
-    errs["block_matmul"] = kernel_vs_plain(got, want, F32_TOL,
-                                           f"block_matmul main path {m}x{k}x{n}/{t}")
-    ratio = bar_ratio(got, want, F32_TOL)
-    for i in range(2):
-        kernel_vs_plain(bm.block_matmul(x, w, t), got, 0.0, f"block_matmul repeat {i}")
     print(f"[parity] block_matmul ok: {len(GEMM_TEST_SHAPES)} test shapes, "
           f"{len(GEMM_RAGGED_SHAPES)} ragged shapes, 2 pointer offsets and (64, 96, 32), "
-          f"f32 and bf16; {GEMM_LONG_K} N(0,1) f32 largest |err| / bar {long_k:.3f}; "
-          f"main path {m}x{k}x{n} n_tiles={t} max|err|={errs['block_matmul']:.3g}, "
-          f"largest |err| / bar {ratio:.3f} (bar rtol=atol={F32_TOL:g}); "
-          f"2 repeats bit-equal")
+          f"f32 and bf16; {GEMM_LONG_K} N(0,1) f32 largest |err| / bar {long_k:.3f} "
+          f"(bar rtol=atol={F32_TOL:g})")
 
     for m, k, n in [(7, 12, 5), (130, 200, 70), (256, 512, 128), (1, 128, 128),
                     (5, 13, 7), (33, 300, 70)]:
@@ -471,23 +526,9 @@ def phase_parity(shapes: dict) -> dict:
         raise AssertionError("fused_dense accepted softmax")
     except ValueError:
         pass
-    m, k, n, act = shapes["fused_dense"]
-    x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), _normal(gen, (n,))
-    got = fd.fused_dense(x, w, b, act)
-    want = fd_ref.fused_dense(x, w, b, act)
-    errs["fused_dense"] = kernel_vs_plain(got, want, F32_TOL,
-                                          f"fused_dense main path {m}x{k}x{n}")
-    ratio = bar_ratio(got, want, F32_TOL)
-    del want
-    for i in range(2):
-        kernel_vs_plain(fd.fused_dense(x, w, b, act), got, 0.0, f"fused_dense repeat {i}")
-    del x, w, b, got
-    torch.cuda.empty_cache()
     print(f"[parity] fused_dense ok: 6 f32 shapes x {len(fd_ref.ACTS)} activations, "
           f"4 shapes f32 + bf16, x 4 bytes off 16 in f32 + bf16, {GEMM_LONG_K[:3]} "
-          f"N(0,1) f32, softmax refused; main path {m}x{k}x{n} {act} "
-          f"max|err|={errs['fused_dense']:.3g}, largest |err| / bar {ratio:.3f} "
-          f"(bar rtol=atol={F32_TOL:g}); 2 repeats bit-equal")
+          f"N(0,1) f32, softmax refused (bar rtol=atol={F32_TOL:g}, bf16 {BF16_TOL:g})")
 
     for n, d, t, depth in FOREST_TEST_SHAPES + FOREST_WORKLOAD_SHAPES:
         args = _forest_inputs(gen, n, d, t, depth)
@@ -504,36 +545,76 @@ def phase_parity(shapes: dict) -> dict:
     kernel_vs_plain(df.forest_predict(x, feat, thresh, leaf),
                     df_ref.forest_predict(x, feat, thresh, leaf), F32_TOL,
                     "forest feat out of range")
-    args = _forest_inputs(gen, *shapes["decision_forest"])
+    print(f"[parity] decision_forest ok: {len(FOREST_TEST_SHAPES)} test shapes (ragged "
+          f"n, n < 32, T not a multiple of the tree chunk, d 4096 from global memory), "
+          f"the {len(FOREST_WORKLOAD_SHAPES)} workload forests at "
+          f"{FOREST_WORKLOAD_SHAPES[0][0]} rows, ties at the thresholds, feat out of "
+          f"range (bar rtol=atol={F32_TOL:g})")
+
+
+def phase_main_shape_parity(shapes: dict) -> dict:
+    """Each engine kernel against its plain version at the largest shape
+    the full-size runs gave it, with two repeat calls bit-equal; returns
+    max |err| per kernel."""
+    from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
+    from repro_torch.kernels.decision_forest import ops as df, ref as df_ref
+    from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+    m, k, n, t = shapes["block_matmul"]
+    x, w = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5)
+    got = bm.block_matmul(x, w, t)
+    want = bm_ref.block_matmul(x, w, t)
+    errs["block_matmul"] = kernel_vs_plain(got, want, F32_TOL,
+                                           f"block_matmul main path {m}x{k}x{n}/{t}")
+    ratio = bar_ratio(got, want, F32_TOL)
+    for i in range(2):
+        kernel_vs_plain(bm.block_matmul(x, w, t), got, 0.0, f"block_matmul repeat {i}")
+    print(f"[parity] block_matmul main path {m}x{k}x{n} n_tiles={t} "
+          f"max|err|={errs['block_matmul']:.3g}, largest |err| / bar {ratio:.3f} "
+          f"(bar rtol=atol={F32_TOL:g}); 2 repeats bit-equal")
+    m, k, n, act = shapes["fused_dense"]
+    x, w, b = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), _normal(gen, (n,))
+    got = fd.fused_dense(x, w, b, act)
+    want = fd_ref.fused_dense(x, w, b, act)
+    errs["fused_dense"] = kernel_vs_plain(got, want, F32_TOL,
+                                          f"fused_dense main path {m}x{k}x{n}")
+    ratio = bar_ratio(got, want, F32_TOL)
+    del want
+    for i in range(2):
+        kernel_vs_plain(fd.fused_dense(x, w, b, act), got, 0.0, f"fused_dense repeat {i}")
+    del x, w, b, got
+    torch.cuda.empty_cache()
+    print(f"[parity] fused_dense main path {m}x{k}x{n} {act} "
+          f"max|err|={errs['fused_dense']:.3g}, largest |err| / bar {ratio:.3f} "
+          f"(bar rtol=atol={F32_TOL:g}); 2 repeats bit-equal")
+    n, d, t, depth = shapes["decision_forest"]
+    args = _forest_inputs(gen, n, d, t, depth)
     got = df.forest_predict(*args)
     errs["decision_forest"] = kernel_vs_plain(got, df_ref.forest_predict(*args), F32_TOL,
                                               "forest main path")
     for i in range(2):
         kernel_vs_plain(df.forest_predict(*args), got, 0.0, f"forest repeat {i}")
-    n, d, t, depth = shapes["decision_forest"]
-    print(f"[parity] decision_forest ok: {len(FOREST_TEST_SHAPES)} test shapes (ragged "
-          f"n, n < 32, T not a multiple of the tree chunk, d 4096 from global memory), "
-          f"the {len(FOREST_WORKLOAD_SHAPES)} workload forests at "
-          f"{FOREST_WORKLOAD_SHAPES[0][0]} rows, ties at the thresholds, feat out of "
-          f"range; main path {shapes['decision_forest']} "
+    print(f"[parity] decision_forest main path {shapes['decision_forest']} "
           f"({df.forest_tiling(n, d, t, depth, _n_sm())}) "
           f"max|err|={errs['decision_forest']:.3g} (bar rtol=atol={F32_TOL:g}); "
           f"2 repeats bit-equal")
     return errs
 
 
-def phase_main_path() -> dict:
+def phase_main_path() -> tuple:
+    """Returns the launch counts and each workload's reference result."""
     from repro_torch.core.executor import execute, execute_reference
     from repro_torch.core.rules import kernel_plan
     from repro_torch.data.workloads import ALL_WORKLOADS
-    plans = {}
+    plans, refs = {}, {}
     for name in sorted(ALL_WORKLOADS):
         w = ALL_WORKLOADS[name](scale=1.0, device="cuda")
         plans[name] = (w, kernel_plan(w.plan, w.catalog))
     reset_launches()
     for name, (w, kplan) in plans.items():
         t0 = time.perf_counter()
-        ref = execute_reference(w.plan, w.catalog, device="cpu").canonical()
+        ref = refs[name] = execute_reference(w.plan, w.catalog, device="cpu").canonical()
         out = execute(w.plan, w.catalog, backend="torch", device="cuda").canonical()
         assert_canonical_close(ref, out, f"{name}/torch")
         kout = execute(kplan, w.catalog, device="cuda").canonical()
@@ -546,21 +627,29 @@ def phase_main_path() -> dict:
     missing = [k for k in ENGINE_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return launches
+    return launches, refs
 
 
-def phase_full_size() -> dict:
+def phase_full_size(profile) -> dict:
+    """Each full-size workload through the kernel path, the torch path and
+    the plan ``vanilla_mcts`` chooses under ``profile``: medians of 5 and one
+    profiled run each, the decisions costed lowering made for them and its
+    host time per ``execute``. Returns the largest operand shape each engine
+    kernel got in these runs (the main path's shapes of phases 5a and 7)."""
+    from repro_torch.core import costed_lowering, planner
     from repro_torch.core.executor import execute
+    from repro_torch.core.lowering import lower
     from repro_torch.core.rules import kernel_plan
     from repro_torch.data.workloads import ALL_WORKLOADS
-    per_run = {}
+    shapes = {}
     for name, scale in FULL_SIZE:
         w = ALL_WORKLOADS[name](scale=scale, device="cuda")
         kplan = kernel_plan(w.plan, w.catalog)
         out = execute(w.plan, w.catalog, backend="torch", device="cuda").canonical()
         reset_launches()
-        kout = execute(kplan, w.catalog, device="cuda").canonical()
-        per_run[name] = read_launches()
+        with recording_shapes(shapes):
+            kout = execute(kplan, w.catalog, device="cuda").canonical()
+        launched = read_launches()
         assert_finite(out, name)
         assert_canonical_close(out, kout, f"{name}@{scale}/kernel")
         rows = len(next(iter(out.values())))
@@ -570,15 +659,265 @@ def phase_full_size() -> dict:
         print(f"[full] {name} scale={scale}: {rows} rows, kernel == torch; "
               f"median of {TIMED_RUNS}: kernel path {kernel_ms:.3f} ms, "
               f"torch path {torch_ms:.3f} ms; launches per run "
-              + json.dumps(per_run[name]))
+              + json.dumps(launched))
+        for label, plan, backend in (("kernel path", kplan, None),
+                                     ("torch path", w.plan, "torch")):
+            low = costed_lowering.lower_costed(plan, w.catalog, profile=profile,
+                                               backend=backend)
+            # the host time of the lowering each ``execute`` of this plan makes
+            low_ms = median_host_ms(lambda: lower(plan, w.catalog, backend=backend,
+                                                  profile=profile))
+            print(f"[full] {name} scale={scale} {label} lowered by cost: estimated "
+                  f"{low.baseline_cost * 1e3:.4f} ms in tree order, {low.cost * 1e3:.4f} ms "
+                  f"chosen, {low.candidates_scored} candidates; signature {low.signature}; "
+                  f"lowering alone, on the host, median of {TIMED_RUNS}: {low_ms:.3f} ms "
+                  f"a call")
         profile_breakdown(f"{name} kernel path",
                           lambda: execute(kplan, w.catalog, device="cuda"))
         profile_breakdown(f"{name} torch path",
                           lambda: execute(w.plan, w.catalog, backend="torch",
                                           device="cuda"))
-        del w, kplan
+        # the search under the workload's memory budget (the JAX package's
+        # setting, sized for scale 1.0) and under none (the card's 80 GB)
+        for budget in (w.memory_budget, None):
+            cost_fn = planner.analytic_cost_fn(w.catalog, profile, memory_budget=budget)
+            oplan, stats = planner.timed(planner.optimize_vanilla_mcts, w.plan, w.catalog,
+                                         cost_fn=cost_fn, iterations=MCTS_ITERATIONS,
+                                         seed=0)
+            reset_launches()
+            with recording_shapes(shapes):
+                oout = execute(oplan, w.catalog, device="cuda").canonical()
+            opt_launches = read_launches()
+            assert_canonical_close(out, oout, f"{name}@{scale}/optimized")
+            opt_ms = median_run_ms(lambda: execute(oplan, w.catalog, device="cuda"))
+            label = f"budget {budget:.3g} B" if budget else "no budget"
+            print(f"[full] {name} scale={scale} optimized (vanilla_mcts, {MCTS_ITERATIONS} "
+                  f"iterations, seed 0, {profile.name} prior, {label}): == torch path; "
+                  f"estimated speedup {stats['speedup']:.3f}x, optimizer "
+                  f"{stats['opt_seconds']:.3f} s; median of {TIMED_RUNS}: {opt_ms:.3f} ms "
+                  f"(kernel path {kernel_ms:.3f} ms, torch path {torch_ms:.3f} ms); "
+                  f"launches per run {json.dumps(opt_launches)}")
+            profile_breakdown(f"{name} optimized plan, {label}",
+                              lambda: execute(oplan, w.catalog, device="cuda"))
+        del w, kplan, oplan
         torch.cuda.empty_cache()
-    return per_run
+    missing = [k for k in ENGINE_KERNELS if k not in shapes]
+    if missing:
+        raise AssertionError(f"kernels not launched on the full-size runs: {missing}")
+    print("[full] largest operand shape per kernel " + json.dumps(shapes))
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# the optimizer: cost profile, costed lowering, plan search
+# ---------------------------------------------------------------------------
+
+STRATEGIES = ("unoptimized", "heuristic", "greedy", "vanilla_mcts")
+MCTS_ITERATIONS = 40
+DISPATCH_SCALE = 0.05  # workloads whose device work is far below the host's
+
+
+def _phys_nodes(node):
+    yield node
+    for c in node.children():
+        yield from _phys_nodes(c)
+
+
+def _expr_calls(e):
+    from repro_torch.core import ir
+    if isinstance(e, ir.Call):
+        yield e
+    for c in e.children():
+        yield from _expr_calls(c)
+
+
+def expected_kernels(pplan) -> set:
+    """The engine kernels a physical plan launches: BlockedMatmul and
+    ForestRelational nodes realized fused on the kernel backend, and the
+    fused_dense and forest atoms set to the kernel by R4-2 in the
+    functions its expressions call."""
+    from repro_torch.core import physical as ph
+    kernels, calls = set(), []
+    for node in _phys_nodes(pplan.root):
+        if isinstance(node, ph.PBlockedMatmul) and node.mode == "fused" \
+                and node.backend == "kernel":
+            kernels.add("block_matmul")
+        if isinstance(node, ph.PForestRelational) and node.mode == "fused" \
+                and node.backend == "kernel":
+            kernels.add("decision_forest")
+        for st in getattr(node, "stages", ()):
+            exprs = [e for _, e in st.outputs] if isinstance(st, ph.ProjectStage) else \
+                [st.pred] if isinstance(st, ph.FilterStage) else []
+            calls += [c for e in exprs for c in _expr_calls(e)]
+    for call in calls:
+        graph = pplan.registry.get(call.fn).graph
+        for n in (graph.nodes if graph else ()):
+            if n.atom.backend == "kernel":
+                kernels.add({"fused_dense": "fused_dense",
+                             "forest": "decision_forest"}[n.atom.kind])
+    return kernels
+
+
+def measure_dispatch(profile) -> tuple:
+    """Host time of one small eager torch operator on the card, and of one
+    relational operator as the cost model counts them (``n_ops``): the
+    median over the 12 workloads at a small scale of a tree-order plan's
+    wall time over its operator count."""
+    from repro_torch.core import cost
+    from repro_torch.core import physical as ph
+    from repro_torch.core.lowering import lower
+    from repro_torch.data.workloads import ALL_WORKLOADS
+    x = torch.zeros(1024, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    op_s = (time.perf_counter() - t0) / n
+    per_op = []
+    for name in sorted(ALL_WORKLOADS):
+        w = ALL_WORKLOADS[name](scale=DISPATCH_SCALE, device="cuda")
+        pplan = lower(w.plan, w.catalog, costed=False)
+        n_ops = cost.plan_cost_breakdown(pplan, w.catalog, profile).n_ops
+        tables = dict(w.catalog.tables)
+        ph.run(pplan, tables)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            ph.run(pplan, tables)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        per_op.append(statistics.median(times) / n_ops)
+    return op_s, statistics.median(per_op)
+
+
+def _open_sites(plan, catalog):
+    """R3-1 and R3-2 on every call they reach with their annotations
+    dropped, so that costed lowering chooses each node's realization."""
+    import dataclasses
+    from repro_torch.core.rules import ALL_RULES
+    for rule in ("R3-1", "R3-2"):
+        while True:
+            cfgs = ALL_RULES[rule].configs(plan, catalog)
+            if not cfgs:
+                break
+            plan = ALL_RULES[rule].apply(plan, catalog, cfgs[0])
+    return dataclasses.replace(plan, phys={})
+
+
+def phase_lower() -> "object":
+    """[lower]: the detected profile (the H100 prior on an H100), the
+    dispatch it was set from, and costed lowering of the 12 workloads at
+    scale 1.0 under it: as built, and with R3-1/R3-2 applied and their
+    realizations left open. Returns the profile."""
+    from repro_torch.core import cost, costed_lowering
+    from repro_torch.core import physical as ph
+    from repro_torch.data.workloads import ALL_WORKLOADS
+    profile = cost.DeviceProfile.detect("cuda")
+    if torch.cuda.get_device_capability(0) == (9, 0) and profile != cost.H100_PROFILE:
+        raise AssertionError(f"detect('cuda') on an H100 gave {profile.signature()}")
+    op_s, rel_s = measure_dispatch(profile)
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    print(f"[lower] profile {profile.signature()} supports_kernel={profile.supports_kernel}; "
+          f"measured here: one eager torch op {op_s * 1e6:.2f} us, one relational operator "
+          f"{rel_s * 1e6:.2f} us (median over the 12 workloads at scale {DISPATCH_SCALE}, "
+          f"tree-order plans, wall / n_ops) against the prior's op_overhead_s "
+          f"{profile.op_overhead_s * 1e6:.2f} us; clocks.max.sm {max_mhz:g} MHz, shared "
+          f"memory {_n_sm()} SMs x 128 B x clock = {_n_sm() * 128 * max_mhz * 1e6:.4e} B/s "
+          f"against the prior's vmem_bw {profile.vmem_bw:.4e}")
+    for name in sorted(ALL_WORKLOADS):
+        w = ALL_WORKLOADS[name](scale=1.0, device="cuda")
+        for label, plan in (("plan", w.plan), ("r3 open", _open_sites(w.plan, w.catalog))):
+            low = costed_lowering.lower_costed(plan, w.catalog, profile=profile)
+            ml = [n for n in _phys_nodes(low.plan.root)
+                  if isinstance(n, (ph.PBlockedMatmul, ph.PForestRelational))]
+            kernel_sites = sum(n.backend == "kernel" for n in ml)
+            print(f"[lower] {name} {label}: tree order {low.baseline_cost * 1e3:.4f} ms, "
+                  f"chosen {low.cost * 1e3:.4f} ms ({low.baseline_cost / low.cost:.3f}x), "
+                  f"{low.candidates_scored} candidates scored, {kernel_sites} of {len(ml)} "
+                  f"mode/backend sites chose kernel "
+                  f"({', '.join(f'{n.mode}/{n.backend}' for n in ml) or 'none'}); "
+                  f"signature {low.signature}")
+    return profile
+
+
+def phase_plan(profile, refs: dict) -> dict:
+    """[plan]: the four strategies on the 12 workloads at scale 1.0 under
+    the detected profile and each workload's memory budget; every chosen
+    plan executed on the card against the CPU reference. Launch counts
+    are read around each search (the compact rule counts rows by running
+    filter subtrees) and around each plan's execution, where each kernel
+    the plan names must run; ``[main] optimizer kernels`` sums the
+    executions' counts, and the searches' are printed beside it."""
+    from repro_torch.core import planner
+    from repro_torch.core.executor import execute
+    from repro_torch.core.lowering import lower
+    from repro_torch.data.workloads import ALL_WORKLOADS
+    executed = dict.fromkeys(KERNELS, 0)
+    searched = dict.fromkeys(KERNELS, 0)
+    reset_launches()
+    for name in sorted(ALL_WORKLOADS):
+        w = ALL_WORKLOADS[name](scale=1.0, device="cuda")
+        cost_fn = planner.analytic_cost_fn(w.catalog, profile, memory_budget=w.memory_budget)
+        for strategy in STRATEGIES:
+            before = read_launches()
+            plan, stats = planner.timed(planner.STRATEGIES[strategy], w.plan, w.catalog,
+                                        cost_fn=cost_fn, memory_budget=w.memory_budget,
+                                        iterations=MCTS_ITERATIONS, seed=0)
+            mid = read_launches()
+            out = execute(plan, w.catalog, device="cuda").canonical()
+            after = read_launches()
+            assert_canonical_close(refs[name], out, f"{name}/{strategy}")
+            ran = {k: after[k] - mid[k] for k in after}
+            want = expected_kernels(lower(plan, w.catalog, profile=profile))
+            idle = sorted(k for k in want if ran[k] <= 0)
+            if idle:
+                raise AssertionError(f"{name}/{strategy}: plan names {sorted(want)}, "
+                                     f"{idle} not launched")
+            search = {k: mid[k] - before[k] for k in mid if mid[k] > before[k]}
+            for k in KERNELS:
+                executed[k] += ran[k]
+                searched[k] += mid[k] - before[k]
+            print(f"[plan] {name} {strategy}: estimated speedup "
+                  f"{cost_fn(w.plan) / cost_fn(plan):.3f}x, optimizer "
+                  f"{stats['opt_seconds']:.3f} s, == reference; kernel launches "
+                  f"executing it {json.dumps(ran)}"
+                  + (f", counting rows in the search {json.dumps(search)}" if search else ""))
+    print("[main] optimizer kernels " + json.dumps(executed)
+          + "; launched by the searches' row counts " + json.dumps(searched))
+    return executed
+
+
+def phase_reusable(profile) -> None:
+    """[reuse]: ReusableMCTS over 20 template queries at scale 0.5 on the
+    card (ten in-distribution templates, two seeds each), each result
+    against the reference interpreter on the CPU."""
+    from repro_torch.core import planner
+    from repro_torch.core.executor import execute, execute_reference
+    from repro_torch.core.mcts import ReusableMCTS, structural_embedding
+    from repro_torch.data import templates
+    ind, _ = templates.ood_split()
+    search = ReusableMCTS(catalog_fn=None, embed_fn=structural_embedding,
+                          cost_fn_factory=lambda cat: planner.analytic_cost_fn(cat, profile),
+                          iterations=MCTS_ITERATIONS, seed=0)
+    t0 = time.perf_counter()
+    hits = []
+    for seed in (1, 2):
+        for t in ind[:10]:
+            plan, cat = templates.sample_query(t, seed=seed, scale=0.5, device="cuda")
+            best, stats = search.optimize(plan, cat)
+            hits.append(stats["collision"])
+            assert_canonical_close(execute_reference(plan, cat, device="cpu").canonical(),
+                                   execute(best, cat, device="cuda").canonical(),
+                                   f"template {t} seed {seed}")
+    print(f"[reuse] ReusableMCTS, {len(hits)} template queries at scale 0.5 (templates "
+          f"{list(ind[:10])}, seeds 1 and 2), {MCTS_ITERATIONS} iterations cold: collision "
+          f"rate {search.collision_rate:.3f} ({sum(hits)} of {len(hits)}), node store "
+          f"{len(search.nodes)} nodes, {search.storage_bytes()} bytes; every result == "
+          f"the reference interpreter on the CPU ({time.perf_counter() - t0:.1f} s)")
 
 
 def _attn_inputs(gen, b, hq, hkv, s, d, dtype=torch.float32):
@@ -961,11 +1300,14 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
 def main() -> int:
     card = phase_device()
     phase_build()
-    shapes = main_path_shapes()
-    errs = phase_parity(shapes)
-    errs.update(phase_attention_parity(lm_shapes()))
-    launches = phase_main_path()
-    phase_full_size()
+    phase_parity()
+    errs = phase_attention_parity(lm_shapes())
+    launches, refs = phase_main_path()
+    profile = phase_lower()
+    phase_plan(profile, refs)
+    shapes = phase_full_size(profile)
+    errs.update(phase_main_shape_parity(shapes))
+    phase_reusable(profile)
     phase_lm_f32()
     torch.cuda.empty_cache()
     lm_launches, cache = phase_lm_bf16()

@@ -1,7 +1,8 @@
 """Plan execution facade.
 
-``execute`` lowers the logical plan (repro_torch.core.lowering, tree order)
-and runs the physical operators (repro_torch.core.physical).
+``execute`` lowers the logical plan by cost (repro_torch.core.lowering,
+under the cost profile of the device it runs on) and runs the physical
+operators (repro_torch.core.physical).
 
 ``execute_reference`` keeps the per-node recursive interpreter over the
 *logical* tree: the oracle for lowering-equivalence tests. It shares the
@@ -18,7 +19,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import cost, ir
 from repro_torch.core import physical as ph
 from repro_torch.core.evaluator import as_column, eval_expr
 from repro_torch.core.lowering import lower
@@ -39,8 +40,10 @@ def _tables_on(catalog: ir.Catalog, device) -> Dict[str, Table]:
 
 def execute(plan: ir.Plan, catalog: ir.Catalog, *,
             backend: Optional[str] = None, device=None) -> Table:
-    return ph.run(lower(plan, catalog, backend=backend, costed=False),
-                  _tables_on(catalog, device))
+    dev = resolve_device(device)
+    pplan = lower(plan, catalog, backend=backend,
+                  profile=cost.default_profile(dev))
+    return ph.run(pplan, _tables_on(catalog, dev))
 
 
 # ---------------------------------------------------------------------------

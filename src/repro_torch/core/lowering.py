@@ -1,7 +1,11 @@
 """Lowering pass: logical Plan -> PhysicalPlan.
 
-The tree-order lowering: realization choices come from the plan's physical
-side table (``plan.phys``, keyed by node uid); nodes without an annotation
+By default lowering is *cost-driven* (``costed=True``): the plan becomes a
+stage-DAG of candidate decisions (``core.stage_graph``) and
+``core.costed_lowering`` picks the min-cost physical realization through
+the shared ``cost.plan_cost`` oracle. The tree-order heuristic below
+(``costed=False``) remains the baseline: realization choices come from the
+plan's physical side table (``plan.phys``, keyed by node uid); nodes without an annotation
 get ``ir.DEFAULT_PHYS`` with the tile count sized from the weight (the same
 policy R3-1 uses when it annotates). Adjacent row-local operators (Filter,
 Project, Compact) fuse into a single ``PPipeline`` stage chain: one driver
@@ -10,9 +14,6 @@ per pipeline instead of one interpreter dispatch per logical node.
 ``backend`` overrides every annotation's backend ('torch' forces ATen ops,
 'kernel' the hand-written kernels) without touching the plan: the paper's
 "re-realize without touching the logical query" knob.
-
-Cost-driven lowering (``costed=True``) is not ported yet (ROADMAP.md,
-queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -87,14 +88,30 @@ def _lower_node(node: ir.RelNode, plan: ir.Plan,
 
 
 def lower(plan: ir.Plan, catalog: ir.Catalog, *,
-          backend: Optional[str] = None, costed: bool = False) -> ph.PhysicalPlan:
-    """Lower a logical plan to its physical realization in tree order.
+          backend: Optional[str] = None, costed: bool = True,
+          profile=None, memory_budget: Optional[float] = None,
+          ways: int = 1) -> ph.PhysicalPlan:
+    """Lower a logical plan to its physical realization.
 
-    ``catalog`` is the statistics source of cost-driven lowering, which is
-    not ported yet: ``costed=True`` raises ``NotImplementedError``.
+    By default lowering is *cost-driven*: the min-cost realization under the
+    shared analytic oracle (``core.costed_lowering`` / ``cost.plan_cost``),
+    with ``catalog`` supplying the statistics those decisions need and
+    ``profile`` (default: that of the catalog's device) and
+    ``memory_budget`` parameterizing the oracle. ``costed=False`` keeps the
+    tree-order heuristic (one stage per logical node, pipelines fused in
+    tree order), which is also the costed path's baseline and the shape
+    ``plan_cost`` assumes when costing a *logical* plan. ``backend``
+    force-overrides every node's backend annotation in either mode.
+    ``ways > 1`` (partitioned lowering) raises ``NotImplementedError``: the
+    multi-device path is not ported yet (ROADMAP.md, queue 1 item 12).
     """
     if costed:
+        from repro_torch.core.costed_lowering import lower_costed
+        return lower_costed(plan, catalog, backend=backend, profile=profile,
+                            memory_budget=memory_budget, ways=ways).plan
+    if ways > 1:
         raise NotImplementedError(
-            "costed lowering is not ported yet (ROADMAP.md, queue 1 item 9)")
+            "partitioned lowering (ways > 1) is not ported yet "
+            "(ROADMAP.md, queue 1 item 12)")
     root = _lower_node(plan.root, plan, backend)
     return ph.PhysicalPlan(root=root, registry=plan.registry)

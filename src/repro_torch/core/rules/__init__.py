@@ -1,11 +1,13 @@
-"""Co-optimization rules (paper Sec. II-A + Appendix A): O3 and O4.
+"""Co-optimization rules O1-O4 (paper Sec. II-A + Appendix A).
 
 Every rule is result-preserving: applying any of its configs leaves the
-plan's canonical output unchanged.
+plan's canonical output unchanged. ``ALL_RULES`` holds them in the JAX
+package's registration order (o1, o2, o3, o4), which the search's random
+choices walk.
 """
 from repro_torch.core import ir
 from repro_torch.core.rules.base import Rule, RuleConfig, ALL_RULES, rule_by_name
-from repro_torch.core.rules import o3, o4  # noqa: F401  (registration side effects)
+from repro_torch.core.rules import o1, o2, o3, o4  # noqa: F401  (registration side effects)
 
 __all__ = ["Rule", "RuleConfig", "ALL_RULES", "rule_by_name", "kernel_plan"]
 

@@ -19,9 +19,12 @@ Both return float32 (acc, m, l) partials, unnormalized, for the
 log-sum-exp merge of ``ref.merge_partials``. The kernel cuts the cache
 into chunks shared out over ``split_blocks`` blocks per (b, h) and merges
 their partials in the same launch: the last block of each (b, h) to finish
-merges, found through a per-(b, h) int32 ticket that it resets to zero. The tickets live in one buffer per
-device, made once with ``torch.zeros``; calls on one device are therefore
-ordered on one stream, as the model's are.
+merges, found through a per-(b, h) int32 ticket that it resets to zero.
+Each launch takes its own zeroed tickets (and partials) from PyTorch's
+caching allocator on the current stream, which hands a block to no other
+stream while it is in use, and inside a CUDA-graph capture takes it from
+the graph's private pool. So calls in flight on different streams, and a
+graph replay beside an eager call, never share tickets.
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ HEAD_DIMS = (16, 32, 64, 128, 160)  # instantiated in csrc/flash_decode.cu
 MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
 MAX_SPLIT = 64  # blocks per (b, h), so partials per merge
 launches = 0  # kernel launches since the last reset
-_tickets = {}  # device -> int32 zeros, one per (b, h); grown, never freed
 
 
 def chunk_slots(d: int, dtype: torch.dtype) -> int:
@@ -53,15 +55,6 @@ def split_blocks(n_bh: int, n_chunks: int, dev: torch.device) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     want = 1 << max(0, (-(-2 * sms // n_bh) - 1).bit_length())
     return max(1, min(want, n_chunks, MAX_SPLIT))
-
-
-def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    """The device's merge tickets, at least ``n``. A buffer is never freed,
-    so a captured CUDA graph keeps a valid one."""
-    bufs = _tickets.setdefault(dev, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=dev))
-    return bufs[-1]
 
 
 def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, valid_len,
@@ -95,9 +88,10 @@ def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, valid_len,
     split = split_blocks(b * h, common.cdiv(n_slots, chunk_slots(d, q4.dtype)), dev)
     if split > 1:  # per-block partials, merged in the same launch
         parts = (torch.empty((split, b, h, g, d), dtype=torch.float32, device=dev),
-                 torch.empty((2, split, b, h, g), dtype=torch.float32, device=dev))
+                 torch.empty((2, split, b, h, g), dtype=torch.float32, device=dev),
+                 torch.zeros((b * h,), dtype=torch.int32, device=dev))
         part_ptrs = (parts[0].data_ptr(), parts[1][0].data_ptr(), parts[1][1].data_ptr(),
-                     _ticket_buffer(dev, b * h).data_ptr())
+                     parts[2].data_ptr())
     else:
         part_ptrs = (0, 0, 0, 0)
     if isinstance(valid_len, torch.Tensor):

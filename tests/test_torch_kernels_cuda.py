@@ -15,7 +15,9 @@ weights, at rows and pointers that are not 16-byte aligned (their
 element-copy instance), and to bit-equal repeat calls. decision_forest is
 held at the workload forests' shapes, at row and tree counts off its tiles,
 at d = 4096 (rows read from global memory), at ties and out-of-range
-features, and to bit-equal repeat calls.
+features, and to bit-equal repeat calls. flash_decode is also held to its
+merge's tickets being private to each call: calls in flight on two streams,
+and a graph replay beside an eager call, each merge their own partials.
 """
 import numpy as np
 import pytest
@@ -396,6 +398,101 @@ def test_flash_decode_kernel_repeats_and_graph_replays(cuda_device, dtype):
     for out in outs:
         for x, y in zip(out, first):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def _decode_cache(rng, dev, s=4096, filled=3996, d=64):
+    """A bf16 cache [1, S, 1, D] with ``filled`` slots: one (b, h), so every
+    block of every call in flight takes the same ticket, and at most 64
+    blocks a call, so calls on two streams run side by side."""
+    kc, vc = (_normal(rng, (1, s, 1, d), dev).to(torch.bfloat16) for _ in range(2))
+    return kc, vc, torch.tensor(filled, dtype=torch.int32, device=dev)
+
+
+def _decode_want(q, cache):
+    """The plain partials' merged attention: what a call must return."""
+    kc, vc, n = cache
+    return fdec_ref.merge_partials(
+        *([x] for x in fdec_ref.decode_partials_plain(q, kc, vc, n, q.shape[-1] ** -0.5)))
+
+
+def _merged(parts):
+    return fdec_ref.merge_partials(*([x] for x in parts))
+
+
+def _gate(streams):
+    """Hold ``streams`` behind a ~0.2 s device sleep (4e8 clocks), far
+    longer than the host takes to enqueue the calls meant to overlap, so
+    that they all start when it ends."""
+    gate = torch.cuda.Stream()
+    gate.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(400_000_000)
+    ev = torch.cuda.Event()
+    ev.record(gate)
+    for st in streams:
+        st.wait_event(ev)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_two_streams(cuda_device):
+    """Calls with different inputs in flight on two streams at once (no
+    sync between them) each merge their own partials: four long calls (64
+    blocks of two chunks each) on one stream while twelve short ones (8
+    blocks with work) run on the other, so their blocks finish interleaved."""
+    rng = np.random.default_rng(7)
+    caches = [_decode_cache(rng, cuda_device, 16384, 16000),
+              _decode_cache(rng, cuda_device, 4096, 1000)]
+    calls = [(0, _normal(rng, (1, 4, 64), cuda_device).to(torch.bfloat16)) for _ in range(4)]
+    calls += [(1, _normal(rng, (1, 4, 64), cuda_device).to(torch.bfloat16)) for _ in range(12)]
+    for i in (0, 1):  # first calls of each shape outside the gated window
+        fdec.gqa_decode_partials(calls[-i][1], *caches[i])
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    _gate(streams)
+    outs = []
+    for i, q in calls:
+        with torch.cuda.stream(streams[i]):
+            outs.append(fdec.gqa_decode_partials(q, *caches[i]))
+    torch.cuda.synchronize()
+    for n, ((i, q), parts) in enumerate(zip(calls, outs)):
+        torch.testing.assert_close(_merged(parts), _decode_want(q, caches[i]),
+                                   rtol=ATTN_TOL, atol=ATTN_TOL, msg=lambda m: f"call {n}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_graph_replay_beside_eager_call(cuda_device):
+    """A CUDA-graph replay on one stream while eager calls with other
+    inputs run on another: both results are right."""
+    rng = np.random.default_rng(8)
+    g_cache, e_cache = (_decode_cache(rng, cuda_device) for _ in range(2))
+    g_q = _normal(rng, (1, 4, 64), cuda_device).to(torch.bfloat16)
+    e_qs = [_normal(rng, (1, 4, 64), cuda_device).to(torch.bfloat16) for _ in range(4)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fdec.gqa_decode_partials(g_q, *g_cache)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fdec.gqa_decode_partials(g_q, *g_cache)
+    torch.cuda.synchronize()
+    g_want = _decode_want(g_q, g_cache)
+    replay_st, eager_st = torch.cuda.Stream(), torch.cuda.Stream()
+    for rep in range(4):
+        _gate([replay_st, eager_st])
+        with torch.cuda.stream(replay_st):
+            graph.replay()
+        eager = []
+        for q in e_qs:
+            with torch.cuda.stream(eager_st):
+                eager.append(fdec.gqa_decode_partials(q, *e_cache))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(_merged(captured), g_want, rtol=ATTN_TOL, atol=ATTN_TOL,
+                                   msg=lambda m: f"replay {rep}: {m}")
+        for q, parts in zip(e_qs, eager):
+            torch.testing.assert_close(_merged(parts), _decode_want(q, e_cache),
+                                       rtol=ATTN_TOL, atol=ATTN_TOL,
+                                       msg=lambda m: f"eager beside replay {rep}: {m}")
 
 
 @pytest.mark.cuda

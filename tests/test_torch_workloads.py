@@ -240,10 +240,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert common.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_costed_lowering_not_ported():
-    w = _port("simple_q3")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        lower(w.plan, w.catalog, costed=True)
+def test_costed_lowering_is_the_default():
+    """``lower`` lowers by cost unless asked not to, and ``execute`` runs
+    that plan: on rec_q1 it inserts a Compact after the selective filter,
+    which tree order does not."""
+    from repro_torch.core import physical as ph
+    w = _port("rec_q1")
+
+    def compacts(pplan):
+        return sum(isinstance(s, ph.CompactStage) for n in _phys_nodes(pplan.root)
+                   if isinstance(n, ph.PPipeline) for s in n.stages)
+
+    costed, tree = lower(w.plan, w.catalog), lower(w.plan, w.catalog, costed=False)
+    assert compacts(costed) > compacts(tree) == 0
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        lower(w.plan, w.catalog, ways=2)
+
+
+def _phys_nodes(node):
+    yield node
+    for c in node.children():
+        yield from _phys_nodes(c)
 
 
 def test_evaluator_numpy_path_matches_torch_path():
