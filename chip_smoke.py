@@ -59,6 +59,26 @@ Phases, each printing its own lines; any failure exits non-zero:
 5b. [reuse]: ``ReusableMCTS`` over 20 template queries at scale 0.5 with a
    fixed structural ``embed_fn``: collision rate and node-store bytes,
    every result against the reference interpreter on the CPU.
+5c. [cache]: the two full-size workloads through the compiled-plan cache
+   (``PlanCache.get_or_compile``, and ``compile_plan`` over the global
+   cache), kernel and torch plans: the build's lowering, warm-up and capture
+   seconds and the graph's pool; 5 calls on fresh instances, each equal to
+   ``execute`` on the same instance at the bar, with one capture and one
+   lowering; the median call (CUDA events around the input copy, the replay
+   and the output clone) beside ``execute``'s. ``[main] cache kernels``
+   counts the executables' launches: at warm-up and capture, never at
+   replay.
+5d. [serving]: the JAX package's serving traffic (benchmarks/serving_bench.py)
+   on the kernel plans: B sequential dispatches against one B-wide vmapped
+   dispatch of simple_q2 and simple_q3 at scale 0.08 for B in 1-16; the
+   42-request 4:2:1 mix over simple_q1-3 through ``QueryServer`` against a
+   batch-1 server; 4 analytics_q1@100 instances in one micro-batch (one
+   forest launch over all their rows). Every batched result against its
+   sequential one at 2e-5; ops that took vmap's per-example fallback are
+   printed, and an engine kernel among them fails the run.
+5e. [feedback]: ``calibrate_profile`` on the mix's signatures beside the
+   H100 prior, and the signatures whose decisions ``apply_calibration``
+   changes. Printed, not installed.
 6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
    query heads over 8 KV heads, random weights from a seed):
    a. float32: prefill(prompt[:, :-1]) and one decode step reproduce
@@ -920,6 +940,312 @@ def phase_reusable(profile) -> None:
           f"the reference interpreter on the CPU ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# the compiled-plan cache, the serving tier and its feedback channel
+# ---------------------------------------------------------------------------
+
+CACHE_CALLS = 5  # fresh instances through each captured executable
+SERVING_SCALE = 0.08  # benchmarks/serving_bench.py's traffic
+SERVING_BATCHES = (1, 2, 4, 8, 16)
+MIX_QUERIES, MIX_RATIO, MIX_REQUESTS, MIX_BATCH = (
+    ("simple_q1", "simple_q2", "simple_q3"), (4, 2, 1), 42, 8)
+MIX_RUNS = 3
+FULL_WIDTH_BATCH = 4  # analytics_q1@100 instances in one micro-batch
+BATCHED_TOL = 2e-5  # tests/test_serving_batched.py: batched against sequential
+FALLBACK = "performance drop"  # vmap's warning when an op has no batching rule
+
+
+@contextlib.contextmanager
+def counting(module, attr: str, calls: list, key=lambda *a, **kw: None):
+    """Inside it, ``module.attr`` appends ``key(*args)`` to ``calls`` at each
+    call and then runs as before."""
+    fn = getattr(module, attr)
+
+    def counted(*a, **kw):
+        calls.append(key(*a, **kw))
+        return fn(*a, **kw)
+    setattr(module, attr, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+@contextlib.contextmanager
+def vmap_fallbacks(seen: set):
+    """Inside it, vmap warns when an op takes its per-example fallback (no
+    batching rule); the ops' warnings land in ``seen``."""
+    import warnings
+    from torch._C._functorch import _set_vmap_fallback_warning_enabled
+    _set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        _set_vmap_fallback_warning_enabled(False)
+        seen.update(str(r.message)[:160] for r in rec if FALLBACK in str(r.message))
+
+
+def _block(results):
+    """``results`` once the card has finished them."""
+    torch.cuda.synchronize()
+    return results
+
+
+def _catalog_of(tables: dict):
+    from repro_torch.core import ir
+    cat = ir.Catalog()
+    for name, t in tables.items():
+        cat.add(name, t)
+    return cat
+
+
+def assert_tables_close(got, want, tol: float, label: str) -> None:
+    """Two result Tables row for row: masks exact, columns at rtol=atol=tol."""
+    if set(got.columns) != set(want.columns) or not torch.equal(got.valid, want.valid):
+        raise AssertionError(f"{label}: schemas or masks differ")
+    for k in want.columns:
+        torch.testing.assert_close(got[k], want[k], rtol=tol, atol=tol,
+                                   msg=lambda m, k=k: f"{label}:{k}: {m}")
+
+
+def phase_cache() -> None:
+    """[cache]: analytics_q1@100 and rec_q3@20 through ``compile_plan`` on
+    their kernel and torch plans: the build split into lowering, warm-up and
+    capture; 5 calls on fresh instances, each == ``execute`` on the same
+    instance at the bar, with one capture and one lowering; the median call
+    (CUDA events around the input copy, the replay and the output clone)
+    beside ``execute``'s median; the kernels in each graph (counted at
+    capture) and each graph's pool."""
+    from repro_torch.core import costed_lowering
+    from repro_torch.core.executor import compile_plan, execute
+    from repro_torch.core.plan_cache import GLOBAL_PLAN_CACHE as gpc, PlanCache
+    from repro_torch.core.rules import kernel_plan
+    from repro_torch.data.workloads import ALL_WORKLOADS, rolled_instances
+    reset_launches()
+    on_path = dict.fromkeys(KERNELS, 0)  # the executables' launches alone
+    for name, scale in FULL_SIZE:
+        w = ALL_WORKLOADS[name](scale=scale, device="cuda")
+        instances = rolled_instances(dict(w.catalog.tables), CACHE_CALLS + 1)[1:]
+        for label, plan, backend in (("kernel plan", kernel_plan(w.plan, w.catalog), None),
+                                     ("torch plan", w.plan, "torch")):
+            cache = PlanCache(device="cuda")
+            lowered = []
+            with counting(costed_lowering, "lower_costed", lowered):
+                t0 = time.perf_counter()
+                run = cache.get_or_compile(plan, w.catalog, backend=backend)
+                lower_s = time.perf_counter() - t0
+                before = read_launches()
+                _block(run(dict(w.catalog.tables)))
+                built = read_launches()
+                outs, call_ms = [], []
+                for tabs in instances:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    outs.append(run(tabs))
+                    end.record()
+                    torch.cuda.synchronize()
+                    call_ms.append(start.elapsed_time(end))
+                replayed = read_launches()
+            if cache.traces != 1 or len(lowered) != 1 or replayed != built:
+                raise AssertionError(f"[cache] {name}/{label}: traces {cache.traces}, "
+                                     f"lowerings {len(lowered)}, replays launched "
+                                     f"{replayed} after {built}")
+            for k in on_path:
+                on_path[k] += replayed[k] - before[k]
+            for i, (tabs, out) in enumerate(zip(instances, outs)):
+                want = execute(plan, _catalog_of(tabs), backend=backend, device="cuda")
+                assert_canonical_close(want.canonical(), out.canonical(),
+                                       f"[cache] {name}@{scale} {label} instance {i}")
+            exec_ms = median_run_ms(lambda: execute(plan, w.catalog, backend=backend,
+                                                    device="cuda"))
+            cap = run.captured
+            if cap is None:
+                raise AssertionError(f"[cache] {name}/{label}: no graph was captured")
+            in_graph = {k: (built[k] - before[k]) // 2 for k in built
+                        if built[k] > before[k]}
+            print(f"[cache] {name} scale={scale} {label}: built in {lower_s:.4f} s "
+                  f"lowering + {cap.warmup_s:.4f} s warm-up + {cap.capture_s:.4f} s "
+                  f"capture; graph pool {cap.pool_bytes / 2 ** 20:.1f} MiB; "
+                  f"{CACHE_CALLS} fresh instances == execute, traces {cache.traces}, "
+                  f"lowering {len(lowered)}x; median call {statistics.median(call_ms):.3f} ms "
+                  f"(CUDA events around copy in, replay, clone out; calls "
+                  f"{', '.join(f'{m:.3f}' for m in call_ms)}) against execute "
+                  f"{exec_ms:.3f} ms (median of {TIMED_RUNS}); kernels in the graph "
+                  f"{json.dumps(in_graph)} (launch counts rise at warm-up and at "
+                  f"capture, never at replay)")
+            del outs, run, cache
+        # compile_plan goes through the global cache: one build, then hits
+        kplan = kernel_plan(w.plan, w.catalog)
+        traces, before = gpc.traces, read_launches()
+        first = compile_plan(kplan, w.catalog)().canonical()
+        again = compile_plan(kplan, w.catalog)().canonical()
+        for k, n in read_launches().items():
+            on_path[k] += n - before[k]
+        assert_canonical_close(first, again, f"[cache] {name} compile_plan")
+        if gpc.traces != traces + 1:
+            raise AssertionError(f"[cache] {name}: compile_plan built {gpc.traces - traces}x")
+        gpc._cache.clear()
+        del w, instances
+        torch.cuda.empty_cache()
+    print(f"[main] cache kernels {json.dumps(on_path)} (the executables' own: "
+          f"capture-time counts, each kernel of a graph counted at its warm-up and at "
+          f"its capture; the eager runs they are checked against are left out)")
+    missing = [k for k in ENGINE_KERNELS if on_path[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not captured on the cache path: {missing}")
+
+
+def phase_serving() -> tuple:
+    """[serving]: benchmarks/serving_bench.py's traffic through the kernel
+    plans on the card (scaling sweep, the 42-request mix against a batch-1
+    server), then one micro-batch of 4 analytics_q1@100 instances; every
+    batched result against its sequential one. Returns the mix's batched
+    server and the cache it shares."""
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.core.rules import kernel_plan
+    from repro_torch.data.workloads import ALL_WORKLOADS, roll_tables, rolled_instances
+    from repro_torch.kernels.decision_forest import ops as df
+    from repro_torch.serving import QueryServer
+    reset_launches()
+    fallbacks: set = set()
+    for name in ("simple_q2", "simple_q3"):
+        w = ALL_WORKLOADS[name](scale=SERVING_SCALE, device="cuda")
+        plan = kernel_plan(w.plan, w.catalog)
+        cache = PlanCache(device="cuda")
+        run_seq = cache.get_or_compile(plan, w.catalog)
+        parts = []
+        for b in SERVING_BATCHES:
+            tabs = tuple(rolled_instances(dict(w.catalog.tables), b))
+            seq = [_block(run_seq(t)) for t in tabs]
+            run_bat = cache.get_or_compile_batched(plan, w.catalog, b)
+            with vmap_fallbacks(fallbacks):
+                outs = _block(run_bat(tabs))
+            for i, (o, s) in enumerate(zip(outs, seq)):
+                assert_tables_close(o, s, BATCHED_TOL, f"[serving] {name} B={b} query {i}")
+            seq_ms = median_host_ms(lambda: [_block(run_seq(t)) for t in tabs])
+            bat_ms = median_host_ms(lambda: _block(run_bat(tabs)))
+            parts.append(f"B={b} sequential {seq_ms:.3f} ms, batched {bat_ms:.3f} ms "
+                         f"({seq_ms / bat_ms:.2f}x)")
+        print(f"[serving] {name} scale={SERVING_SCALE} kernel plan, host clock around "
+              f"dispatches that end in a synchronize, median of {TIMED_RUNS}: "
+              + "; ".join(parts) + f"; batched == sequential at {BATCHED_TOL:g}, "
+              f"traces {cache.traces}")
+
+    built = {n: ALL_WORKLOADS[n](scale=SERVING_SCALE, device="cuda") for n in MIX_QUERIES}
+    plans = {n: kernel_plan(w.plan, w.catalog) for n, w in built.items()}
+    order = []
+    while len(order) < MIX_REQUESTS:
+        for n, k in zip(MIX_QUERIES, MIX_RATIO):
+            order.extend([n] * k)
+    payloads = [(plans[n], built[n].catalog, roll_tables(dict(built[n].catalog.tables), i))
+                for i, n in enumerate(order[:MIX_REQUESTS])]
+
+    def serve_all(server):
+        t0 = time.perf_counter()
+        reqs = []
+        for plan, catalog, tabs in payloads:
+            reqs.append(server.submit(plan, catalog, tabs))
+            server.step()  # size-triggered dispatch of any full group
+        server.drain()
+        return time.perf_counter() - t0, reqs
+
+    shared = PlanCache(device="cuda")
+
+    def measure(make):
+        with vmap_fallbacks(fallbacks):
+            serve_all(make())  # builds every (signature, batch size) of the run
+        runs = [(serve_all(srv), srv) for srv in (make() for _ in range(MIX_RUNS))]
+        runs.sort(key=lambda r: r[0][0])
+        (secs, reqs), srv = runs[len(runs) // 2]
+        return secs, reqs, srv
+
+    bat_s, bat_reqs, bat_srv = measure(
+        lambda: QueryServer(cache=shared, max_batch_size=MIX_BATCH, max_wait_s=3600.0))
+    seq_s, seq_reqs, _ = measure(
+        lambda: QueryServer(cache=shared, max_batch_size=1, max_wait_s=0.0))
+    done = [r for r in bat_reqs if r.done and r.error is None]
+    if len(done) != MIX_REQUESTS:
+        raise AssertionError(f"[serving] mix: {len(done)} of {MIX_REQUESTS} served")
+    for i, (b, s) in enumerate(zip(bat_reqs, seq_reqs)):
+        assert_tables_close(b.result, s.result, BATCHED_TOL, f"[serving] mix request {i}")
+    st = bat_srv.stats()
+    print(f"[serving] mix of {MIX_REQUESTS} requests over {'/'.join(MIX_QUERIES)} "
+          f"{':'.join(map(str, MIX_RATIO))} at scale {SERVING_SCALE}, kernel plans, "
+          f"QueryServer(max_batch_size={MIX_BATCH}): {len(done)} of {MIX_REQUESTS} served, "
+          f"each == its batch-1 result; {MIX_REQUESTS / bat_s:.1f} queries/s against "
+          f"{MIX_REQUESTS / seq_s:.1f} at batch 1 ({seq_s / bat_s:.2f}x; host clock, "
+          f"median of {MIX_RUNS} warm runs); {st['dispatches']} dispatches, "
+          f"{st['groups_formed']} groups, mean occupancy {st['mean_occupancy']:.2f}, "
+          f"signatures {st['signatures']}")
+
+    name, scale = FULL_SIZE[0]
+    w = ALL_WORKLOADS[name](scale=scale, device="cuda")
+    plan = kernel_plan(w.plan, w.catalog)
+    cache = PlanCache(device="cuda")
+    tabs = tuple(rolled_instances(dict(w.catalog.tables), FULL_WIDTH_BATCH))
+    run_seq = cache.get_or_compile(plan, w.catalog)
+    seq = [_block(run_seq(t)) for t in tabs]
+    run_bat = cache.get_or_compile_batched(plan, w.catalog, FULL_WIDTH_BATCH)
+    rows = []
+    with vmap_fallbacks(fallbacks), counting(df, "launch", rows, lambda x, *a: x.shape[0]):
+        outs = _block(run_bat(tabs))
+        replay = _block(run_bat(tabs))
+    for i, (o, r, s) in enumerate(zip(outs, replay, seq)):
+        assert_tables_close(o, s, BATCHED_TOL, f"[serving] {name}@{scale} x{FULL_WIDTH_BATCH} {i}")
+        assert_tables_close(r, s, BATCHED_TOL, f"[serving] {name}@{scale} replay {i}")
+    if len(rows) != 2 or len(set(rows)) != 1:
+        raise AssertionError(f"[serving] {name}@{scale} x{FULL_WIDTH_BATCH}: forest launches "
+                             f"with rows {rows}, want one at warm-up and one at capture")
+    seq_ms = median_host_ms(lambda: [_block(run_seq(t)) for t in tabs])
+    bat_ms = median_host_ms(lambda: _block(run_bat(tabs)))
+    print(f"[serving] {name} scale={scale} x{FULL_WIDTH_BATCH} in one micro-batch: the "
+          f"forest kernel launched once over {rows[0]:,} rows (warm-up and capture; "
+          f"{rows[0] // FULL_WIDTH_BATCH:,} a query); == {FULL_WIDTH_BATCH} sequential calls "
+          f"at {BATCHED_TOL:g}; batched {bat_ms:.3f} ms against sequential {seq_ms:.3f} ms "
+          f"(host clock, median of {TIMED_RUNS})")
+    del w, seq, outs, replay, run_bat, run_seq, cache
+    torch.cuda.empty_cache()
+    kernel_ops = sorted(f for f in fallbacks if "repro_torch" in f)
+    print(f"[serving] vmap per-example fallbacks: {sorted(fallbacks) or 'none'}")
+    if kernel_ops:
+        raise AssertionError(f"engine kernels on vmap's fallback: {kernel_ops}")
+    launches = read_launches()
+    print(f"[main] serving kernels {json.dumps(launches)} (capture-time counts)")
+    missing = [k for k in ("decision_forest", "fused_dense") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serving path: {missing}")
+    return bat_srv, shared
+
+
+def phase_feedback(server, cache) -> None:
+    """[feedback]: ``calibrate_profile`` on the mix's signature statistics
+    against the H100 prior, then ``apply_calibration`` on the server's cache
+    and the signatures whose lowering decisions changed. Printed only: the
+    prior in ``core/cost.py`` stays."""
+    from repro_torch.serving import feedback
+    exports = feedback.export_signature_stats(server)
+    prior = cache.profile
+    fit = feedback.calibrate_profile(exports, prior)
+    p = fit.profile
+    print(f"[feedback] calibrate_profile over {fit.n_samples} signatures of the mix "
+          f"(mean dispatch s {', '.join(f'{e.mean_dispatch_s:.6f}' for e in exports)}; "
+          f"occupancy {', '.join(f'{e.mean_occupancy:.2f}' for e in exports)}): "
+          f"op_overhead_s {p.op_overhead_s:.4e} (prior {prior.op_overhead_s:.4e}), "
+          f"peak_flops {p.peak_flops:.4e} (prior {prior.peak_flops:.4e}), hbm_bw "
+          f"{p.hbm_bw:.4e} (prior {prior.hbm_bw:.4e}); relative error of the "
+          f"prediction {fit.mape_before:.3f} before, {fit.mape_after:.3f} after")
+    before = [e.key for e in exports]
+    feedback.apply_calibration(cache, exports)
+    after = [cache.key(e.plan, e.catalog) for e in exports]
+    changed = sum(a.split("#cl=")[1] != b.split("#cl=")[1] for a, b in zip(after, before))
+    print(f"[feedback] apply_calibration: profile epoch {cache.profile_epoch}, "
+          f"{changed} of {len(before)} signatures' #cl= decisions changed (the fit is "
+          f"printed, not installed in core/cost.py)")
+
+
 def _attn_inputs(gen, b, hq, hkv, s, d, dtype=torch.float32):
     """q, k, v as [B,H,S,D] views of [B,S,H,D] tensors, as the model passes
     its projections."""
@@ -1308,6 +1634,11 @@ def main() -> int:
     shapes = phase_full_size(profile)
     errs.update(phase_main_shape_parity(shapes))
     phase_reusable(profile)
+    phase_cache()
+    server, cache = phase_serving()
+    phase_feedback(server, cache)
+    del server, cache
+    torch.cuda.empty_cache()
     phase_lm_f32()
     torch.cuda.empty_cache()
     lm_launches, cache = phase_lm_bf16()

@@ -108,8 +108,12 @@ def as_column(val, capacity: int, device=None):
     if getattr(val, "ndim", 0) != 0:
         return val
     if isinstance(val, torch.Tensor):
-        return torch.full((capacity,), val.item(), dtype=val.dtype,
-                          device=device if device is not None else val.device)
+        dev = device if device is not None else val.device
+        if val.device.type == "cpu":  # a constant: read on the host, no sync
+            return torch.full((capacity,), val.item(), dtype=val.dtype, device=dev)
+        # on the card, .item() would wait for the device (and a CUDA-graph
+        # capture refuses it): broadcast there instead
+        return val.to(dev).expand(capacity).clone()
     return np.full((capacity,), val)
 
 

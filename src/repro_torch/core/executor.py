@@ -2,7 +2,10 @@
 
 ``execute`` lowers the logical plan by cost (repro_torch.core.lowering,
 under the cost profile of the device it runs on) and runs the physical
-operators (repro_torch.core.physical).
+operators (repro_torch.core.physical), on every call; ``compile_plan`` goes
+through the compiled-plan cache (repro_torch.core.plan_cache), so
+structurally repeated queries skip lowering and, on the card, replay one
+captured CUDA graph.
 
 ``execute_reference`` keeps the per-node recursive interpreter over the
 *logical* tree: the oracle for lowering-equivalence tests. It shares the
@@ -23,6 +26,7 @@ from repro_torch.core import cost, ir
 from repro_torch.core import physical as ph
 from repro_torch.core.evaluator import as_column, eval_expr
 from repro_torch.core.lowering import lower
+from repro_torch.core.plan_cache import GLOBAL_PLAN_CACHE, PlanCache
 from repro_torch.kernels.common import resolve_device
 from repro_torch.mlfuncs.registry import Registry
 from repro_torch.relational import ops
@@ -44,6 +48,20 @@ def execute(plan: ir.Plan, catalog: ir.Catalog, *,
     pplan = lower(plan, catalog, backend=backend,
                   profile=cost.default_profile(dev))
     return ph.run(pplan, _tables_on(catalog, dev))
+
+
+def compile_plan(plan: ir.Plan, catalog: ir.Catalog,
+                 cache: Optional[PlanCache] = None):
+    """Returns a zero-arg callable over the catalog's tables.
+
+    Compilation (lowering + capture) is shared through the plan cache
+    (``GLOBAL_PLAN_CACHE``, on the card, unless ``cache`` is given); the
+    returned closure re-reads ``catalog.tables`` on every call, so updated
+    table contents (same schema/shapes) flow through without a recapture.
+    """
+    cache = cache or GLOBAL_PLAN_CACHE
+    run = cache.get_or_compile(plan, catalog)
+    return lambda: run(dict(catalog.tables))
 
 
 # ---------------------------------------------------------------------------

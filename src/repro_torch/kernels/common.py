@@ -45,3 +45,27 @@ def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# batching rules of the engine kernels' custom operators (torch.func.vmap)
+# ---------------------------------------------------------------------------
+
+def unbatched_param(name: str, dim) -> None:
+    """The kernels batch their rows only: a weight is an ML function's
+    parameter and is never batched by the serving tier's vmap."""
+    if dim is not None:
+        raise ValueError(f"{name}: a weight batched under vmap is not supported")
+
+
+def fold_rows(x: torch.Tensor, dim: int):
+    """x's vmap batch axis ``dim`` folded into its rows, so one launch serves
+    the whole batch: [B, M, ...] -> [B*M, ...]. Returns the rows, B and M."""
+    x = x.movedim(dim, 0)
+    b, m = x.shape[0], x.shape[1]
+    return x.reshape((b * m,) + tuple(x.shape[2:])).contiguous(), b, m
+
+
+def unfold_rows(out: torch.Tensor, b: int, m: int) -> torch.Tensor:
+    """The inverse of ``fold_rows`` on a kernel's output: [B*M, ...] -> [B, M, ...]."""
+    return out.reshape((b, m) + tuple(out.shape[1:]))

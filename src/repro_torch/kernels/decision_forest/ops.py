@@ -5,6 +5,11 @@ the Pallas kernel behind it (``kernel.py::forest_pallas``). No one-hot
 feature selectors are built here: the kernel gathers features directly. On
 a CPU tensor it runs the plain version (``ref.py``); on a CUDA tensor it
 launches the kernel instance that ``forest_tiling`` picks.
+
+The call goes through the custom operator ``repro_torch::forest_predict``,
+so that it keeps running inside a CUDA-graph capture and under
+``torch.func.vmap``, whose batching rule folds the batch axis into the rows
+and launches the kernel once over all of them (a batched forest raises).
 """
 from __future__ import annotations
 
@@ -156,11 +161,30 @@ def launch(xf: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
 
 def forest_predict(x: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
                    leaf: torch.Tensor) -> torch.Tensor:
-    depth = _check(x, feat, thresh, leaf)
-    xf = x.float()
-    if x.device.type == "cpu":
-        return ref.forest_predict(xf, feat, thresh, leaf).to(x.dtype)
+    _check(x, feat, thresh, leaf)
+    return _forest_op(x.float(), feat, thresh, leaf).to(x.dtype)
+
+
+@torch.library.custom_op("repro_torch::forest_predict", mutates_args=(),
+                         device_types="cpu")
+def _forest_op(x: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
+               leaf: torch.Tensor) -> torch.Tensor:
+    return ref.forest_predict(x, feat, thresh, leaf)
+
+
+@_forest_op.register_kernel("cuda")
+def _forest_cuda(x: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
+                 leaf: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tiling = forest_tiling(n, d, feat.shape[0], depth, n_sm)
-    return launch(xf, feat, thresh, leaf, tiling).to(x.dtype)
+    depth = (feat.shape[1] + 1).bit_length() - 1
+    return launch(x, feat, thresh, leaf, forest_tiling(n, d, feat.shape[0], depth, n_sm))
+
+
+@_forest_op.register_vmap
+def _forest_vmap(info, in_dims, x, feat, thresh, leaf):
+    x_dim, *forest_dims = in_dims
+    for dim in forest_dims:
+        common.unbatched_param("forest_predict", dim)
+    rows, b, m = common.fold_rows(x, x_dim)
+    return common.unfold_rows(_forest_op(rows, feat, thresh, leaf), b, m), 0

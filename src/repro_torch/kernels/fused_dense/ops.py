@@ -5,6 +5,11 @@ Pallas kernel behind it (``kernel.py::fused_dense_pallas``). On a CPU tensor
 it runs the plain version (``ref.py``); on a CUDA tensor it launches the
 kernel. An activation the kernel does not have (softmax included) raises
 ``ValueError`` before anything runs, on either device.
+
+The call goes through the custom operator ``repro_torch::fused_dense``, so
+that it keeps running inside a CUDA-graph capture and under
+``torch.func.vmap``, whose batching rule folds the batch axis into the rows
+and launches the kernel once (a batched weight or bias raises).
 """
 from __future__ import annotations
 
@@ -22,7 +27,6 @@ launches = 0  # kernel launches since the last reset
 
 def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 act: str = "identity") -> torch.Tensor:
-    global launches
     if act not in ACT_CODES:
         raise ValueError(f"fused_dense: unsupported activation {act!r}")
     if (x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]
@@ -31,8 +35,20 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"{tuple(w.shape)} + {tuple(b.shape)}")
     if x.dtype not in DTYPES or w.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError(f"fused_dense: dtypes {x.dtype}, {w.dtype}, {b.dtype}")
-    if x.device.type == "cpu":
-        return ref.fused_dense(x, w, b, act)
+    return _fused_dense_op(x, w, b, act)
+
+
+@torch.library.custom_op("repro_torch::fused_dense", mutates_args=(),
+                         device_types="cpu")
+def _fused_dense_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    act: str) -> torch.Tensor:
+    return ref.fused_dense(x, w, b, act)
+
+
+@_fused_dense_op.register_kernel("cuda")
+def _fused_dense_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      act: str) -> torch.Tensor:
+    global launches
     common.check_cuda_operands("fused_dense", x, w, b)
     m, k = x.shape
     n = w.shape[1]
@@ -49,3 +65,12 @@ def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"fused_dense: launch failed, CUDA error {rc}")
     launches += 1
     return out
+
+
+@_fused_dense_op.register_vmap
+def _fused_dense_vmap(info, in_dims, x, w, b, act):
+    x_dim, w_dim, b_dim, _ = in_dims
+    common.unbatched_param("fused_dense", w_dim)
+    common.unbatched_param("fused_dense", b_dim)
+    rows, bs, m = common.fold_rows(x, x_dim)
+    return common.unfold_rows(_fused_dense_op(rows, w, b, act), bs, m), 0

@@ -15,7 +15,9 @@ Semantics (mask-aware):
 
 Every sort is stable (``torch.argsort(..., stable=True)``), as ``jnp.argsort``
 is, so ties keep their input order and results match the JAX package row for
-row.
+row. Buffers made inside an operator are filled out of place (``scatter``,
+``index_add``, ``scatter_reduce``): ``torch.func.vmap`` refuses in-place
+writes of batched values into them, and the serving tier vmaps the plans.
 """
 from __future__ import annotations
 
@@ -126,19 +128,17 @@ def _dense_group_ids(keys: torch.Tensor, valid: torch.Tensor
     km = torch.where(valid, keys.to(torch.int32), _INT_SENTINEL)
     order = torch.argsort(km, stable=True)
     s = km[order]
-    newseg = torch.ones_like(s, dtype=torch.bool)
-    newseg[1:] = s[1:] != s[:-1]
+    newseg = torch.cat([torch.ones_like(s[:1], dtype=torch.bool), s[1:] != s[:-1]])
     newseg = newseg & (s != _INT_SENTINEL)
     gid_sorted = torch.cumsum(newseg.to(torch.int64), 0) - 1
     gid_sorted = torch.where(s == _INT_SENTINEL, n, gid_sorted)  # pad bucket
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=keys.device)
+    inv = torch.zeros_like(order).scatter(0, order, torch.arange(n, device=keys.device))
     gid = gid_sorted[inv]
     num_groups = newseg.sum(dtype=torch.int32)
     # representative key per dense id (first occurrence in sorted order);
     # slot n takes the writes JAX's mode="drop" scatter drops
     rep = torch.full((n + 1,), _INT_SENTINEL, dtype=torch.int32, device=keys.device)
-    rep[torch.where(newseg, gid_sorted, n)] = s
+    rep = rep.scatter(0, torch.where(newseg, gid_sorted, n), s)
     return gid, rep[:n], num_groups
 
 
@@ -147,11 +147,11 @@ def _segment(x: torch.Tensor, seg: torch.Tensor, num_segments: int,
     """``jax.ops.segment_{sum,min,max}``: empty segments give 0, +inf, -inf."""
     shape = (num_segments,) + tuple(x.shape[1:])
     if reduce == "sum":
-        return torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(0, seg, x)
+        return torch.zeros(shape, dtype=x.dtype, device=x.device).index_add(0, seg, x)
     init = float("inf") if reduce == "amin" else float("-inf")
     idx = seg.reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
     out = torch.full(shape, init, dtype=x.dtype, device=x.device)
-    return out.scatter_reduce_(0, idx, x, reduce=reduce, include_self=True)
+    return out.scatter_reduce(0, idx, x, reduce=reduce, include_self=True)
 
 
 def aggregate(t: Table, key: str, aggs: Mapping[str, Tuple[str, str]],

@@ -1,0 +1,23 @@
+"""Serving tier: signature-grouped micro-batching over the compiled-plan cache.
+
+The port of ``repro.serving``. In-flight ``(plan, tables)`` pairs enter
+through ``QueryServer.submit``; the micro-batch scheduler (``MicroBatcher``)
+groups them by their ``PlanCache.key()`` signature, and the batched
+executor runs each group as one dispatch of the cached executable: the
+stacked tables under ``torch.func.vmap``, one CUDA-graph replay on the card.
+Per-signature hit/latency statistics flow back into ``ReusableMCTS``
+warm-starts and the cost profile's calibration through
+``repro_torch.serving.feedback``. The multi-device routes (``mesh=``) are
+not ported yet (ROADMAP.md, queue 1 item 12).
+"""
+from repro_torch.serving.request import QueryRequest
+from repro_torch.serving.batcher import MicroBatch, MicroBatcher
+from repro_torch.serving.executor import BatchedExecutor
+from repro_torch.serving.server import QueryServer, SignatureStats
+from repro_torch.serving.feedback import SignatureExport, warm_start_from_server
+
+__all__ = [
+    "QueryRequest", "MicroBatch", "MicroBatcher", "BatchedExecutor",
+    "QueryServer", "SignatureStats", "SignatureExport",
+    "warm_start_from_server",
+]

@@ -27,12 +27,14 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import evaluator, ir
 from repro_torch.core import executor as tex
 from repro_torch.core.lowering import lower
+from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.rules import ALL_RULES as T_RULES, kernel_plan
 from repro_torch.data import workloads as twl
 from repro_torch.kernels import common
 from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.relational.table import Table
+from repro_torch.serving import QueryServer
 from repro_torch.testing import assert_canonical_close
 
 SCALE = 0.3
@@ -210,6 +212,8 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.core.plan_cache', 'repro_torch.serving.server',\n"
+        "        'repro_torch.serving.feedback'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -231,6 +235,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tex.execute(w.plan, w.catalog)
     with pytest.raises(RuntimeError, match="CUDA"):
         tex.execute_reference(w.plan, w.catalog)
+    for entry in (lambda: PlanCache().get_or_compile(w.plan, w.catalog),
+                  lambda: PlanCache().device,
+                  lambda: tex.compile_plan(w.plan, w.catalog),
+                  lambda: QueryServer()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     cfg = get_smoke_config("granite-3-2b")
     for entry in (lambda: lm.init_params(cfg), lambda: lm.init_cache(cfg, 1, 8),
                   lambda: serve.Server(cfg, batch=1, max_len=8),
