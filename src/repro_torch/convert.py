@@ -104,3 +104,35 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device=None,
 
     return {k: lm_params_from_numpy(v, dev, dtype) if isinstance(v, Mapping)
             else leaf(v) for k, v in tree.items()}
+
+
+EMBEDDER_PARTS = ("m2v", "q2v", "latency_q2v", "latency_head")
+
+
+def _flat(tree: Any, prefix: str = "") -> dict:
+    """A nested dict/list tree as ``{"blocks.0.qkv.w": leaf}``, the names
+    of the port's module parameters."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        name = f"{prefix}{k}"
+        if isinstance(v, (Mapping, list, tuple)):
+            out.update(_flat(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def embedder_from_numpy(tree: Mapping[str, Any], device=None):
+    """The port's ``QueryEmbedder`` from the JAX one's four param trees as
+    numpy (``m2v``, ``q2v``, ``latency_q2v``, ``latency_head``) and its
+    ``one_model`` flag. The port's linear weights are ``[din, dout]`` as the
+    reference's, so every leaf carries over as it is."""
+    from repro_torch.core.optimizer import init_embedder
+    emb = init_embedder(0, device=device)
+    for part in EMBEDDER_PARTS:
+        state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                 for k, v in _flat(tree[part]).items()}
+        getattr(emb, part).load_state_dict(state, strict=True)
+    emb.one_model = bool(tree["one_model"])
+    return emb

@@ -231,48 +231,21 @@ class NodeIndex:
         return len(self._embs)
 
 
-_EMBED_NODES = ("Scan", "Filter", "Project", "Compact", "Join", "CrossJoin",
-                "Aggregate", "BlockedMatmul", "ForestRelational")
-_EMBED_ATOMS = ("matmul", "bias", "act", "concat", "cossim", "dot", "dist",
-                "embed", "forest", "fused_dense", "add", "mul", "sqrt", "argmin")
-
-
-def structural_embedding(plan: ir.Plan, catalog: ir.Catalog) -> np.ndarray:
-    """A fixed ``embed_fn`` for ``ReusableMCTS`` until the learned Query2Vec
-    (ROADMAP.md, queue 1 item 13): counts of the plan's node kinds and of
-    its ML functions' atom kinds, and the octave of the catalog's total
-    capacity, as a unit vector. It reads only node class names,
-    ``children()``, the registry's graphs and ``catalog.stats``, so it
-    embeds the JAX package's plans alike."""
-    v = np.zeros(len(_EMBED_NODES) + len(_EMBED_ATOMS) + 1, np.float64)
-    stack = [plan.root]
-    while stack:
-        n = stack.pop()
-        v[_EMBED_NODES.index(type(n).__name__)] += 1.0
-        stack.extend(n.children())
-    for fn in plan.registry:
-        g = plan.registry.get(fn).graph
-        for node in (g.nodes if g else ()):
-            if node.atom.kind in _EMBED_ATOMS:
-                v[len(_EMBED_NODES) + _EMBED_ATOMS.index(node.atom.kind)] += 1.0
-    v[-1] = np.log2(1 + sum(s.capacity for s in catalog.stats.values()))
-    return (v / np.linalg.norm(v)).astype(np.float32)
-
-
 class ReusableMCTS:
     """Shares MCTS statistics across queries through embedding-matched
-    states. ``embed_fn(plan, catalog) -> np.ndarray`` plays Query2Vec's role.
+    states. ``embed_fn(plan, catalog) -> np.ndarray`` is Query2Vec
+    (``core.optimizer.QueryEmbedder.embed``).
 
     Warm starts are two-layer: a query whose root embedding collides with a
     well-visited stored node gets the reduced ``warm_iterations`` budget,
     and its first iteration *replays* the stored node's best known rule
     chain (``_RNode.best_seq``) — each rule re-configured for the concrete
     query by ``configure_action``, inapplicable steps skipped — before the
-    remaining iterations search normally: one full optimization per query
-    family deposits its best chain in the ``NodeIndex``-matched root, so the
-    next same-family query reaches a comparable plan in a fraction of the
-    iterations. The embedder is the caller's (the learned Query2Vec is
-    ROADMAP.md, queue 1 item 13)."""
+    remaining iterations search normally. The serving tier primes exactly
+    this structure from live traffic (``repro_torch.serving.feedback``): one
+    full optimization per hot signature deposits its best chain in the
+    ``NodeIndex``-matched root, so the next same-family query reaches a
+    comparable plan in a fraction of the iterations."""
 
     def __init__(self, catalog_fn, embed_fn, cost_fn_factory,
                  iterations: int = 40, warm_iterations: int = 10,

@@ -3,9 +3,11 @@ inside a SQL query, as ``examples/serve_llm_udf.py`` builds it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm_udf [--device cpu]
 
-This runs the query's unoptimized plan through the port's ``execute``; the
-optimized plan needs the MCTS planner, which is not ported yet (ROADMAP
-queue 1 item 8).
+It runs the query's unoptimized plan and the plan ``optimize_vanilla_mcts``
+chooses (40 iterations, seed 0, the analytic oracle under the profile of
+the catalog's device), requires equal results and prints how many rows
+each plan had the LLM summarize: pushing the call below the cross join
+(R4-1 + R1-3) summarizes each row once instead of once per pair.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import ir
 from repro_torch.core.executor import execute
+from repro_torch.core.planner import analytic_cost_fn, optimize_vanilla_mcts
 from repro_torch.kernels.common import resolve_device
 from repro_torch.mlfuncs import builders
 from repro_torch.mlfuncs.functions import MLFunction
@@ -25,20 +28,28 @@ from repro_torch.mlfuncs.registry import Registry
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.relational.table import Table
+from repro_torch.testing import assert_canonical_close
+
+
+LLM_TOKENS = 16  # tokens of a feature row the LLM reads
 
 
 def llm_udf_query(params, cfg: ModelConfig, device=None, seed: int = 0):
     """(plan, catalog, calls): Appendix K's Q1, which LLM-summarizes both
     sides of a cross join and scores the pairs. ``calls["n"]`` counts the
     rows ``llm_summarize`` has seen. Tables are drawn from ``seed`` in the
-    example's order, so both packages get the same data."""
+    example's order, so both packages get the same data. ``llm_summarize``
+    declares its cost, one forward pass of ``LLM_TOKENS`` tokens a row
+    (2 x parameters x tokens FLOPs); the reference's oracle prices a black
+    box at 1e6 FLOPs a row, and under an accelerator's prior that makes the
+    LLM look free and leaves the calls above the cross join."""
     dev = resolve_device(device)
     calls = {"n": 0}
 
     def llm_summarize(feats):
         """Black-box UDF: encode a feature row into an LM 'summary' score."""
         calls["n"] += feats.shape[0]
-        toks = (torch.abs(feats[:, :16]) * 37).to(torch.int32) % cfg.vocab
+        toks = (torch.abs(feats[:, :LLM_TOKENS]) * 37).to(torch.int32) % cfg.vocab
         h = lm.forward(params, cfg, toks)
         # float32, as JAX promotes a bf16 input of the f32 towers
         return h[:, -1, :8].float()
@@ -56,8 +67,9 @@ def llm_udf_query(params, cfg: ModelConfig, device=None, seed: int = 0):
     catalog.add("movies", movies)
 
     registry = Registry()
-    registry.register(MLFunction("llm_summarize", graph=None,
-                                 opaque_fn=llm_summarize, n_inputs=1))
+    registry.register(MLFunction("llm_summarize", graph=None, opaque_fn=llm_summarize,
+                                 n_inputs=1,
+                                 flops_hint=2.0 * cfg.param_count() * LLM_TOKENS))
     registry.register(builders.two_tower("recommend", [8, 16, 8], [8, 16, 8],
                                          seed=1))
     q = ir.Project(
@@ -70,6 +82,22 @@ def llm_udf_query(params, cfg: ModelConfig, device=None, seed: int = 0):
     return ir.Plan(q, registry), catalog, calls
 
 
+def naive_and_optimized(plan: ir.Plan, catalog: ir.Catalog, calls: dict,
+                        device=None) -> dict:
+    """Both plans of the query, each executed once: their results, the
+    optimized plan (examples/serve_llm_udf.py's search: vanilla MCTS, 40
+    iterations, seed 0) and the rows each had ``llm_summarize`` see."""
+    calls["n"] = 0
+    naive = execute(plan, catalog, device=device).canonical()
+    naive_rows = calls["n"]
+    opt, stats = optimize_vanilla_mcts(plan, catalog, cost_fn=analytic_cost_fn(catalog),
+                                       iterations=40, seed=0)
+    calls["n"] = 0
+    out = execute(opt, catalog, device=device).canonical()
+    return {"naive": naive, "optimized": out, "plan": opt, "stats": stats,
+            "naive_rows": naive_rows, "optimized_rows": calls["n"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
@@ -79,9 +107,12 @@ def main(argv=None) -> None:
     cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), vocab=256)
     params = lm.init_params(cfg, 0, device=args.device)
     plan, catalog, calls = llm_udf_query(params, cfg, device=args.device)
-    out = execute(plan, catalog, device=args.device).canonical()
-    print(f"{len(out['score'])} rows; LLM rows summarized (unoptimized plan): "
-          f"{calls['n']}")
+    r = naive_and_optimized(plan, catalog, calls, device=args.device)
+    assert_canonical_close(r["naive"], r["optimized"], "llm_udf optimized")
+    print(f"{len(r['naive']['score'])} rows; LLM rows summarized: naive="
+          f"{r['naive_rows']}  optimized={r['optimized_rows']} "
+          f"({r['naive_rows'] / max(r['optimized_rows'], 1):.1f}x fewer inferences, "
+          "same results)")
 
 
 if __name__ == "__main__":

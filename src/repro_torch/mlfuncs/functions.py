@@ -319,6 +319,9 @@ class MLFunction:
     n_inputs: int = 1
     # optional hint for selectivity when used as a boolean filter
     selectivity_hint: Optional[float] = None
+    # a black box's FLOPs per row, where its owner knows them (the oracle
+    # otherwise prices it at a constant 1e6, which makes an LLM look free)
+    flops_hint: Optional[float] = None
 
     def apply(self, *inputs: torch.Tensor) -> torch.Tensor:
         if self.graph is not None:
@@ -329,6 +332,8 @@ class MLFunction:
     def flops_per_row(self, in_dims: Sequence[int]) -> float:
         if self.graph is not None:
             return self.graph.flops_per_row(in_dims)
+        if self.flops_hint is not None:
+            return self.flops_hint
         return 1e6  # unknown black box: pessimistic constant
 
     def out_dim(self, in_dims: Sequence[int]) -> int:

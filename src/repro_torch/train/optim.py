@@ -1,0 +1,92 @@
+"""AdamW over a tree of tensors (nested dicts and lists), the port of
+``repro.train.optim``.
+
+The update is the reference's, step for step, so that a training step of
+either package gives the same parameters: a global-norm clip
+``sqrt(sum g^2 + 1e-12)`` scaled by ``min(1, clip / gnorm)``, bias
+correction in float32, ``delta + weight_decay * p``, and moments kept in
+float32 or, with ``moment_dtype="bfloat16"``, in bfloat16 with the math in
+float32. ``torch.optim.AdamW`` with ``clip_grad_norm_`` is another function
+(its clip divides by ``norm + 1e-6``).
+
+The update is functional: ``init(params)`` gives the state and
+``update(grads, state, params)`` returns new parameters and a new state;
+nothing is written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts and lists (and of trees of
+    the same structure, leaf by leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32, on the parameters' device
+    mu: Any
+    nu: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float | None = 1.0
+    moment_dtype: str = "float32"  # or "bfloat16": half the moments' memory
+
+    def _mdt(self) -> torch.dtype:
+        return torch.bfloat16 if self.moment_dtype == "bfloat16" else torch.float32
+
+    def init(self, params) -> AdamWState:
+        device = tree_leaves(params)[0].device
+        zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=self._mdt()), params)
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                          mu=zeros(), nu=zeros())
+
+    def update(self, grads, state: AdamWState, params):
+        step = state.step + 1
+        f32 = torch.float32
+        if self.grad_clip is not None:
+            sq = sum(torch.sum(torch.square(g.to(f32))) for g in tree_leaves(grads))
+            gnorm = torch.sqrt(sq + 1e-12)
+            scale = torch.clamp(self.grad_clip / gnorm, max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        b1, b2, mdt = self.b1, self.b2, self._mdt()
+        mu = tree_map(lambda m, g: (b1 * m.to(f32) + (1 - b1) * g.to(f32)).to(mdt),
+                      state.mu, grads)
+        nu = tree_map(lambda v, g: (b2 * v.to(f32)
+                                    + (1 - b2) * torch.square(g.to(f32))).to(mdt),
+                      state.nu, grads)
+        t = step.to(f32)
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=f32, device=t.device), t)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=f32, device=t.device), t)
+
+        def upd(p, m, v):
+            mhat = m.to(f32) / bc1
+            vhat = v.to(f32) / bc2
+            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            if self.weight_decay:
+                delta = delta + self.weight_decay * p.to(f32)
+            return (p.to(f32) - self.lr * delta).to(p.dtype)
+
+        return tree_map(upd, params, mu, nu), AdamWState(step=step, mu=mu, nu=nu)

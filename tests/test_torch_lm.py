@@ -23,6 +23,8 @@ from repro.configs import ARCHS as J_ARCHS, get_config as j_get_config
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import ir as jir
 from repro.core.executor import execute as j_execute
+from repro.core.planner import analytic_cost_fn as j_cost_fn
+from repro.core.planner import optimize_vanilla_mcts as j_vanilla_mcts
 from repro.launch import serve as jserve
 from repro.mlfuncs import builders as jbuilders
 from repro.mlfuncs.functions import MLFunction as JMLFunction
@@ -33,9 +35,11 @@ from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.executor import execute
 from repro_torch.launch import serve
-from repro_torch.launch.serve_llm_udf import llm_udf_query
+from repro_torch.launch.serve_llm_udf import llm_udf_query, naive_and_optimized
 from repro_torch.models import layers as tL, lm
 from repro_torch.testing import assert_canonical_close
+
+from test_torch_rules import port_signature, sync_fresh_names
 
 DENSE_GQA = ("granite-3-2b", "stablelm-12b", "deepseek-67b", "nemotron-4-15b")
 F32_TOL, BF16_TOL = 2e-4, 3e-2
@@ -278,6 +282,11 @@ def test_serve_main_smoke_on_cpu(capsys):
 
 def _jax_llm_udf(params, cfg):
     """examples/serve_llm_udf.py's unoptimized query, built the same way."""
+    plan, catalog, calls = _jax_llm_udf_query(params, cfg)
+    return j_execute(plan, catalog).canonical(), calls["n"]
+
+
+def _jax_llm_udf_query(params, cfg):
     calls = {"n": 0}
 
     def llm_summarize(feats):
@@ -307,7 +316,7 @@ def _jax_llm_udf(params, cfg):
             jir.Call("llm_summarize", (jir.Col("user_desc"),)),
             jir.Call("llm_summarize", (jir.Col("movie_desc"),))))),),
         keep=("user_id", "movie_id"))
-    return j_execute(jir.Plan(q, registry), catalog).canonical(), calls["n"]
+    return jir.Plan(q, registry), catalog, calls
 
 
 def test_llm_udf_query_matches_jax():
@@ -320,3 +329,37 @@ def test_llm_udf_query_matches_jax():
     got = execute(plan, catalog, device="cpu").canonical()
     assert_canonical_close(want, got, "llm_udf")
     assert len(got["score"]) > 0 and calls["n"] == j_calls > 0
+
+
+def test_llm_udf_optimized_matches_jax():
+    """examples/serve_llm_udf.py's optimized plan (vanilla MCTS, 40
+    iterations, seed 0, the CPU prior in both packages): the same plan after
+    the backend map, the same LLM rows summarized by each plan (fewer by
+    the optimized one), and results equal to the reference's at the
+    .canonical() bar. The port's ``llm_summarize`` declares its FLOPs; the
+    search still pushes it below the cross join as the reference's does."""
+    jcfg, tcfg = _cfgs("granite-3-2b", "float32", vocab=256)
+    pj, pt = _params(jcfg)
+    jplan, jcat, jcalls = _jax_llm_udf_query(pj, jcfg)
+    jnaive = j_execute(jplan, jcat).canonical()
+    jnaive_rows = jcalls["n"]
+    sync_fresh_names()
+    jopt, _ = j_vanilla_mcts(jplan, jcat, cost_fn=j_cost_fn(jcat), iterations=40, seed=0)
+    jcalls["n"] = 0
+    jout = j_execute(jopt, jcat).canonical()
+    plan, catalog, calls = llm_udf_query(pt, tcfg, device="cpu")
+    sync_fresh_names()
+    r = naive_and_optimized(plan, catalog, calls, device="cpu")
+    assert r["plan"].signature() == port_signature(jopt.signature())
+    assert (r["naive_rows"], r["optimized_rows"]) == (jnaive_rows, jcalls["n"])
+    assert r["optimized_rows"] < r["naive_rows"]
+    assert_canonical_close(jnaive, r["naive"], "llm_udf naive")
+    assert_canonical_close(jout, r["optimized"], "llm_udf optimized")
+    assert_canonical_close(r["naive"], r["optimized"], "llm_udf optimized == naive")
+
+
+def test_serve_llm_udf_main_prints_both_plans(capsys):
+    from repro_torch.launch import serve_llm_udf
+    serve_llm_udf.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "naive=576" in out and "optimized=32" in out

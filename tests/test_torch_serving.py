@@ -7,8 +7,9 @@ counts and statistics, and results equal at the ``.canonical()`` bar
 (5e-4). The feedback channel: ``calibrate_profile`` on identical
 constructed ``SignatureExport``s gives the reference's fitted profile at
 relative 1e-9, ``apply_calibration`` re-keys the same signatures, and
-``warm_start_from_server`` with one numpy ``embed_fn``
-(``mcts.structural_embedding``) primes the same warm start.
+``warm_start_from_server`` primes the same warm start with one numpy
+``embed_fn`` (``test_torch_search.structural_embedding``) and with the
+learned Query2Vec (the JAX package's untrained embedder and its twin).
 """
 import dataclasses
 
@@ -33,6 +34,7 @@ from repro_torch.testing import assert_canonical_close
 
 from test_torch_plan_cache import _mini
 from test_torch_rules import port_signature, sync_fresh_names
+from test_torch_search import learned_twins, one_torch_thread, structural_embedding  # noqa: F401
 
 SCORE_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_serving.py's bar
 
@@ -366,16 +368,29 @@ def test_warm_start_from_server_matches_jax():
     """Server traffic of one template family primes ``ReusableMCTS`` with
     the same nodes in both packages (one numpy ``embed_fn``), and the next
     variant of the family collides with the primed root in both."""
-    kw = dict(catalog_fn=None, embed_fn=tmcts.structural_embedding, iterations=16,
-              warm_iterations=4, sim_threshold=0.98, seed=0)
+    _check_warm_start(structural_embedding, structural_embedding)
+
+
+def test_warm_start_from_server_learned_matches_jax():
+    """``tests/test_serving.py``'s feedback warm start with the learned
+    Query2Vec: the JAX package's ``init_embedder(0)`` and the port's twin
+    under its weights prime the same store, and the next variant collides,
+    replays the primed chain and gets the warm budget in both."""
+    jemb, temb = learned_twins()
+    tstats = _check_warm_start(jemb.embed, temb.embed)
+    assert tstats["replayed"] and tstats["iterations"] == 4 and tstats["speedup"] > 1.5
+
+
+def _check_warm_start(jembed, tembed):
+    kw = dict(catalog_fn=None, iterations=16, warm_iterations=4, sim_threshold=0.98, seed=0)
     results = {}
     for pkg in ("jax", "torch"):
         if pkg == "jax":
             mcts, planner, templates, wl, fb = jmcts, jplanner, jtemplates, jwl, jfeedback
-            dev = {}
+            dev, embed = {}, jembed
         else:
             mcts, planner, templates, wl, fb = tmcts, tplanner, ttemplates, twl, tfeedback
-            dev = {"device": "cpu"}
+            dev, embed = {"device": "cpu"}, tembed
         srv = _server(pkg, max_batch_size=4, max_wait_s=0.0, clock=FakeClock())
         for i in range(6):
             plan, cat = templates.sample_query(1, seed=1, scale=0.3, **dev)
@@ -385,7 +400,7 @@ def test_warm_start_from_server_matches_jax():
         assert len(exports) == 1 and exports[0].requests == 6
         exports[0].mean_dispatch_s = 1e-3  # the host's clock: the same for both
         warm = mcts.ReusableMCTS(cost_fn_factory=lambda c, p=planner: p.analytic_cost_fn(c),
-                                 **kw)
+                                 embed_fn=embed, **kw)
         sync_fresh_names()
         summary = fb.warm_start_from_server(warm, exports, top_k=1)
         sync_fresh_names()
@@ -403,3 +418,4 @@ def test_warm_start_from_server_matches_jax():
         assert tstats[k] == jstats[k], k
     assert tstats["collision"] and tstats["best_cost"] == pytest.approx(
         jstats["best_cost"], rel=1e-9)
+    return tstats

@@ -27,6 +27,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import evaluator, ir
 from repro_torch.core import executor as tex
 from repro_torch.core.lowering import lower
+from repro_torch.core.optimizer import init_embedder
 from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.rules import ALL_RULES as T_RULES, kernel_plan
 from repro_torch.data import workloads as twl
@@ -213,7 +214,9 @@ def test_port_imports_neither_jax_nor_repro():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert {'repro_torch.core.plan_cache', 'repro_torch.serving.server',\n"
-        "        'repro_torch.serving.feedback'} <= set(sys.modules)\n"
+        "        'repro_torch.serving.feedback', 'repro_torch.core.embedding',\n"
+        "        'repro_torch.core.optimizer', 'repro_torch.core.wl',\n"
+        "        'repro_torch.train.optim'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -244,7 +247,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     cfg = get_smoke_config("granite-3-2b")
     for entry in (lambda: lm.init_params(cfg), lambda: lm.init_cache(cfg, 1, 8),
                   lambda: serve.Server(cfg, batch=1, max_len=8),
-                  lambda: convert.lm_params_from_numpy({"w": np.ones(2, np.float32)})):
+                  lambda: convert.lm_params_from_numpy({"w": np.ones(2, np.float32)}),
+                  lambda: init_embedder(),
+                  lambda: convert.embedder_from_numpy(
+                      dict({p: {} for p in convert.EMBEDDER_PARTS}, one_model=False))):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert common.resolve_device("cpu") == torch.device("cpu")
