@@ -113,11 +113,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    d. bfloat16: the LM main path, prefill B 4 x 2048 tokens (max_len 4096)
       and 32 greedy decode steps, with launch counts zeroed just before and
       read just after (40 flash_attention launches per prefill, 40
-      flash_decode per step); then prefill and decode times (medians of 5
-      after one warm-up, CUDA events), peak memory, one profiled prefill
-      (top 8 kernels) and decode step;
-   e. ``Server``: 8 requests, prompts of 4-11 tokens, max_new 16, batch 4,
-      max_len 256 (launch/serve.py main's settings).
+      flash_decode per step); then the prefill time (median of 5 after one
+      warm-up, CUDA events), peak memory, one profiled prefill (top 8
+      kernels) and eager decode step;
+   e. [decode-graph]: from the same prefilled cache, 32 greedy steps eagerly
+      (``make_decode_step``) and through ``Server``'s captured step (one
+      CUDA-graph replay a step): tokens equal, logits within 3e-2; each
+      path's ms per step and tokens/s (medians of 5 runs of 32 steps after
+      a warm-up, CUDA events), the capture's seconds and pool, one
+      profiled replay (device-busy share);
+   f. ``Server``: 8 requests, prompts of 4-11 tokens, max_new 16, batch 4,
+      max_len 256 (launch/serve.py main's settings), through the captured
+      step and through the same server stepping eagerly: the same tokens,
+      both rates.
 7. each kernel's time at its main-path shape beside its plain version, one
    library call, and its bound; its achieved TFLOP/s or GB/s and its share
    of the bound. The f32 GEMMs' bound is the least time for f32-accurate work
@@ -125,6 +133,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    with the CUDA-core f32 bound printed beside it. decision_forest's bound
    is bytes; beside it the line prints its design's floor, the
    shared-memory requests of its walk at one wavefront per SM per clock.
+8. the other GQA families of the LM path, each freed before the next loads:
+   a. [parity]: flash_attention (bf16, bar 1e-2) at qwen2-vl's prefill
+      shape (Hq 64 / Hkv 8, D 128), granite-moe's (16 / 8), seamless's
+      self-attention (16 / 16, causal and not) and cross-attention (Skv
+      2048 and 1000, non-causal); flash_decode (partials at 2e-4) at G 8 /
+      D 128, G 2 and G 1 (self and cross); each kernel's time beside SDPA's;
+   b. [lm-moe] granite-moe-1b-a400m at full width and depth (24 layers, 32
+      experts top-8): in f32, prefill(prompt[:, :-1]) + 1 decode step ==
+      forward's last logits (1e-2) and 2 layers card vs CPU (1e-4), at B 2 x
+      64 (dropless); in bf16 the share of routed assignments prefill drops
+      at B 4 x 2048, then the family's main path;
+   c. [lm-mrope] qwen2-vl-72b at full width, 16 of 80 layers: 2 f32 layers
+      card vs CPU with seeded M-RoPE ids; the main path with seeded ids;
+   d. [lm-encdec] seamless-m4t-medium at full width and depth (12 + 12
+      layers), the encoder over B 4 x 2048 seeded frames: 2+2 f32 layers
+      card vs CPU; the main path; the server over an empty encoder memory
+      (finite logits).
+   A family's main path: bf16 prefill of B 4 x 2048 tokens (max_len 4096)
+   and step e, launch counts zeroed just before and read just after (the
+   eager steps' and the capture's launches), then the prefill's time and
+   the peak memory.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1632,6 +1661,112 @@ def phase_lm_f32() -> None:
     del params
 
 
+def _clone(cache: dict) -> dict:
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _cut_layers(params: dict, n: int, device=None) -> dict:
+    """The first ``n`` layers of every stacked block group, on ``device``
+    (by default where they are)."""
+    return {k: ({kk: w[:n].to(device or w.device) for kk, w in v.items()}
+                if isinstance(v, dict) else v.to(device or v.device))
+            for k, v in params.items()}
+
+
+def card_vs_cpu(label: str, cfg, params: dict, n_layers: int, tokens, **kw) -> float:
+    """``forward`` of the first layers of ``params`` (float32, full width)
+    on the card (the kernels) and on the CPU (the plain versions)."""
+    import dataclasses
+    from repro_torch.models import lm
+    cut = dataclasses.replace(cfg, n_layers=n_layers,
+                              enc_layers=n_layers if cfg.enc_layers else 0)
+    two = _cut_layers(params, n_layers)
+    on_card = lm.forward(two, cut, tokens, **kw).cpu()
+    two_cpu = _cut_layers(params, n_layers, "cpu")
+    on_cpu = lm.forward(two_cpu, cut, tokens.cpu(),
+                        **{k: v.cpu() for k, v in kw.items()})
+    err = kernel_vs_plain(on_card, on_cpu, CARD_CPU_TOL, f"{label} card vs cpu")
+    print(f"[{label}] card vs CPU, {n_layers}{'+' + str(n_layers) if cfg.enc_layers else ''} "
+          f"layers at full width, f32, B{tokens.shape[0]} x {tokens.shape[1]} tokens: "
+          f"hidden states max|err|={err:.3g} (bar rtol=atol={CARD_CPU_TOL:g})")
+    return err
+
+
+def decode_eager_vs_captured(label: str, cfg, params: dict, cache: dict, tok0):
+    """``LM_STEPS`` greedy steps from ``cache`` twice: eagerly
+    (``make_decode_step``) and through a ``Server``'s captured step (one
+    CUDA-graph replay a step). The tokens must be equal and the logits
+    within the bf16 bar. Returns the server and the largest |err|."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    step = lm.make_decode_step(cfg)
+    eager, c, tok = [], _clone(cache), tok0
+    for _ in range(LM_STEPS):
+        logits, c = step(params, c, tok)
+        tok = logits.argmax(-1)
+        eager.append((tok, logits))
+    del c
+    server = serve.Server(cfg, batch=tok0.shape[0], max_len=cache["k"].shape[2],
+                          device="cuda", params=params)
+    server.cache = _clone(cache)
+    tok, err = tok0, 0.0
+    for i, (want_tok, want) in enumerate(eager):
+        tok = server.decode(tok)
+        if not torch.equal(tok.long(), want_tok):
+            raise AssertionError(f"{label}: captured step {i} tokens {tok.tolist()} != "
+                                 f"eager {want_tok.tolist()}")
+        err = max(err, kernel_vs_plain(server.logits[:, :cfg.vocab], want[:, :cfg.vocab],
+                                       BF16_TOL, f"{label} captured logits, step {i}"))
+    if server.captures != 1:
+        raise AssertionError(f"{label}: {server.captures} captures, want 1")
+    return server, err
+
+
+def time_decode(label: str, cfg, params: dict, cache: dict, tok0, server, err: float,
+                also: tuple = ()) -> tuple:
+    """Each path's ms per step: medians of ``TIMED_RUNS`` runs of
+    ``LM_STEPS`` steps from ``cache``'s length after a warm-up (CUDA events,
+    tokens fed back on the card); the capture's seconds and pool; one
+    profiled replay. Returns (eager, captured) ms per step."""
+    from repro_torch.models import lm
+    step = lm.make_decode_step(cfg)
+    b, start = tok0.shape[0], int(cache["len"])
+    len0 = torch.tensor(start, dtype=torch.int32, device="cuda")
+
+    def run_eager():
+        c, t = dict(cache, len=len0), tok0
+        for _ in range(LM_STEPS):
+            logits, c = step(params, c, t)
+            t = logits.argmax(-1)
+
+    def run_graph():
+        server.cache["len"].fill_(start)
+        t = tok0
+        for _ in range(LM_STEPS):
+            t = server.decode(t)
+
+    eager_ms = median_run_ms(run_eager) / LM_STEPS
+    graph_ms = median_run_ms(run_graph) / LM_STEPS
+    cap = server.captured
+    print(f"[decode-graph] {label} bf16 B{b} from {start} filled slots: {LM_STEPS} "
+          f"captured steps' tokens == eager's, logits max|err|={err:.3g} (bar "
+          f"{BF16_TOL:g}); eager {eager_ms:.3f} ms/step ({b / eager_ms * 1e3:.1f} tok/s), "
+          f"captured {graph_ms:.3f} ms/step ({b / graph_ms * 1e3:.1f} tok/s), "
+          f"{eager_ms / graph_ms:.2f}x; medians of {TIMED_RUNS}; {server.captures} "
+          f"capture: warm-up {cap.warmup_s:.3f} s, capture {cap.capture_s:.3f} s, pool "
+          f"{cap.pool_bytes / 2**20:.1f} MiB")
+    server.cache["len"].fill_(start)
+    profile_breakdown(f"{label} captured decode step, one replay",
+                      lambda: server.decode(tok0), also=also)
+    return eager_ms, graph_ms
+
+
+def check_launches(label: str, launches: dict, want: dict) -> None:
+    print(f"[main] {label} kernels " + json.dumps(launches))
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label} main path launches {launches}, want {want}")
+
+
 def phase_lm_bf16() -> tuple:
     """6d-e on granite-3-2b in bfloat16; returns the LM main path's launch
     counts and its cache (for the kernel times)."""
@@ -1658,42 +1793,283 @@ def phase_lm_bf16() -> tuple:
     torch.cuda.synchronize()
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print("[main] lm kernels " + json.dumps(launches))
-    want = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * LM_STEPS}
-    if any(launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"LM main path launches {launches}, want {want}")
+    check_launches("lm", launches, {"flash_attention": cfg.n_layers,
+                                    "flash_decode": cfg.n_layers * LM_STEPS})
     assert bool(logits.isfinite().all()) and bool(last[:, :cfg.vocab].isfinite().all())
 
     prefill_ms = median_run_ms(lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN))
-    len0 = torch.tensor(LM_PROMPT, dtype=torch.int32, device="cuda")
-    run_ms = median_run_ms(lambda: generate(dict(cache, len=len0), tok0))
     print(f"[lm] {LM_ARCH} bf16 full width, B{LM_BATCH}: prefill {LM_PROMPT} tokens "
-          f"{prefill_ms:.3f} ms ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tok/s); "
-          f"decode {LM_STEPS} steps at {LM_PROMPT}+ filled slots {run_ms / LM_STEPS:.3f} "
-          f"ms/step ({LM_BATCH * LM_STEPS / run_ms * 1e3:.1f} tok/s); medians of "
-          f"{TIMED_RUNS}; peak memory {peak_gb:.2f} GB")
+          f"{prefill_ms:.3f} ms ({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tok/s), "
+          f"median of {TIMED_RUNS}; peak memory {peak_gb:.2f} GB (prefill and "
+          f"{LM_STEPS} eager steps)")
     profile_breakdown(f"{LM_ARCH} prefill B{LM_BATCH}xS{LM_PROMPT}",
                       lambda: lm.prefill(params, cfg, prompt, LM_MAX_LEN), top=8)
-    profile_breakdown(f"{LM_ARCH} decode step B{LM_BATCH} at {LM_PROMPT} slots",
+    len0 = torch.tensor(LM_PROMPT, dtype=torch.int32, device="cuda")
+    profile_breakdown(f"{LM_ARCH} eager decode step B{LM_BATCH} at {LM_PROMPT} slots",
                       lambda: step(params, dict(cache, len=len0), tok0), also=("fdk::",))
+    # [decode-graph]: the server's captured step against the eager one
+    server, err = decode_eager_vs_captured(LM_ARCH, cfg, params, cache, tok0)
+    time_decode(LM_ARCH, cfg, params, cache, tok0, server, err, also=("fdk::",))
+    del server
 
     server = serve.Server(cfg, batch=LM_BATCH, max_len=256, device="cuda", params=params)
-    requests = serve.synthetic_requests(cfg, 8, 16)
-    t0 = time.perf_counter()
-    steps = serve.serve(server, requests)
-    dt = time.perf_counter() - t0
-    bad = [r.rid for r in requests
-           if not r.done or len(r.out) != len(r.prompt) + r.max_new
-           or not all(0 <= t < cfg.vocab for t in r.out)]
-    if bad:
-        raise AssertionError(f"server: requests {bad} not served right")
+    eager = serve.Server(cfg, batch=LM_BATCH, max_len=256, device="cuda", params=params)
+    # the same server with its step called eagerly: a yardstick of this
+    # run, not an option of the server
+    eager.decode = lambda t: eager._step_body(torch.as_tensor(t, dtype=torch.int32)
+                                              .to("cuda"))[0]
+    rates = {}
+    for name, srv in (("captured", server), ("eager", eager)):
+        requests = serve.synthetic_requests(cfg, 8, 16)
+        t0 = time.perf_counter()
+        steps = serve.serve(srv, requests)
+        dt = time.perf_counter() - t0
+        bad = [r.rid for r in requests
+               if not r.done or len(r.out) != len(r.prompt) + r.max_new
+               or not all(0 <= t < cfg.vocab for t in r.out)]
+        if bad:
+            raise AssertionError(f"server ({name}): requests {bad} not served right")
+        rates[name] = (len(requests) * 16 / dt, dt, steps, [r.out for r in requests])
+    if rates["captured"][3] != rates["eager"][3]:
+        raise AssertionError("server: captured and eager steps served other tokens")
     # a functional check of the server: 8 short requests are no measurement
     # of serving, so their rate is printed but not kept as a metric
-    print(f"[serve] {LM_ARCH} bf16: {len(requests)} requests served in {dt:.2f} s, "
-          f"{steps} decode steps, {len(requests) * 16 / dt:.1f} tok/s (batch "
-          f"{LM_BATCH}, max_len 256; functional run, not a serving benchmark)")
-    del server, params
+    print(f"[serve] {LM_ARCH} bf16: 8 requests, {rates['captured'][2]} decode steps, "
+          f"captured step {rates['captured'][0]:.1f} tok/s ({rates['captured'][1]:.2f} s, "
+          f"{server.captures} capture) against the same server stepping eagerly "
+          f"{rates['eager'][0]:.1f} tok/s ({rates['eager'][1]:.2f} s); the same tokens "
+          f"(batch {LM_BATCH}, max_len 256; functional run, not a serving benchmark)")
+    del server, eager, params
     return launches, cache
+
+
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_MAX_LEN = 4, 2048, 4096
+MROPE_LAYERS = 16  # qwen2-vl-72b: 16 of 80 layers (about 31 GB of bf16 weights)
+
+
+def _family_cfg(arch: str, dtype: str = "bfloat16", **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), dtype=dtype, **kw)
+
+
+def _free(*_) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def family_main_path(label: str, cfg, params: dict, prompt, also: tuple = (),
+                     n_attn: int = 1, **kw) -> dict:
+    """A family's LM main path in bfloat16: prefill ``prompt`` (max_len
+    ``FAMILY_MAX_LEN``), then ``decode_eager_vs_captured``; launch counts
+    zeroed just before and read just after (prefill's flash_attention calls,
+    and per decode step ``n_attn`` flash_decode calls a layer: the eager
+    steps' and the capture's warm-up and capture, never a replay)."""
+    from repro_torch.models import lm
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, **kw)
+    tok0 = logits.argmax(-1)
+    server, err = decode_eager_vs_captured(label, cfg, params, cache, tok0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    encdec = cfg.kind == "encdec"  # prefill: encoder, self- and cross-attention
+    check_launches(label, launches, {
+        "flash_attention": cfg.n_layers + (cfg.enc_layers + cfg.n_layers) * encdec,
+        "flash_decode": n_attn * cfg.n_layers * (LM_STEPS + 2)})
+    if not bool(logits.isfinite().all()):
+        raise AssertionError(f"{label}: prefill logits not finite")
+    time_decode(label, cfg, params, cache, tok0, server, err, also=also)
+    del server, cache
+    prefill_ms = median_run_ms(lambda: lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, **kw))
+    b, s = prompt.shape
+    print(f"[{label}] bf16 prefill B{b} x {s} tokens {prefill_ms:.3f} ms "
+          f"({b * s / prefill_ms * 1e3:.0f} tok/s), median of {TIMED_RUNS}; peak memory "
+          f"{peak_gb:.2f} GB (prefill, {LM_STEPS} eager and {LM_STEPS} captured steps)")
+    return launches
+
+
+def phase_lm_moe() -> None:
+    """[lm-moe]: granite-moe-1b-a400m at full width and depth (24 layers,
+    d 1024, 16/8 heads, 32 experts top-8, d_expert 512)."""
+    from repro_torch.models import layers as L, lm
+    arch = "granite-moe-1b-a400m"
+    cfg32 = _family_cfg(arch, "float32")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg32, 2, 64)  # 128 tokens: every assignment kept
+    h = lm.forward(params, cfg32, prompt)
+    full = h[:, -1].float() @ params["embed"].float().T
+    _, cache = lm.prefill(params, cfg32, prompt[:, :-1], max_len=64)
+    dec, cache = lm.make_decode_step(cfg32)(params, cache, prompt[:, -1])
+    err = float((dec[:, :cfg32.vocab] - full[:, :cfg32.vocab]).abs().max())
+    if not err < CONSISTENCY_TOL:
+        raise AssertionError(f"{arch} f32: decode/forward mismatch {err}")
+    print(f"[lm-moe] {arch} f32 full width and depth ({cfg32.n_layers} layers, "
+          f"{cfg32.param_count() / 1e9:.2f} B params): prefill(prompt[:, :-1]) + 1 decode "
+          f"step == forward's last logits, B2 x 64 (t <= {L.DROPLESS_TOKENS}, dropless), "
+          f"max|err|={err:.3g} (bar {CONSISTENCY_TOL:g})")
+    card_vs_cpu("lm-moe", cfg32, params, 2, prompt)
+    del params, h, full, cache, dec
+    _free()
+
+    cfg = _family_cfg(arch)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    t = FAMILY_BATCH * FAMILY_PROMPT
+    counts, route = [], L.route
+    with counting(L, "route", counts, key=lambda x, rw, k: torch.bincount(
+            route(x, rw, k)[1].flatten(), minlength=cfg.moe.n_experts)):
+        lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN)
+    cap = L.capacity(cfg, t)
+    dropped = sum(int(torch.clamp(c - cap, min=0).sum()) for c in counts)
+    print(f"[lm-moe] bf16 prefill of B{FAMILY_BATCH} x {FAMILY_PROMPT} = {t} tokens: "
+          f"capacity {cap} slots an expert; {dropped} of {len(counts) * t * cfg.moe.top_k} "
+          f"routed assignments dropped over {len(counts)} layers "
+          f"({100 * dropped / (len(counts) * t * cfg.moe.top_k):.3f}%)")
+    family_main_path("lm-moe", cfg, params, prompt, also=("fdk::",))
+    del params
+    _free()
+
+
+def phase_lm_mrope() -> None:
+    """[lm-mrope]: qwen2-vl-72b at full width (d 8192, 64/8 heads, head dim
+    128, d_ff 29,568, vocab 152,064), depth cut to 16 of 80 layers."""
+    from repro_torch.models import lm
+    arch = "qwen2-vl-72b"
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg32 = _family_cfg(arch, "float32", n_layers=2)
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg32, 1, 64)
+    pos3 = torch.randint(0, 64, (3, 1, 64), generator=gen, device="cuda")
+    card_vs_cpu("lm-mrope", cfg32, params, 2, prompt, pos3=pos3)
+    del params
+    _free()
+
+    cfg = _family_cfg(arch, n_layers=MROPE_LAYERS)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    # M-RoPE ids from a seed: time along the prompt, height and width on a grid
+    grid = torch.randint(0, 48, (2, FAMILY_BATCH, FAMILY_PROMPT), generator=gen,
+                         device="cuda")
+    pos3 = torch.cat([torch.arange(FAMILY_PROMPT, device="cuda").expand(
+        1, FAMILY_BATCH, FAMILY_PROMPT), grid])
+    print(f"[lm-mrope] {arch} bf16 full width, {MROPE_LAYERS} of 80 layers "
+          f"({cfg.param_count() / 1e9:.2f} B params), "
+          f"pos3 = (t: 0..{FAMILY_PROMPT - 1}, h and w: seeded in 0..47)")
+    family_main_path("lm-mrope", cfg, params, prompt, also=("fdk::",), pos3=pos3)
+    del params
+    _free()
+
+
+def phase_lm_encdec() -> None:
+    """[lm-encdec]: seamless-m4t-medium at full width and depth (12 encoder
+    and 12 decoder layers, d 1024, 16/16 heads, d_ff 4096, gelu, vocab
+    256,206); the encoder reads B 4 x 2048 frames from a seed (the stubbed
+    audio frontend's output)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    arch = "seamless-m4t-medium"
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cfg32 = _family_cfg(arch, "float32", n_layers=2, enc_layers=2)
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    frames = torch.randn((1, 64, cfg32.d_model), generator=gen, device="cuda")
+    card_vs_cpu("lm-encdec", cfg32, params, 2, _prompt(gen, cfg32, 1, 64),
+                enc_embeds=frames)
+    del params
+    _free()
+
+    cfg = _family_cfg(arch)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    frames = torch.randn((FAMILY_BATCH, FAMILY_PROMPT, cfg.d_model), generator=gen,
+                         device="cuda")
+    family_main_path("lm-encdec", cfg, params, prompt, n_attn=2, enc_embeds=frames)
+    # the server as the reference runs it: an empty encoder memory
+    server = serve.Server(cfg, batch=FAMILY_BATCH, max_len=256, device="cuda",
+                          params=params)
+    requests = serve.synthetic_requests(cfg, 8, 16)
+    steps = serve.serve(server, requests)
+    if not (bool(server.logits[:, :cfg.vocab].isfinite().all())
+            and all(r.done and all(0 <= t < cfg.vocab for t in r.out) for r in requests)):
+        raise AssertionError("lm-encdec: the server over an empty memory gave non-finite "
+                             "logits or tokens out of range")
+    print(f"[lm-encdec] server over an empty encoder memory (enc_h "
+          f"{tuple(server.cache['enc_h'].shape)}): 8 requests, {steps} captured steps "
+          f"({server.captures} capture), finite logits")
+    del server, params
+    _free()
+
+
+def phase_family_attention() -> None:
+    """[parity] both attention kernels at the new families' shapes against
+    their plain versions, each at its existing bar, with the kernel's time
+    beside one SDPA call's."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_decode import ops as fdec
+    from repro_torch.kernels.flash_decode.ref import decode_partials_plain
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s = FAMILY_BATCH, FAMILY_PROMPT
+    form, (_, bytes_peak, bf16_peak, _) = card_peaks(torch.cuda.get_device_name(0))
+
+    def bound(flops, nbytes):  # as phase 7's rows: the larger of the two times
+        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / bytes_peak * 1e3
+        return (f"bound {max(t_ops, t_bytes):.4f} ms by "
+                f"{'operations' if t_ops >= t_bytes else 'bytes'} ({form} peaks)")
+    for label, hq, hkv, skv, d, causal in (
+            ("qwen2-vl prefill", 64, 8, s, 128, True),
+            ("granite-moe prefill", 16, 8, s, 64, True),
+            ("seamless decoder self", 16, 16, s, 64, True),
+            ("seamless encoder / cross", 16, 16, s, 64, False),
+            ("seamless cross, Skv != Sq", 16, 16, 1000, 64, False)):
+        q = _normal(gen, (b, s, hq, d), dtype=torch.bfloat16).transpose(1, 2)
+        k, v = (_normal(gen, (b, skv, hkv, d), dtype=torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal)
+        want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                     causal=causal).transpose(1, 2)
+        err = kernel_vs_plain(got, want, ATTN_BF16_TOL, f"flash_attention {label}")
+        del want
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                              enable_gqa=True))
+        pairs = s * (s + 1) // 2 if causal else s * skv  # (row, col) pairs a head
+        print(f"[parity] flash_attention {label}: B{b} Hq{hq} Hkv{hkv} Sq{s} Skv{skv} "
+              f"D{d} {'causal' if causal else 'non-causal'} bf16, max|err|={err:.3g} "
+              f"(bar rtol=atol={ATTN_BF16_TOL:g}); kernel {ms:.4f} ms, SDPA {sdpa:.4f} ms, "
+              + bound(4.0 * b * hq * d * pairs, 2.0 * b * d * (2 * s * hq + 2 * skv * hkv)))
+        del q, k, v, got
+    _free()
+    for label, hq, hkv, cap, filled, d in (
+            ("qwen2-vl, G 8", 64, 8, FAMILY_MAX_LEN, s, 128),
+            ("granite-moe, G 2", 16, 8, FAMILY_MAX_LEN, s, 64),
+            ("seamless self, G 1", 16, 16, FAMILY_MAX_LEN, s, 64),
+            ("seamless cross, G 1", 16, 16, s, s, 64)):
+        q = _normal(gen, (b, hq, d), dtype=torch.bfloat16)
+        kc, vc = (_normal(gen, (b, cap, hkv, d), dtype=torch.bfloat16) for _ in range(2))
+        n = torch.tensor(filled, dtype=torch.int32, device="cuda")
+        got = fdec.gqa_decode_partials(q, kc, vc, n)
+        want = decode_partials_plain(q, kc, vc, filled, d ** -0.5)
+        err = max(kernel_vs_plain(x, y, ATTN_TOL, f"flash_decode {label} {part}")
+                  for x, y, part in zip(got, want, ("acc", "m", "l")))
+        ms = graph_ms(lambda: fdec.gqa_decode_partials(q, kc, vc, n))
+        q1 = q.view(b, hq, 1, d)
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            q1, kc[:, :filled].transpose(1, 2), vc[:, :filled].transpose(1, 2),
+            enable_gqa=True))
+        print(f"[parity] flash_decode {label}: B{b} Hq{hq} Hkv{hkv} D{d}, {filled} of "
+              f"{cap} slots, bf16, max|err|={err:.3g} (bar {ATTN_TOL:g}); kernel "
+              f"{ms:.4f} ms, SDPA {sdpa:.4f} ms (graph replays), " + bound(
+                  4.0 * b * hq * d * filled,
+                  2.0 * (b * hq * d + 2 * b * filled * hkv * d) + 4.0 * (b * hq * d + 2 * b * hq)))
+        del q, kc, vc
+    _free()
 
 
 def phase_attention_times(shapes: dict, launches: dict, errs: dict, card: str,
@@ -1858,6 +2234,12 @@ def main() -> int:
     lm_launches, cache = phase_lm_bf16()
     rows = phase_kernel_times(shapes, launches, errs, card)
     rows += phase_attention_times(lm_shapes(), lm_launches, errs, card, cache)
+    del cache
+    _free()
+    phase_family_attention()
+    phase_lm_moe()
+    phase_lm_mrope()
+    phase_lm_encdec()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

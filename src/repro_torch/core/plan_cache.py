@@ -265,8 +265,10 @@ class CapturedGraph:
     warm-up and of the capture, and the bytes the pool reserved. The body
     runs once eagerly on a side stream first, so that libraries load and
     lazily placed tensors (weights) exist before the capture; a capture
-    that fails raises. Any function of tensors whose shapes are static fits
-    (a plan body here; the LM's decode step is the next candidate)."""
+    that fails raises. Any function of tensors whose shapes are static fits:
+    a plan body here, the learned embedder's forwards, and the LM server's
+    decode step (``launch.serve.Server``), whose params and cache are state
+    that the body reads and writes in place, not part of ``example``."""
 
     def __init__(self, body: Callable[[Any], Any], example: Any,
                  device: torch.device):

@@ -203,7 +203,7 @@ def test_decode_forward_consistency(arch):
     assert int(cache2["len"]) == 12
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE_GQA)))
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-1.3b", "zamba2-1.2b"])
 def test_other_kinds_raise(arch):
     cfg = get_smoke_config(arch)
     for fn in (lambda: lm.init_params(cfg, device="cpu"),

@@ -29,7 +29,7 @@ from repro_torch.core.rules import ALL_RULES, kernel_plan
 from repro_torch.data import workloads as twl
 from repro_torch.testing import assert_canonical_close
 
-from test_torch_rules import port_signature as _signature
+from test_torch_rules import port_signature as _signature, sync_fresh_names
 
 SCALE = 0.3
 NAMES = sorted(jwl.ALL_WORKLOADS)
@@ -68,6 +68,7 @@ def _open_sites(plan, catalog, rules):
 
 @functools.lru_cache(maxsize=None)
 def _plans(name):
+    sync_fresh_names()  # rewrites name columns from each package's counter
     jw = jwl.ALL_WORKLOADS[name](scale=SCALE)
     tw = twl.ALL_WORKLOADS[name](scale=SCALE, device="cpu")
     plans = {"plan": (jw.plan, tw.plan),

@@ -216,7 +216,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert {'repro_torch.core.plan_cache', 'repro_torch.serving.server',\n"
         "        'repro_torch.serving.feedback', 'repro_torch.core.embedding',\n"
         "        'repro_torch.core.optimizer', 'repro_torch.core.wl',\n"
-        "        'repro_torch.train.optim'} <= set(sys.modules)\n"
+        "        'repro_torch.train.optim', 'repro_torch.models.layers',\n"
+        "        'repro_torch.launch.serve'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
