@@ -154,6 +154,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    and step e, launch counts zeroed just before and read just after (the
    eager steps' and the capture's launches), then the prefill's time and
    the peak memory.
+9. the LM path's last single-device families, each freed before the next:
+   a. [parity]: flash_attention at MLA's (D, Dv) pairs, deepseek-v2's
+      prefill (B 4, S 2048, 128 heads, Dqk 192, Dv 128, causal) and the
+      narrow (64, 32) pair at the same shape, f32 (2e-4) and bf16 (1e-2)
+      against the plain version; the bf16 time beside SDPA's (and each
+      SDPA backend's, where it takes Dv != Dqk) and the bound;
+   b. [lm-mla] deepseek-v2-236b at full width, 6 of 60 layers: in f32 one
+      full-width layer with 16 of its 160 experts, decode == forward (1e-2)
+      and card vs CPU (1e-4); in bf16 the drop share of a B 4 x 2048
+      prefill, then the family's main path (6 flash_attention launches a
+      prefill; MLA decode attends in its latent space, no kernel);
+   c. [lm-hybrid] zamba2-1.2b, nothing cut: f32 decode == forward, 2 layers
+      and the shared block card vs CPU; the main path (7 flash_attention a
+      prefill, 7 flash_decode a decode step);
+   d. [lm-xlstm] xlstm-1.3b, nothing cut: decode == forward at 8 (one
+      segment: 7 mLSTM + 1 sLSTM layers), 16 and 48 layers, in float64
+      (1e-6) and in f32 (1e-2); deeper, where random weights amplify any
+      rounding, at most 4x forward's change for a one-ulp move of the
+      embeddings, if that is larger;
+      1 mLSTM + 1 sLSTM layer card vs CPU; the main path, which launches no
+      kernel (prefill's sLSTM scans its 2,048 tokens eagerly).
+   Each phase's wall seconds follow it on a ``[phase]`` line.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -161,6 +183,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -183,6 +206,9 @@ F32_TOL, BF16_TOL, ATTN_TOL = 1e-4, 3e-2, 2e-4
 ATTN_BF16_TOL = 1e-2
 CONSISTENCY_TOL = 1e-2  # tests/test_archs.py: decode against forward
 CARD_CPU_TOL = 1e-4  # two f32 layers, card against CPU (phase 6b)
+F64_TOL = 1e-6  # xLSTM decode against forward in float64, any depth (phase 9d)
+XLSTM_ULPS = 4  # xLSTM decode against forward past one segment: at most
+# this many times what one ulp at the input does to forward (phase 9d)
 FULL_SIZE = (("analytics_q1", 100.0), ("rec_q3", 20.0))
 TIMED_RUNS = 5
 LM_ARCH = "granite-3-2b"
@@ -416,7 +442,7 @@ TENSOR_CORE_KERNELS = (
     ("block_matmul", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
     ("fused_dense", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
     ("fused_dense", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
-    ("flash_attention", "bf16 head dim", r"flash_fwd_bf16ILi(\d+)E", 5, "HGMMA"),
+    ("flash_attention", "bf16 (D, Dv)", r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", 7, "HGMMA"),
     ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA"))
 _READABLE = {"1": "16-byte", "0": "element"}
 
@@ -866,7 +892,6 @@ def measure_dispatch(profile) -> tuple:
 def _open_sites(plan, catalog):
     """R3-1 and R3-2 on every call they reach with their annotations
     dropped, so that costed lowering chooses each node's realization."""
-    import dataclasses
     from repro_torch.core.rules import ALL_RULES
     for rule in ("R3-1", "R3-2"):
         while True:
@@ -1583,7 +1608,6 @@ def phase_attention_parity(shapes: dict) -> dict:
 
 
 def _lm_cfg(dtype: str, **kw):
-    import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(LM_ARCH), dtype=dtype, **kw)
 
@@ -1665,10 +1689,14 @@ def _clone(cache: dict) -> dict:
     return {k: v.clone() for k, v in cache.items()}
 
 
-def _cut_layers(params: dict, n: int, device=None) -> dict:
-    """The first ``n`` layers of every stacked block group, on ``device``
-    (by default where they are)."""
-    return {k: ({kk: w[:n].to(device or w.device) for kk, w in v.items()}
+def _cut_layers(params: dict, cut, device=None) -> dict:
+    """``params`` cut to the config ``cut`` (fewer layers): each stacked
+    group to the leading size ``lm.param_shapes(cut)`` gives it (a shared
+    block's unstacked weights stay whole), on ``device`` (by default where
+    they are)."""
+    from repro_torch.models import lm
+    shapes = lm.param_shapes(cut)
+    return {k: ({kk: w[:shapes[k][kk][0]].to(device or w.device) for kk, w in v.items()}
                 if isinstance(v, dict) else v.to(device or v.device))
             for k, v in params.items()}
 
@@ -1676,13 +1704,12 @@ def _cut_layers(params: dict, n: int, device=None) -> dict:
 def card_vs_cpu(label: str, cfg, params: dict, n_layers: int, tokens, **kw) -> float:
     """``forward`` of the first layers of ``params`` (float32, full width)
     on the card (the kernels) and on the CPU (the plain versions)."""
-    import dataclasses
     from repro_torch.models import lm
     cut = dataclasses.replace(cfg, n_layers=n_layers,
                               enc_layers=n_layers if cfg.enc_layers else 0)
-    two = _cut_layers(params, n_layers)
+    two = _cut_layers(params, cut)
     on_card = lm.forward(two, cut, tokens, **kw).cpu()
-    two_cpu = _cut_layers(params, n_layers, "cpu")
+    two_cpu = _cut_layers(params, cut, "cpu")
     on_cpu = lm.forward(two_cpu, cut, tokens.cpu(),
                         **{k: v.cpu() for k, v in kw.items()})
     err = kernel_vs_plain(on_card, on_cpu, CARD_CPU_TOL, f"{label} card vs cpu")
@@ -1692,7 +1719,8 @@ def card_vs_cpu(label: str, cfg, params: dict, n_layers: int, tokens, **kw) -> f
     return err
 
 
-def decode_eager_vs_captured(label: str, cfg, params: dict, cache: dict, tok0):
+def decode_eager_vs_captured(label: str, cfg, params: dict, cache: dict, tok0,
+                             max_len: int):
     """``LM_STEPS`` greedy steps from ``cache`` twice: eagerly
     (``make_decode_step``) and through a ``Server``'s captured step (one
     CUDA-graph replay a step). The tokens must be equal and the logits
@@ -1706,8 +1734,8 @@ def decode_eager_vs_captured(label: str, cfg, params: dict, cache: dict, tok0):
         tok = logits.argmax(-1)
         eager.append((tok, logits))
     del c
-    server = serve.Server(cfg, batch=tok0.shape[0], max_len=cache["k"].shape[2],
-                          device="cuda", params=params)
+    server = serve.Server(cfg, batch=tok0.shape[0], max_len=max_len, device="cuda",
+                          params=params)
     server.cache = _clone(cache)
     tok, err = tok0, 0.0
     for i, (want_tok, want) in enumerate(eager):
@@ -1808,7 +1836,7 @@ def phase_lm_bf16() -> tuple:
     profile_breakdown(f"{LM_ARCH} eager decode step B{LM_BATCH} at {LM_PROMPT} slots",
                       lambda: step(params, dict(cache, len=len0), tok0), also=("fdk::",))
     # [decode-graph]: the server's captured step against the eager one
-    server, err = decode_eager_vs_captured(LM_ARCH, cfg, params, cache, tok0)
+    server, err = decode_eager_vs_captured(LM_ARCH, cfg, params, cache, tok0, LM_MAX_LEN)
     time_decode(LM_ARCH, cfg, params, cache, tok0, server, err, also=("fdk::",))
     del server
 
@@ -1848,7 +1876,6 @@ MROPE_LAYERS = 16  # qwen2-vl-72b: 16 of 80 layers (about 31 GB of bf16 weights)
 
 
 def _family_cfg(arch: str, dtype: str = "bfloat16", **kw):
-    import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), dtype=dtype, **kw)
 
@@ -1861,24 +1888,25 @@ def _free(*_) -> None:
 
 
 def family_main_path(label: str, cfg, params: dict, prompt, also: tuple = (),
-                     n_attn: int = 1, **kw) -> dict:
+                     n_attn: int = 1, want: dict = None, **kw) -> dict:
     """A family's LM main path in bfloat16: prefill ``prompt`` (max_len
     ``FAMILY_MAX_LEN``), then ``decode_eager_vs_captured``; launch counts
     zeroed just before and read just after (prefill's flash_attention calls,
     and per decode step ``n_attn`` flash_decode calls a layer: the eager
-    steps' and the capture's warm-up and capture, never a replay)."""
+    steps' and the capture's warm-up and capture, never a replay; ``want``
+    gives the counts where the layers are not all attention layers)."""
     from repro_torch.models import lm
     _free()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     logits, cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, **kw)
     tok0 = logits.argmax(-1)
-    server, err = decode_eager_vs_captured(label, cfg, params, cache, tok0)
+    server, err = decode_eager_vs_captured(label, cfg, params, cache, tok0, FAMILY_MAX_LEN)
     torch.cuda.synchronize()
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     encdec = cfg.kind == "encdec"  # prefill: encoder, self- and cross-attention
-    check_launches(label, launches, {
+    check_launches(label, launches, want or {
         "flash_attention": cfg.n_layers + (cfg.enc_layers + cfg.n_layers) * encdec,
         "flash_decode": n_attn * cfg.n_layers * (LM_STEPS + 2)})
     if not bool(logits.isfinite().all()):
@@ -1893,6 +1921,80 @@ def family_main_path(label: str, cfg, params: dict, prompt, also: tuple = (),
     return launches
 
 
+def forward_logits(cfg, params: dict, prompt):
+    """forward(prompt)'s last logits [B, vocab]."""
+    from repro_torch.models import lm
+    h = lm.forward(params, cfg, prompt)[:, -1]
+    return (h.float() @ params["embed"].float().T)[:, :cfg.vocab]
+
+
+def decode_and_forward(cfg, params: dict, prompt):
+    """forward(prompt)'s last logits and those of prefill(prompt[:, :-1])
+    + one decode step (tests/test_archs.py's pair), each [B, vocab]."""
+    from repro_torch.models import lm
+    full = forward_logits(cfg, params, prompt)
+    _, cache = lm.prefill(params, cfg, prompt[:, :-1], max_len=prompt.shape[1])
+    dec, cache = lm.make_decode_step(cfg)(params, cache, prompt[:, -1])
+    if int(cache["len"]) != prompt.shape[1]:
+        raise AssertionError(f"{cfg.name}: decode left len {int(cache['len'])}")
+    return full, dec[:, :cfg.vocab]
+
+
+def decode_vs_forward(cfg, params: dict, prompt, bar=CONSISTENCY_TOL) -> float:
+    """prefill(prompt[:, :-1]) + one decode step against forward(prompt)'s
+    last logits; fails past ``bar``."""
+    full, dec = decode_and_forward(cfg, params, prompt)
+    err = float((dec - full).abs().max())
+    if not err < bar:
+        raise AssertionError(f"{cfg.name} f32: decode/forward mismatch {err}")
+    return err
+
+
+def _ulp_moved(params: dict, seed: int = 0) -> dict:
+    """``params`` with every embedding element moved one ulp of its type,
+    up or down at random: one rounding at the stack's input."""
+    e = params["embed"]
+    gen = torch.Generator(device=e.device).manual_seed(seed)
+    up = torch.randint(0, 2, e.shape, generator=gen, device=e.device).bool()
+    inf = torch.tensor(float("inf"), dtype=e.dtype, device=e.device)
+    return dict(params, embed=torch.nextafter(e, torch.where(up, inf, -inf)))
+
+
+class Float64(torch.overrides.TorchFunctionMode):
+    """The port's float32 arithmetic in float64: inside, a tensor made or
+    cast as float32 (``dtype=torch.float32``, ``.float()``,
+    ``.to(torch.float32)``) is made float64 instead, and an op that still
+    returns a float32 tensor raises, so no float32 rounding is left."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.float:
+            func = torch.Tensor.double
+        f64 = (lambda a: torch.float64 if a is torch.float32 else a)
+        out = func(*map(f64, args), **{k: f64(v) for k, v in (kwargs or {}).items()})
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+                raise AssertionError(f"{func} returned float32 under Float64")
+        return out
+
+
+def drop_share(label: str, cfg, params: dict, prompt) -> None:
+    """The share of routed assignments a bf16 prefill of ``prompt`` drops
+    (past an expert's capacity), from the router's choices in each layer."""
+    from repro_torch.models import layers as L, lm
+    t = prompt.numel()
+    counts, route = [], L.route
+    with counting(L, "route", counts, key=lambda x, rw, k: torch.bincount(
+            route(x, rw, k)[1].flatten(), minlength=cfg.moe.n_experts)):
+        lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN)
+    cap = L.capacity(cfg, t)
+    dropped = sum(int(torch.clamp(c - cap, min=0).sum()) for c in counts)
+    total = len(counts) * t * cfg.moe.top_k
+    print(f"[{label}] bf16 prefill of B{prompt.shape[0]} x {prompt.shape[1]} = {t} tokens: "
+          f"capacity {cap} slots an expert of {cfg.moe.n_experts}; {dropped} of {total} "
+          f"routed assignments dropped over {len(counts)} layers "
+          f"({100 * dropped / total:.3f}%)")
+
+
 def phase_lm_moe() -> None:
     """[lm-moe]: granite-moe-1b-a400m at full width and depth (24 layers,
     d 1024, 16/8 heads, 32 experts top-8, d_expert 512)."""
@@ -1902,35 +2004,19 @@ def phase_lm_moe() -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     params = lm.init_params(cfg32, seed=0, device="cuda")
     prompt = _prompt(gen, cfg32, 2, 64)  # 128 tokens: every assignment kept
-    h = lm.forward(params, cfg32, prompt)
-    full = h[:, -1].float() @ params["embed"].float().T
-    _, cache = lm.prefill(params, cfg32, prompt[:, :-1], max_len=64)
-    dec, cache = lm.make_decode_step(cfg32)(params, cache, prompt[:, -1])
-    err = float((dec[:, :cfg32.vocab] - full[:, :cfg32.vocab]).abs().max())
-    if not err < CONSISTENCY_TOL:
-        raise AssertionError(f"{arch} f32: decode/forward mismatch {err}")
+    err = decode_vs_forward(cfg32, params, prompt)
     print(f"[lm-moe] {arch} f32 full width and depth ({cfg32.n_layers} layers, "
           f"{cfg32.param_count() / 1e9:.2f} B params): prefill(prompt[:, :-1]) + 1 decode "
           f"step == forward's last logits, B2 x 64 (t <= {L.DROPLESS_TOKENS}, dropless), "
           f"max|err|={err:.3g} (bar {CONSISTENCY_TOL:g})")
     card_vs_cpu("lm-moe", cfg32, params, 2, prompt)
-    del params, h, full, cache, dec
+    del params
     _free()
 
     cfg = _family_cfg(arch)
     params = lm.init_params(cfg, seed=0, device="cuda")
     prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
-    t = FAMILY_BATCH * FAMILY_PROMPT
-    counts, route = [], L.route
-    with counting(L, "route", counts, key=lambda x, rw, k: torch.bincount(
-            route(x, rw, k)[1].flatten(), minlength=cfg.moe.n_experts)):
-        lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN)
-    cap = L.capacity(cfg, t)
-    dropped = sum(int(torch.clamp(c - cap, min=0).sum()) for c in counts)
-    print(f"[lm-moe] bf16 prefill of B{FAMILY_BATCH} x {FAMILY_PROMPT} = {t} tokens: "
-          f"capacity {cap} slots an expert; {dropped} of {len(counts) * t * cfg.moe.top_k} "
-          f"routed assignments dropped over {len(counts)} layers "
-          f"({100 * dropped / (len(counts) * t * cfg.moe.top_k):.3f}%)")
+    drop_share("lm-moe", cfg, params, prompt)
     family_main_path("lm-moe", cfg, params, prompt, also=("fdk::",))
     del params
     _free()
@@ -2002,6 +2088,197 @@ def phase_lm_encdec() -> None:
           f"{tuple(server.cache['enc_h'].shape)}): 8 requests, {steps} captured steps "
           f"({server.captures} capture), finite logits")
     del server, params
+    _free()
+
+
+MLA_LAYERS = 6  # deepseek-v2-236b: 6 of 60 layers (about 48.7 GB of bf16 weights)
+MLA_F32_EXPERTS = 16  # the f32 checks' deepseek-v2 layer: 16 of 160 experts
+
+
+def phase_mla_attention() -> None:
+    """[parity] flash_attention at MLA's (D, Dv) pairs: deepseek-v2's prefill
+    (B 4, S 2048, 128 heads, all KV heads, Dqk 192, Dv 128, causal) and the
+    narrow (64, 32) pair at the same shape, in float32 (bar 2e-4) and bf16
+    (bar 1e-2) against the plain version; the bf16 kernel's time beside one
+    SDPA call's, and each SDPA backend's time where it takes the inputs
+    (Dv != Dqk rules some out), so that the default's backend shows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b, s, h = FAMILY_BATCH, FAMILY_PROMPT, 128
+    form, (_, bytes_peak, bf16_peak, _) = card_peaks(torch.cuda.get_device_name(0))
+    for d, dv in ((192, 128), (64, 32)):
+        errs = {}
+        for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, ATTN_BF16_TOL)):
+            q, k = (_normal(gen, (b, s, h, d), dtype=dtype).transpose(1, 2) for _ in range(2))
+            v = _normal(gen, (b, s, h, dv), dtype=dtype).transpose(1, 2)
+            got = fa.flash_attention(q, k, v, True)
+            want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), causal=True).transpose(1, 2)
+            errs[dtype] = kernel_vs_plain(got, want, tol, f"flash_attention MLA {(d, dv)} {dtype}")
+            del got, want
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        # which backend the default call ran: each one's time where it
+        # takes these inputs (the default's time is one of them)
+        backends = []
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+            short = name.split("_")[0].lower()
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    t = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+                backends.append(f"{short} {t:.4f} ms")
+            except RuntimeError:
+                backends.append(f"{short} refuses")
+        flops = 2.0 * (d + dv) * b * h * s * (s + 1) / 2
+        nbytes = 2.0 * b * h * s * (2 * d + 2 * dv)
+        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / bytes_peak * 1e3
+        print(f"[parity] flash_attention MLA prefill (D {d}, Dv {dv}): B{b} Hq{h} Hkv{h} "
+              f"S{s} causal: f32 max|err|={errs[torch.float32]:.3g} (bar {ATTN_TOL:g}), bf16 "
+              f"max|err|={errs[torch.bfloat16]:.3g} (bar rtol=atol={ATTN_BF16_TOL:g}); bf16 "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * max(t_ops, t_bytes) / ms:.1f}% of the bound), SDPA {sdpa:.4f} ms "
+              f"(by backend: {', '.join(backends)}); bound "
+              f"{max(t_ops, t_bytes):.4f} ms by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'} ({form} peaks; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        del q, k, v
+        _free()
+
+
+def phase_lm_mla() -> None:
+    """[lm-mla]: deepseek-v2-236b at full width (d 5120, 128 heads, MLA
+    kv_lora 512 / q_lora 1536 / rope 64 / nope 128 / v 128, 160 experts top-6
+    and 2 shared, d_expert 1536, vocab 102,400), depth cut to 6 of 60 layers.
+    The f32 checks run one full-width layer with 16 of its 160 experts: one
+    full layer is 16 GB in f32, which the CPU side would hold twice."""
+    from repro_torch.models import layers as L, lm
+    arch = "deepseek-v2-236b"
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    full = _family_cfg(arch)
+    cfg32 = _family_cfg(arch, "float32", n_layers=1,
+                        moe=dataclasses.replace(full.moe, n_experts=MLA_F32_EXPERTS))
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg32, 2, 64)  # 128 tokens: every assignment kept
+    err = decode_vs_forward(cfg32, params, prompt)
+    print(f"[lm-mla] {arch} f32 at full width, cut to 1 layer and {MLA_F32_EXPERTS} of "
+          f"{full.moe.n_experts} experts ({cfg32.param_count() / 1e9:.2f} B params): "
+          f"prefill(prompt[:, :-1]) + 1 decode step (absorbed latent attention) == "
+          f"forward's last logits, B2 x 64 (t <= {L.DROPLESS_TOKENS}, dropless), "
+          f"max|err|={err:.3g} (bar {CONSISTENCY_TOL:g})")
+    card_vs_cpu("lm-mla", cfg32, params, 1, prompt[:1])
+    del params
+    _free()
+
+    cfg = _family_cfg(arch, n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[lm-mla] {arch} bf16 full width, {MLA_LAYERS} of {full.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; all "
+          f"{full.n_layers} would be {full.param_count() * 2 / 1e9:.0f} GB), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    drop_share("lm-mla", cfg, params, prompt)
+    family_main_path("lm-mla", cfg, params, prompt, also=("fa::",),
+                     want={"flash_attention": MLA_LAYERS, "flash_decode": 0})
+    del params
+    _free()
+
+
+def phase_lm_hybrid() -> None:
+    """[lm-hybrid]: zamba2-1.2b, nothing cut (38 Mamba-2 layers, d 2048, the
+    shared attention + MLP block of 32 heads after every 6 layers and the
+    last 2: 7 applications)."""
+    from repro_torch.models import lm
+    arch = "zamba2-1.2b"
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg32 = _family_cfg(arch, "float32")
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg32, 2, 64)
+    err = decode_vs_forward(cfg32, params, prompt)
+    n_attn = lm._n_attn(cfg32)
+    print(f"[lm-hybrid] {arch} f32 full width and depth ({cfg32.n_layers} Mamba-2 layers, "
+          f"{n_attn} shared-block applications, {cfg32.param_count() / 1e9:.2f} B params): "
+          f"prefill(prompt[:, :-1]) + 1 decode step == forward's last logits, B2 x 64, "
+          f"max|err|={err:.3g} (bar {CONSISTENCY_TOL:g})")
+    card_vs_cpu("lm-hybrid", cfg32, params, 2, prompt[:1])  # 2 layers, then the block
+    del params
+    _free()
+
+    cfg = _family_cfg(arch)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    family_main_path("lm-hybrid", cfg, params, prompt, also=("fa::", "fdk::"),
+                     want={"flash_attention": n_attn,
+                           "flash_decode": n_attn * (LM_STEPS + 2)})
+    del params
+    _free()
+
+
+def phase_lm_xlstm() -> None:
+    """[lm-xlstm]: xlstm-1.3b, nothing cut (48 layers: 6 segments of 7
+    mLSTM layers and 1 sLSTM layer, d 2048, 4 heads of 1024). Prefill's
+    sLSTM is a sequential scan over the prompt's 2,048 tokens in each
+    segment, as in the reference; no kernel runs on this path.
+
+    Decode against forward at 8 (one segment), 16 and 48 layers, in float32
+    and in float64 (``Float64``): at one segment within 1e-2 (f32) and
+    ``F64_TOL`` (f64). Deeper, random weights amplify any rounding with
+    depth (the mLSTM normalizer's division, the sLSTM's exponential
+    gates), so each is held to the larger of that bar and ``XLSTM_ULPS``
+    times the change in forward's last logits when the embeddings move one
+    ulp of the type (``_ulp_moved``), read at the same depth; float32's
+    forward against float64's is printed beside them. Card against CPU at
+    1e-4 runs one mLSTM and one sLSTM layer at full width."""
+    from repro_torch.models import lm
+    arch = "xlstm-1.3b"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfg32 = _family_cfg(arch, "float32")
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg32, 2, 64)
+    seg, lines = cfg32.slstm_every, []
+    for depth in (seg, 2 * seg, cfg32.n_layers):
+        cut = dataclasses.replace(cfg32, n_layers=depth)
+        p32 = _cut_layers(params, cut)
+        p64 = {k: {kk: w.double() for kk, w in v.items()} if isinstance(v, dict)
+               else v.double() for k, v in p32.items()}
+        read = {}
+        for name, p in (("f32", p32), ("f64", p64)):
+            with Float64() if name == "f64" else contextlib.nullcontext():
+                full, dec = decode_and_forward(cut, p, prompt)
+                moved = forward_logits(cut, _ulp_moved(p), prompt)
+            read[name] = (full, float((dec - full).abs().max()),
+                          float((moved - full).abs().max()))
+        del p, p32, p64
+        rounding = float((read["f32"][0].double() - read["f64"][0]).abs().max())
+        for name, tol in (("f64", F64_TOL), ("f32", CONSISTENCY_TOL)):
+            _, err, ulp = read[name]
+            bar = tol if depth == seg else max(tol, XLSTM_ULPS * ulp)
+            lines.append(f"{depth} layers {name} {err:.3g} (bar {bar:.3g}, one ulp {ulp:.3g})")
+            if not err < bar:
+                raise AssertionError(f"{arch} at {depth} layers: {name} decode/forward "
+                                     f"mismatch {err} (bar {bar})")
+        lines[-1] += f", f32 forward against f64 {rounding:.3g}"
+    print(f"[lm-xlstm] {arch} full width ({cfg32.param_count() / 1e9:.2f} B params): "
+          f"prefill(prompt[:, :-1]) + 1 decode step against forward's last logits, B2 x 64, "
+          f"max|err| by depth; at one segment f64 bar {F64_TOL:g}, f32 {CONSISTENCY_TOL:g}, "
+          f"deeper the larger of that and {XLSTM_ULPS:g}x forward's change when the "
+          f"embeddings move one ulp: " + "; ".join(lines))
+    # one mLSTM and one sLSTM layer at full width
+    card_vs_cpu("lm-xlstm", dataclasses.replace(cfg32, slstm_every=2), params, 2, prompt[:1])
+    del params
+    _free()
+
+    cfg = _family_cfg(arch)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = _prompt(gen, cfg, FAMILY_BATCH, FAMILY_PROMPT)
+    family_main_path("lm-xlstm", cfg, params, prompt,
+                     want={"flash_attention": 0, "flash_decode": 0})
+    del params
     _free()
 
 
@@ -2212,34 +2489,48 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
     return rows
 
 
+def timed(phase):
+    """``phase`` with its wall seconds printed after it (``[phase]`` line)."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        out = phase(*a, **kw)
+        print(f"[phase] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
+
+
 def main() -> int:
     card = phase_device()
-    phase_build()
-    phase_parity()
-    errs = phase_attention_parity(lm_shapes())
-    launches, refs = phase_main_path()
-    profile = phase_lower()
-    phase_plan(profile, refs)
-    shapes = phase_full_size(profile)
-    errs.update(phase_main_shape_parity(shapes))
-    phase_embed()
-    phase_reusable(profile, phase_train(profile))
-    phase_cache()
-    server, cache = phase_serving()
-    phase_feedback(server, cache)
+    timed(phase_build)()
+    timed(phase_parity)()
+    errs = timed(phase_attention_parity)(lm_shapes())
+    launches, refs = timed(phase_main_path)()
+    profile = timed(phase_lower)()
+    timed(phase_plan)(profile, refs)
+    shapes = timed(phase_full_size)(profile)
+    errs.update(timed(phase_main_shape_parity)(shapes))
+    timed(phase_embed)()
+    timed(phase_reusable)(profile, timed(phase_train)(profile))
+    timed(phase_cache)()
+    server, cache = timed(phase_serving)()
+    timed(phase_feedback)(server, cache)
     del server, cache
     torch.cuda.empty_cache()
-    phase_lm_f32()
+    timed(phase_lm_f32)()
     torch.cuda.empty_cache()
-    lm_launches, cache = phase_lm_bf16()
-    rows = phase_kernel_times(shapes, launches, errs, card)
-    rows += phase_attention_times(lm_shapes(), lm_launches, errs, card, cache)
+    lm_launches, cache = timed(phase_lm_bf16)()
+    rows = timed(phase_kernel_times)(shapes, launches, errs, card)
+    rows += timed(phase_attention_times)(lm_shapes(), lm_launches, errs, card, cache)
     del cache
     _free()
-    phase_family_attention()
-    phase_lm_moe()
-    phase_lm_mrope()
-    phase_lm_encdec()
+    timed(phase_family_attention)()
+    timed(phase_lm_moe)()
+    timed(phase_lm_mrope)()
+    timed(phase_lm_encdec)()
+    timed(phase_mla_attention)()
+    timed(phase_lm_mla)()
+    timed(phase_lm_hybrid)()
+    timed(phase_lm_xlstm)()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

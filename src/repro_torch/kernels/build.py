@@ -33,7 +33,7 @@ SIGNATURES = {
     "fused_dense": ("fused_dense", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "forest_predict": ("decision_forest", [_P] * 5 + [_I] * 12 + [_P]),
     "flash_attention": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                            _I, _I, _I, _F, _STRIDES, _P]),
+                                            _I, _I, _I, _I, _F, _STRIDES, _P]),
     "flash_decode": ("flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                       _STRIDES, _P]),

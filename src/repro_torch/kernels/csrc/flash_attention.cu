@@ -1,6 +1,9 @@
 // flash_attention: prefill attention with an online softmax over KV blocks.
 // o[b,h,i,:] = softmax_j(q[b,h,i,:] . k[b,h/G,j,:] * scale) @ v[b,h/G,:,:]
-// with key padding (j < Skv) and, if causal, the top-left mask i >= j.
+// with key padding (j < Skv) and, if causal, the top-left mask i >= j. q and
+// k have head dim D, v and o head dim DV: DV == D for the GQA families, and
+// (D, DV) = (192, 128) for MLA's prefill (deepseek-v2: nope 128 + rope 64
+// against v 128), whose scale is D^-0.5 as the reference's.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_pallas, body _flash_kernel) and the jnp twin the model
@@ -11,7 +14,10 @@
 // GFLOP against 84 MB of q, k, v and o, about 800 FLOP per byte: 0.069 ms
 // at the 989 TFLOP/s of the bf16 tensor cores.
 //
-// Two instances, picked by the input type in the C entry below:
+// Two instances, picked by the input type in the C entry below, each
+// templated on the pair (D, DV); the C entry takes the pairs (16, 16), (32,
+// 32), (64, 64), (128, 128), (160, 160), (192, 128) and (64, 32), and
+// refuses any other:
 //
 // bf16: tensor cores (flash_fwd_bf16). One 256-thread block per (b*Hq + h,
 // 128-row q tile), two warpgroups of 64 rows each. The q tile is copied
@@ -20,7 +26,9 @@
 // tile j is computed (rows past Skv are zero-filled by the copy). Tiles are
 // stored in the swizzled layouts wgmma reads (wgmma.cuh): rows of 128 bytes
 // (D >= 64, as 64-column atoms; D 160 takes three, the last half used), 64
-// bytes (D 32) or 32 bytes (D 16). Per tile and warpgroup:
+// bytes (D 32) or 32 bytes (D 16); Q and K in the atoms of D, V in those of
+// DV (at (192, 128): Q 48 KB, K 24 and V 16 KB a stage, 129 KB in all, one
+// block an SM). Per tile and warpgroup:
 //   S = Q K^T  wgmma m64n64k16, Q and K from shared memory, both K-major
 //              (K's [key, D] rows are what B wants; no transpose copy);
 //   softmax    on the accumulator fragments: each thread holds 2 rows x 16
@@ -28,7 +36,8 @@
 //              the scale is folded with log2(e) into exp2, and only tiles
 //              on the causal diagonal or past Skv are masked; the row sum
 //              stays per thread until the end;
-//   O += P V   wgmma m64nNk16 (N <= 64 per instruction), A = P converted to
+//   O += P V   wgmma m64nNk16 (N <= 64 per instruction, DV/64 of them for
+//              DV >= 64), A = P converted to
 //              bf16 in place: the f32 accumulator fragment of S is the
 //              register layout A takes, so P never goes through shared
 //              memory; B = V from shared memory, MN-major (transpose bit).
@@ -38,8 +47,9 @@
 // f32: CUDA cores (flash_fwd_f32). The f32 path's 2e-4 bar rules out bf16
 // tensor cores and TF32, so it computes in f32 FMA: one 256-thread block per
 // (b*Hq + h, 64-row q tile), 64x64 register tiles (thread (ty, tx) owns rows
-// ty + 16*i and cols tx + 16*j), P through shared memory. Its ceiling is the
-// 67 TFLOP/s f32 rate; the LM's timed path is bf16.
+// ty + 16*i and cols tx + 16*j), P through shared memory, V and the output
+// accumulators sized by DV (148 KB of shared memory at (192, 128)). Its
+// ceiling is the 67 TFLOP/s f32 rate; the LM's timed path is bf16.
 //
 // Both: the KV head h / G is read in place (no repeat copy), strides over
 // B, H and S are arguments (unit stride on D), ragged S is masked on load
@@ -88,8 +98,16 @@ struct Geo {
   static constexpr int KV_ATOM = BKV * SW;
   static constexpr int Q_BYTES = NATOM * Q_ATOM;
   static constexpr int KV_BYTES = NATOM * KV_ATOM;  // K or V, one stage
-  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;  // + alignment
   static_assert(D % 16 == 0 && ACOLS % 16 == 0, "head dim");
+};
+
+// shared memory of one block: Q in D's atoms, then per stage K (D's atoms)
+// and V (DV's atoms); every offset a multiple of 1024 bytes
+template <int D, int DV>
+struct Smem {
+  static constexpr int K_BYTES = Geo<D>::KV_BYTES, V_BYTES = Geo<DV>::KV_BYTES;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int TOTAL = Geo<D>::Q_BYTES + STAGES * STAGE + 1024;  // + alignment
 };
 
 // rows [row0, row0 + n) of a [rows, D] bf16 matrix (row stride `stride`)
@@ -109,21 +127,23 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
   }
 }
 
-// O (+)= P V over one atom of V's columns; o holds D/2 accumulators
-template <int D, int A>
-__device__ __forceinline__ void pv_atom(float (&o)[D / 2], const uint32_t* pa,
+// O (+)= P V over one atom of V's columns; o holds DV/2 accumulators
+template <int DV, int A>
+__device__ __forceinline__ void pv_atom(float (&o)[DV / 2], const uint32_t* pa,
                                         uint32_t v_kk) {
-  using G = Geo<D>;
-  constexpr int N = D - A * G::ACOLS < G::ACOLS ? D - A * G::ACOLS : G::ACOLS;
+  using G = Geo<DV>;
+  constexpr int N = DV - A * G::ACOLS < G::ACOLS ? DV - A * G::ACOLS : G::ACOLS;
   const uint64_t db = hop::make_desc<G::SW>(v_kk + A * G::KV_ATOM, 8 * G::SW);
   if constexpr (N == 64) hop::wgmma_rs_n64<A * 32>(o, pa, db);
   else if constexpr (N == 32) hop::wgmma_rs_n32<A * 32>(o, pa, db);
   else hop::wgmma_rs_n16<A * 32>(o, pa, db);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Params p) {
   using G = Geo<D>;
+  using GV = Geo<DV>;
+  using SM = Smem<D, DV>;
   using bf16 = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (hop::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -150,9 +170,9 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
   }
 
   auto load_kv = [&](int st, int j) {
-    const uint32_t ks = kv_s + st * 2 * G::KV_BYTES;
+    const uint32_t ks = kv_s + st * SM::STAGE;
     load_tile<D>(ks, k, p.ks.s, j * BKV, BKV, p.skv, G::KV_ATOM);
-    load_tile<D>(ks + G::KV_BYTES, v, p.vs.s, j * BKV, BKV, p.skv, G::KV_ATOM);
+    load_tile<DV>(ks + SM::K_BYTES, v, p.vs.s, j * BKV, BKV, p.skv, GV::KV_ATOM);
   };
   load_tile<D>(q_s, q, p.qs.s, q0, BQ, p.sq, G::Q_ATOM);
 #pragma unroll
@@ -161,11 +181,11 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
     hop::cp_async_commit();
   }
 
-  float s[32], acc[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float s[32], acc[DV / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   uint32_t pa[16];
   const float sl2 = p.scale * LOG2E;
 
@@ -179,7 +199,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
       hop::cp_async_commit();
     }
     if (j >= wg_tiles) continue;  // uniform per warpgroup
-    const uint32_t k_s = kv_s + (j % STAGES) * 2 * G::KV_BYTES, v_s = k_s + G::KV_BYTES;
+    const uint32_t k_s = kv_s + (j % STAGES) * SM::STAGE, v_s = k_s + SM::K_BYTES;
 
     // S = Q K^T
     hop::wgmma_fence();
@@ -230,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
       l[(i >> 1) & 1] += pv;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
     for (int i = 0; i < 16; ++i) pa[i] = hop::pack_bf16(s[2 * i], s[2 * i + 1]);
 
@@ -239,10 +259,10 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
     hop::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t v_kk = v_s + kk * 16 * G::SW;
-      pv_atom<D, 0>(acc, pa + 4 * kk, v_kk);
-      if constexpr (G::NATOM > 1) pv_atom<D, 1>(acc, pa + 4 * kk, v_kk);
-      if constexpr (G::NATOM > 2) pv_atom<D, 2>(acc, pa + 4 * kk, v_kk);
+      const uint32_t v_kk = v_s + kk * 16 * GV::SW;
+      pv_atom<DV, 0>(acc, pa + 4 * kk, v_kk);
+      if constexpr (GV::NATOM > 1) pv_atom<DV, 1>(acc, pa + 4 * kk, v_kk);
+      if constexpr (GV::NATOM > 2) pv_atom<DV, 2>(acc, pa + 4 * kk, v_kk);
     }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
@@ -260,24 +280,24 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = o + row * p.os.s + 2 * quad;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
           __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Params& p, int n_bh, cudaStream_t stream) {
-  constexpr int bytes = Geo<D>::SMEM;
+  constexpr int bytes = Smem<D, DV>::TOTAL;
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_bf16<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(n_bh, (p.sq + BQ - 1) / BQ);
-  flash_fwd_bf16<D><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd_bf16<D, DV><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -291,19 +311,19 @@ namespace simt {
 
 constexpr int BQ = 64, BKV = 64, THREADS = 256;
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1);
+  return BQ * (D + 1) + BKV * (D + 1) + BKV * DV + BQ * (BKV + 1);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
-  constexpr int LD = D + 1, LP = BKV + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = BKV + 1, DC = DV / 16;
   extern __shared__ float smem[];
   float* Qs = smem;             // [BQ][LD]
   float* Ks = Qs + BQ * LD;     // [BKV][LD]
-  float* Vs = Ks + BKV * LD;    // [BKV][D]
-  float* Ps = Vs + BKV * D;     // [BQ][LP]
+  float* Vs = Ks + BKV * LD;    // [BKV][DV]
+  float* Ps = Vs + BKV * DV;    // [BQ][LP]
 
   const int tile = gridDim.y - 1 - blockIdx.y;
   const int bh = blockIdx.x, b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
@@ -336,9 +356,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BKV * D; i += THREADS) {
       const int c = i / D, d = i % D, col = c0 + c;
-      const bool in = col < p.skv;
-      Ks[c * LD + d] = in ? k[col * p.ks.s + d] : 0.f;
-      Vs[c * D + d] = in ? v[col * p.vs.s + d] : 0.f;
+      Ks[c * LD + d] = col < p.skv ? k[col * p.ks.s + d] : 0.f;
+    }
+    for (int i = tid; i < BKV * DV; i += THREADS) {
+      const int c = i / DV, d = i % DV, col = c0 + c;
+      Vs[c * DV + d] = col < p.skv ? v[col * p.vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -399,7 +421,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) pp[i] = Ps[(ty + 16 * i) * LP + c];
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) vv[cc] = Vs[c * D + tx + 16 * cc];
+      for (int cc = 0; cc < DC; ++cc) vv[cc] = Vs[c * DV + tx + 16 * cc];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -417,44 +439,55 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Params& p, int n_bh, cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+  constexpr size_t bytes = smem_floats<D, DV>() * sizeof(float);
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        flash_fwd_f32<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(n_bh, (p.sq + BQ - 1) / BQ);
-  flash_fwd_f32<D><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd_f32<D, DV><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace simt
 
+template <bool BF16, int D, int DV>
+cudaError_t run(const Params& p, int n_bh, cudaStream_t s) {
+  return BF16 ? tc::launch<D, DV>(p, n_bh, s) : simt::launch<D, DV>(p, n_bh, s);
+}
+
+// the instantiated (D, DV) pairs; ops.py's HEAD_DIMS lists the same
 template <bool BF16>
-cudaError_t dispatch(const Params& p, int n_bh, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return BF16 ? tc::launch<16>(p, n_bh, s) : simt::launch<16>(p, n_bh, s);
-    case 32: return BF16 ? tc::launch<32>(p, n_bh, s) : simt::launch<32>(p, n_bh, s);
-    case 64: return BF16 ? tc::launch<64>(p, n_bh, s) : simt::launch<64>(p, n_bh, s);
-    case 128: return BF16 ? tc::launch<128>(p, n_bh, s) : simt::launch<128>(p, n_bh, s);
-    case 160: return BF16 ? tc::launch<160>(p, n_bh, s) : simt::launch<160>(p, n_bh, s);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch(const Params& p, int n_bh, int d, int dv, cudaStream_t s) {
+  if (d == dv) {
+    switch (d) {
+      case 16: return run<BF16, 16, 16>(p, n_bh, s);
+      case 32: return run<BF16, 32, 32>(p, n_bh, s);
+      case 64: return run<BF16, 64, 64>(p, n_bh, s);
+      case 128: return run<BF16, 128, 128>(p, n_bh, s);
+      case 160: return run<BF16, 160, 160>(p, n_bh, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (d == 192 && dv == 128) return run<BF16, 192, 128>(p, n_bh, s);
+  if (d == 64 && dv == 32) return run<BF16, 64, 32>(p, n_bh, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace fa
 
 // dtype: 0 = float32 (CUDA-core instance), 1 = bfloat16 (tensor-core
 // instance; q, k and v 16-byte aligned with strides a multiple of 8).
-// strides: (b, h, s) for q, k, v and o in elements, 12 values; D has unit
-// stride.
+// strides: (b, h, s) for q, k, v and o in elements, 12 values; the head dim
+// has unit stride. D is q's and k's head dim, Dv v's and o's.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                               int D, int causal, int dtype, float scale,
+                               int D, int Dv, int causal, int dtype, float scale,
                                const long long* strides, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -474,7 +507,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(fa::dispatch<false>(p, B * Hq, D, s));
-  if (dtype == 1) return static_cast<int>(fa::dispatch<true>(p, B * Hq, D, s));
+  if (dtype == 0) return static_cast<int>(fa::dispatch<false>(p, B * Hq, D, Dv, s));
+  if (dtype == 1) return static_cast<int>(fa::dispatch<true>(p, B * Hq, D, Dv, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 """Serving launcher: batched request loop over the decode step.
 
 ``python -m repro_torch.launch.serve --arch granite-3-2b`` serves the full
-config on the card with a synthetic request stream (any ported arch:
-granite-moe-1b-a400m, qwen2-vl-72b and seamless-m4t-medium too);
+config on the card with a synthetic request stream (any arch whose full
+config fits one card's memory, such as granite-moe-1b-a400m,
+seamless-m4t-medium, zamba2-1.2b or xlstm-1.3b);
 ``--smoke --device cpu`` serves the reduced config on the CPU. Ported from
 ``repro.launch.serve``, with its semantics as they are: one cache ``len``
 shared by all slots, prompts teacher-forced token by token through the
@@ -93,14 +94,16 @@ class Server:
         return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
     def _capture(self, tokens: torch.Tensor) -> None:
-        # the warm-up runs the step once eagerly and advances len; put it
-        # back. The K/V row it wrote is in slot min(len, max_len - 1), which
-        # the first replay writes again.
-        len0 = self.cache["len"].clone()
+        # the warm-up runs the step once eagerly: it advances len, writes a
+        # K/V row and overwrites the recurrent families' states (the
+        # hybrid's conv and SSM states, xLSTM's memories). Put the whole
+        # cache back, so that the first replay is the first step.
+        before = {k: v.clone() for k, v in self.cache.items()}
         try:
             self.captured = CapturedGraph(self._step_body, tokens, self.device)
         finally:
-            self.cache["len"].copy_(len0)
+            for k, v in before.items():
+                self.cache[k].copy_(v)
         self.captures += 1
         self._captured_cache = dict(self.cache)
 

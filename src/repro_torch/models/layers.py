@@ -51,6 +51,16 @@ def add_rms_norm(x: torch.Tensor, a: torch.Tensor, g: torch.Tensor,
     return s.to(x.dtype), (s * torch.rsqrt(var + eps)).to(x.dtype) * g
 
 
+def rms_norm_of_product(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(x @ w, g)`` as XLA computes it under jit when x is one row
+    a token ([B, D], as in decode): the norm reads the product in float32,
+    before it is rounded to x's type, and rounds its own output to x's type."""
+    p = x.float() @ w.float()
+    var = torch.mean(torch.square(p), dim=-1, keepdim=True)
+    return (p * torch.rsqrt(var + eps)).to(x.dtype) * g
+
+
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                          device=device) / hd))
@@ -98,10 +108,17 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it, 1 / (1 + exp(-x)) with one
+    rounding per op in x's dtype (``torch.sigmoid`` rounds once and differs
+    in a sixth of bf16 outputs)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as XLA lowers it, one rounding per op in x's dtype
     (``F.silu`` rounds once and differs by a bf16 ulp)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,35 @@
-"""Language model of the GQA families: parameter init, forward, prefill, decode.
+"""Language models: parameter init, forward, prefill, decode, for every family.
 
-Ported from ``repro.models.lm``, the parts that the GQA families run:
+Ported from ``repro.models.lm``:
 
-* decoders with ``kind`` "dense" or "moe" and ``attn`` "gqa" or "mrope"
-  (granite-3-2b, stablelm-12b, deepseek-67b, nemotron-4-15b,
-  granite-moe-1b-a400m, qwen2-vl-72b);
+* decoders with ``kind`` "dense" or "moe" and ``attn`` "gqa", "mrope" or
+  "mla" (granite-3-2b, stablelm-12b, deepseek-67b, nemotron-4-15b,
+  granite-moe-1b-a400m, qwen2-vl-72b, deepseek-v2-236b);
 * the encoder-decoder, ``kind == "encdec"`` with GQA attention
   (seamless-m4t-medium): ``encode``, then decoder layers that run
-  self-attention, cross-attention over the encoder's memory and the FFN.
-
-MLA (deepseek-v2), the hybrid (zamba2) and xLSTM raise
-``NotImplementedError`` (ROADMAP queue 1 item 14).
+  self-attention, cross-attention over the encoder's memory and the FFN;
+* the hybrid, ``kind == "hybrid"`` (zamba2-1.2b): Mamba-2 layers with one
+  shared attention + MLP block after every ``attn_every`` of them, the last
+  partial segment too;
+* xLSTM, ``kind == "xlstm"`` (xlstm-1.3b): segments of mLSTM layers, each
+  closed by an sLSTM layer.
 
 Params are a plain dict of tensors with the JAX package's key names, the
-blocks stacked on a leading layer axis (``params["blocks"]["wq"]`` is
-[L, D, H*hd]); the layers run as a Python loop over that axis. Prefill
-attention (self and cross) goes through the flash_attention kernel, decode
-attention through the flash_decode kernel; on CPU tensors their wrappers
-run the plain versions, op for op the JAX package's jnp functions.
+layers stacked on a leading axis (``params["blocks"]["wq"]`` is [L, D,
+H*hd]); the layers run as a Python loop over that axis. Prefill attention
+(self, cross, MLA's and the hybrid's shared block) goes through the
+flash_attention kernel, GQA decode attention through the flash_decode
+kernel; on CPU tensors their wrappers run the plain versions, op for op
+the JAX package's jnp functions. MLA's decode attends in its latent space
+(the absorbed ``w_uk`` / ``w_uv``), as the reference's own float32 einsums
+outside any kernel; the Mamba-2, mLSTM and sLSTM layers are ``models.ssm``.
 
-Unlike the JAX package, ``decode_step`` updates the cache's K and V
-tensors in place (the returned cache holds the same tensors and a new
-``len``): a copy of a 1.3 GB cache per step would cost more than the step.
-The step reads nothing back to the host, so ``launch.serve.Server``
-captures it into one CUDA graph, as the reference's server jits it.
+Unlike the JAX package, ``decode_step`` updates its cache in place (the
+returned cache holds the same tensors and a new ``len``): K/V, MLA's latent
+rows, the hybrid's conv and SSM states, xLSTM's memories. A copy of a
+1.3 GB cache per step would cost more than the step. The step reads
+nothing back to the host, so ``launch.serve.Server`` captures it into one
+CUDA graph, as the reference's server jits it.
 """
 from __future__ import annotations
 
@@ -36,9 +42,13 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 
-NORMS = ("ln1", "ln2", "ln_x", "final_norm", "enc_norm")  # initialized to ones
+# leaves the reference's init sets to constants: norms to one, and the
+# Mamba-2 gates' dt_bias, A_log and D_skip
+NORMS = ("ln", "ln1", "ln2", "ln_x", "final_norm", "enc_norm", "q_ln", "kv_ln")
+CONSTANTS = {"dt_bias": -2.0, "A_log": 0.0, "D_skip": 1.0}
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -46,13 +56,12 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    decoder = cfg.kind in ("dense", "moe") and cfg.attn in ("gqa", "mrope")
-    encdec = cfg.kind == "encdec" and cfg.attn == "gqa"
-    if not (decoder or encdec):
-        raise NotImplementedError(
-            f"{cfg.name}: kind={cfg.kind!r} attn={cfg.attn!r} is not ported; the "
-            "port runs the dense, MoE and M-RoPE GQA decoders and the GQA "
-            "encoder-decoder (ROADMAP queue 1 item 14)")
+    """Raises ValueError for a kind and attention pair that no config of the
+    reference has; every config of ``repro_torch.configs`` passes."""
+    decoder = cfg.kind in ("dense", "moe") and cfg.attn in ("gqa", "mla", "mrope")
+    other = cfg.kind in ("encdec", "hybrid", "xlstm") and cfg.attn == "gqa"
+    if not (decoder or other):
+        raise ValueError(f"{cfg.name}: kind={cfg.kind!r} attn={cfg.attn!r}")
 
 
 # ===========================================================================
@@ -61,11 +70,21 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _dense_block_shapes(cfg: ModelConfig, n_layers: int) -> Dict[str, Tuple]:
     D, hd = cfg.d_model, cfg.hd
-    s = {"ln1": (n_layers, D), "ln2": (n_layers, D),
-         "wq": (n_layers, D, cfg.n_heads * hd),
-         "wk": (n_layers, D, cfg.n_kv_heads * hd),
-         "wv": (n_layers, D, cfg.n_kv_heads * hd),
-         "wo": (n_layers, cfg.n_heads * hd, D)}
+    s = {"ln1": (n_layers, D), "ln2": (n_layers, D)}
+    if cfg.attn == "mla":
+        m = cfg.mla
+        qk = m.nope_dim + m.rope_dim
+        s.update({"wq_a": (n_layers, D, m.q_lora), "q_ln": (n_layers, m.q_lora),
+                  "wq_b": (n_layers, m.q_lora, cfg.n_heads * qk),
+                  "wkv_a": (n_layers, D, m.kv_lora + m.rope_dim),
+                  "kv_ln": (n_layers, m.kv_lora),
+                  "wkv_b": (n_layers, m.kv_lora, cfg.n_heads * (m.nope_dim + m.v_dim)),
+                  "wo": (n_layers, cfg.n_heads * m.v_dim, D)})
+    else:
+        s.update({"wq": (n_layers, D, cfg.n_heads * hd),
+                  "wk": (n_layers, D, cfg.n_kv_heads * hd),
+                  "wv": (n_layers, D, cfg.n_kv_heads * hd),
+                  "wo": (n_layers, cfg.n_heads * hd, D)})
     if cfg.moe is not None:
         mo = cfg.moe
         s["router"] = (n_layers, D, mo.n_experts)
@@ -86,11 +105,64 @@ def _dense_block_shapes(cfg: ModelConfig, n_layers: int) -> Dict[str, Tuple]:
     return s
 
 
+def _mamba_shapes(cfg: ModelConfig, n_layers: int) -> Dict[str, Tuple]:
+    D = cfg.d_model
+    d_in = cfg.ssm_expand * D
+    return {"ln": (n_layers, D),
+            "w_in": (n_layers, D, d_in), "w_z": (n_layers, D, d_in),
+            "w_bc": (n_layers, D, 2 * cfg.ssm_state),
+            "w_dt": (n_layers, D, cfg.n_heads), "dt_bias": (n_layers, cfg.n_heads),
+            "conv_w": (n_layers, cfg.conv_width, d_in),
+            "A_log": (n_layers, cfg.n_heads), "D_skip": (n_layers, cfg.n_heads),
+            "w_out": (n_layers, d_in, D)}
+
+
+def _mlstm_shapes(cfg: ModelConfig, n_layers: int) -> Dict[str, Tuple]:
+    D = cfg.d_model
+    d_in = cfg.ssm_expand * D
+    return {"ln": (n_layers, D),
+            "w_q": (n_layers, D, d_in), "w_k": (n_layers, D, d_in),
+            "w_v": (n_layers, D, d_in), "w_o": (n_layers, D, d_in),
+            "w_gates": (n_layers, D, 2 * cfg.n_heads),
+            "w_out": (n_layers, d_in, D)}
+
+
+def _slstm_shapes(cfg: ModelConfig, n_layers: int) -> Dict[str, Tuple]:
+    D = cfg.d_model
+    return {"ln": (n_layers, D), "w_gates": (n_layers, D, 4 * D),
+            "r_gates": (n_layers, D, 4 * D), "w_out": (n_layers, D, D)}
+
+
+def _xlstm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(segments, mLSTM layers a segment): each segment of ``slstm_every``
+    layers is that many mLSTM layers less one, then one sLSTM layer."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def _n_attn(cfg: ModelConfig) -> int:
+    """The hybrid's shared-block applications: one after every
+    ``attn_every`` Mamba-2 layers and one after a last partial segment."""
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
     D, V, hd = cfg.d_model, cfg.padded_vocab, cfg.hd
-    tree: Dict[str, Any] = {"embed": (V, D), "final_norm": (D,),
-                            "blocks": _dense_block_shapes(cfg, cfg.n_layers)}
+    tree: Dict[str, Any] = {"embed": (V, D), "final_norm": (D,)}
+    if cfg.kind == "xlstm":
+        n_seg, per = _xlstm_layout(cfg)
+        tree["mlstm"] = _mlstm_shapes(cfg, n_seg * per)
+        tree["slstm"] = _slstm_shapes(cfg, n_seg)
+        return tree
+    if cfg.kind == "hybrid":
+        tree["mamba"] = _mamba_shapes(cfg, cfg.n_layers)
+        tree["shared_attn"] = {  # ONE attention + MLP block, shared (zamba2)
+            "ln1": (D,), "ln2": (D,),
+            "wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_kv_heads * hd),
+            "wv": (D, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, D),
+            "w_gate": (D, cfg.d_ff), "w_in": (D, cfg.d_ff), "w_out": (cfg.d_ff, D)}
+        return tree
+    tree["blocks"] = _dense_block_shapes(cfg, cfg.n_layers)
     if cfg.kind == "encdec":
         n = cfg.n_layers
         tree["enc_blocks"] = _dense_block_shapes(cfg, cfg.enc_layers)
@@ -104,18 +176,27 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random params with the JAX package's scheme: normal / sqrt(fan_in),
-    norms at one. The numbers come from a ``torch.Generator`` seeded with
-    ``seed`` on the target device, so they differ from ``jax.random``'s;
-    tests carry JAX params across with ``convert.lm_params_from_numpy``."""
+    norms and 1-D leaves at one, ``dt_bias`` -2, ``A_log`` 0, ``D_skip`` 1.
+    The numbers come from a ``torch.Generator`` seeded with ``seed`` on the
+    target device, so they differ from ``jax.random``'s; tests carry JAX
+    params across with ``convert.lm_params_from_numpy``. A stacked leaf is
+    drawn one layer at a time in float32 and stored in the model's type, so
+    the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``)."""
     dev = resolve_device(device)
     dt = _dt(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def mk(name, shape):
-        if name in NORMS:
+        if name in NORMS or len(shape) == 1:
             return torch.ones(shape, dtype=dt, device=dev)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.div_(np.sqrt(max(shape[-2], 1))).to(dt)
+        if name in CONSTANTS:
+            return torch.full(shape, CONSTANTS[name], dtype=dt, device=dev)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        fan_in = np.sqrt(max(shape[-2], 1))
+        for part in (out if len(shape) >= 3 else [out]):  # a layer at a time
+            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                                   device=dev).div_(fan_in))
+        return out
 
     def build(tree):  # leaves in the JAX tree's flattening order (sorted keys)
         return {n: build(v) if isinstance(v, dict) else mk(n, v)
@@ -128,8 +209,8 @@ def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k: w[i] for k, w in blocks.items()}
 
 
-def _n_layers(params) -> int:
-    return params["blocks"]["ln1"].shape[0]
+def _n_layers(blocks) -> int:
+    return next(iter(blocks.values())).shape[0]
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -145,8 +226,19 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["embed"].float().T
 
 
+def _final_norm(params, x: torch.Tensor, last=None) -> torch.Tensor:
+    """The final norm of x, or of ``x + last``: in the hybrid and xLSTM the
+    reference's last residual add sits outside any scan, and XLA fuses it
+    into the norm, which reads the float32 sum (``layers.add_rms_norm``) in
+    ``forward`` and the decode step. The other families end in a scan,
+    whose carry is rounded."""
+    if last is None:
+        return L.rms_norm(x, params["final_norm"])
+    return L.add_rms_norm(x, last, params["final_norm"])[1]
+
+
 # ===========================================================================
-# forward: decoder and encoder blocks
+# attention: GQA self and cross, MLA
 # ===========================================================================
 
 def _rotate(q, k, cfg: ModelConfig, positions, pos3):
@@ -158,9 +250,9 @@ def _rotate(q, k, cfg: ModelConfig, positions, pos3):
 
 
 def _attend(q, k, v, causal: bool):
-    """q [B,S,H,hd], k and v [B,Skv,Hkv,hd] -> [B, S, H*hd]. They go to the
-    kernel as [B,H,S,hd] views; o comes back in q's [B,S,H,hd] memory
-    layout, so the reshape is free."""
+    """q [B,S,H,D], k [B,Skv,Hkv,D] and v [B,Skv,Hkv,Dv] -> [B, S, H*Dv].
+    They go to the kernel as [B,H,S,*] views; o comes back in q's [B,S,H,Dv]
+    memory layout, so the reshape is free."""
     b, s = q.shape[:2]
     o = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal)
@@ -176,6 +268,30 @@ def _attn_prefill(x, blk, cfg: ModelConfig, positions, pos3, causal=True):
     v = (x @ blk["wv"]).view(b, s, cfg.n_kv_heads, hd)
     q, k = _rotate(q, k, cfg, positions, pos3)
     return _attend(q, k, v, causal) @ blk["wo"], (k, v)
+
+
+def _mla_prefill(x, blk, cfg: ModelConfig, positions):
+    """MLA self-attention over x (``repro.models.lm._mla_prefill``): the
+    decompressed K and V of all heads, the rotary part of K shared by the
+    heads (broadcast and concatenated, as the reference does), through
+    flash_attention at (D, Dv) = (nope + rope, v). Returns its output and
+    the cache's rows (the normed latent ``ckv`` and the rotated ``kpe``)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    H = cfg.n_heads
+    q = (L.rms_norm(x @ blk["wq_a"], blk["q_ln"]) @ blk["wq_b"]).view(
+        b, s, H, m.nope_dim + m.rope_dim)
+    q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    kv = x @ blk["wkv_a"]
+    ckv = L.rms_norm(kv[..., :m.kv_lora], blk["kv_ln"])
+    k_pe = kv[..., m.kv_lora:].reshape(b, s, 1, m.rope_dim)
+    q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
+    k_pe = L.apply_rope(k_pe, positions, cfg.rope_theta)
+    kvb = (ckv @ blk["wkv_b"]).view(b, s, H, m.nope_dim + m.v_dim)
+    k_nope, v = kvb[..., :m.nope_dim], kvb[..., m.nope_dim:]
+    k = torch.cat([k_nope, k_pe.expand(b, s, H, m.rope_dim)], dim=-1)
+    qq = torch.cat([q_nope, q_pe], dim=-1)
+    return _attend(qq, k, v, causal=True) @ blk["wo"], (ckv, k_pe[:, :, 0])
 
 
 def _cross_attn(x, xblk, cfg: ModelConfig, enc_h):
@@ -199,16 +315,25 @@ def _ffn(x, blk, cfg: ModelConfig):
     return y.reshape(x.shape)
 
 
+def _cache_rows(cfg: ModelConfig) -> Tuple[str, str]:
+    """The cache's per-layer rows of a decoder: MLA's latent and rotary key,
+    else the K and V of the KV heads."""
+    return ("ckv", "kpe") if cfg.attn == "mla" else ("k", "v")
+
+
 def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
            cross=None, enc_h=None, cache=None):
-    """The stacked layers of ``blocks`` over x: self-attention, then (with
-    ``cross``) cross-attention over ``enc_h``, then the FFN. With ``cache``
-    each layer's K and V go to its first S slots."""
+    """The stacked layers of ``blocks`` over x: self-attention (GQA or
+    MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
+    FFN. With ``cache`` each layer's rows go to its first S slots."""
     s = x.shape[1]
-    for i in range(blocks["ln1"].shape[0]):
+    for i in range(_n_layers(blocks)):
         blk = _layer(blocks, i)
-        a, (k, v) = _attn_prefill(L.rms_norm(x, blk["ln1"]), blk, cfg, positions,
-                                  pos3, causal)
+        h = L.rms_norm(x, blk["ln1"])
+        if cfg.attn == "mla":
+            a, rows = _mla_prefill(h, blk, cfg, positions)
+        else:
+            a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal)
         if cross is not None:
             xblk = _layer(cross, i)
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
@@ -216,9 +341,62 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
         x, h = L.add_rms_norm(x, a, blk["ln2"])
         x = x + _ffn(h, blk, cfg)
         if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            for name, row in zip(_cache_rows(cfg), rows):
+                cache[name][i, :, :s] = row
     return x
+
+
+def _shared_block(x, sh, cfg: ModelConfig, positions):
+    """The hybrid's shared attention + SwiGLU block over x: (the block's
+    input plus its attention, the MLP's output, the rotated (k, v))."""
+    a, kv = _attn_prefill(L.rms_norm(x, sh["ln1"]), sh, cfg, positions, None)
+    x, h = L.add_rms_norm(x, a, sh["ln2"])
+    return x, L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu"), kv
+
+
+def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
+    """Mamba-2 layers, the shared block after every ``attn_every`` of them
+    and after the last; returns (x, the last residual term) for the final
+    norm. With ``cache``: each layer's conv and SSM states, each shared
+    application's K and V in its first S slots."""
+    mp, sh = params["mamba"], params["shared_attn"]
+    n, s = _n_layers(mp), x.shape[1]
+    last = torch.zeros_like(x)
+    for i in range(n):
+        x = x + last
+        blk = _layer(mp, i)
+        last, (conv_s, ssm_s) = ssm.mamba2_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+        if cache is not None:
+            cache["conv"][i] = conv_s
+            cache["ssm"][i] = ssm_s
+        if (i + 1) % cfg.attn_every == 0 or i + 1 == n:
+            x, last, (k, v) = _shared_block(x + last, sh, cfg, positions)
+            if cache is not None:
+                cache["k"][i // cfg.attn_every, :, :s] = k
+                cache["v"][i // cfg.attn_every, :, :s] = v
+    return x, last
+
+
+def _xlstm(x, params, cfg: ModelConfig, cache=None):
+    """Each segment's mLSTM layers, then its sLSTM layer; returns (x, the
+    last residual term) for the final norm. With ``cache``: the memories
+    each layer ends with."""
+    n_seg, per = _xlstm_layout(cfg)
+    last = torch.zeros_like(x)
+    for si in range(n_seg):
+        for li in range(si * per, (si + 1) * per):
+            x = x + last
+            blk = _layer(params["mlstm"], li)
+            last, (S,) = ssm.mlstm_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+            if cache is not None:
+                cache["mS"][li] = S
+        x = x + last
+        sl = _layer(params["slstm"], si)
+        last, state = ssm.slstm_forward(L.rms_norm(x, sl["ln"]), sl, cfg)
+        if cache is not None:
+            for name, t in zip(("sh", "sc", "sn"), state):
+                cache[name][si] = t
+    return x, last
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -248,6 +426,18 @@ def encode(params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     return L.rms_norm(e, params["enc_norm"])
 
 
+def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None):
+    """The layers of any family over the embedded tokens x; returns (x,
+    the last residual term or None) for ``_final_norm``."""
+    if cfg.kind == "hybrid":
+        return _hybrid(x, params, cfg, positions, cache)
+    if cfg.kind == "xlstm":
+        return _xlstm(x, params, cfg, cache)
+    x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
+               cross=params.get("cross"), enc_h=enc_h, cache=cache)
+    return x, None
+
+
 def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
             enc_embeds=None) -> torch.Tensor:
     """Returns final hidden states [B, S, D]. tokens: [B, S] int (the
@@ -259,9 +449,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
     if positions is None:
         positions = _positions(b, s, x.device)
     enc_h = encode(params, cfg, enc_embeds) if cfg.kind == "encdec" else None
-    x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
-               cross=params.get("cross"), enc_h=enc_h)
-    return L.rms_norm(x, params["final_norm"])
+    return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h))
 
 
 # ===========================================================================
@@ -270,18 +458,42 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                device=None):
-    """An empty cache; the encoder-decoder's also holds an encoder memory
-    ``enc_h`` of ``enc_len`` frames (zero by default, as the reference's
-    server leaves it)."""
+    """An empty cache of ``max_len`` slots (the reference's): K/V for a GQA
+    decoder; MLA's latent ``ckv`` [L,B,S,kv_lora] and rotary ``kpe``
+    [L,B,S,rope]; the hybrid's conv [L,B,W-1,d_in] and SSM [L,B,H,dstate,dh]
+    (float32) states beside K/V for each shared-block application; xLSTM's
+    float32 mLSTM memories ``mS`` [L_m,B,H,dh,dh+1] and sLSTM states ``sh``,
+    ``sc``, ``sn`` [L_s,B,D]. The encoder-decoder's also holds an encoder
+    memory ``enc_h`` of ``enc_len`` frames (zero by default, as the
+    reference's server leaves it)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-             "v": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-             "len": torch.zeros((), dtype=torch.int32, device=dev)}
-    if cfg.kind == "encdec":
-        cache["enc_h"] = torch.zeros((batch, enc_len, cfg.d_model), dtype=_dt(cfg),
-                                     device=dev)
+    dt, f32 = _dt(cfg), torch.float32
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.kind == "xlstm":
+        n_seg, per = _xlstm_layout(cfg)
+        dh = cfg.ssm_expand * cfg.d_model // cfg.n_heads
+        cache = {"mS": zeros((n_seg * per, batch, cfg.n_heads, dh, dh + 1), f32)}
+        cache.update({n: zeros((n_seg, batch, cfg.d_model), f32) for n in ("sh", "sc", "sn")})
+    elif cfg.kind == "hybrid":
+        d_in = cfg.ssm_expand * cfg.d_model
+        cache = {"conv": zeros((cfg.n_layers, batch, cfg.conv_width - 1, d_in)),
+                 "ssm": zeros((cfg.n_layers, batch, cfg.n_heads, cfg.ssm_state,
+                               d_in // cfg.n_heads), f32),
+                 "k": zeros((_n_attn(cfg),) + kv), "v": zeros((_n_attn(cfg),) + kv)}
+    elif cfg.attn == "mla":
+        m = cfg.mla
+        cache = {"ckv": zeros((cfg.n_layers, batch, max_len, m.kv_lora)),
+                 "kpe": zeros((cfg.n_layers, batch, max_len, m.rope_dim))}
+    else:
+        cache = {"k": zeros((cfg.n_layers,) + kv), "v": zeros((cfg.n_layers,) + kv)}
+        if cfg.kind == "encdec":
+            cache["enc_h"] = zeros((batch, enc_len, cfg.d_model))
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
     return cache
 
 
@@ -297,55 +509,163 @@ def _decode_attn(q, k_cache, v_cache, valid_len):
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid_len, scale: float):
+    """MLA's decode attention in the latent space, the reference's
+    ``_mla_latent_attention`` without a mesh, in float32: q_c [B,H,kv_lora]
+    (float32), q_pe [B,H,rope], caches ckv_c [B,S,kv_lora] and kpe_c
+    [B,S,rope] of which the first ``valid_len`` slots count. Returns the
+    attention-weighted latent [B,H,kv_lora]."""
+    sc = (torch.einsum("bhk,bsk->bhs", q_c, ckv_c.float())
+          + torch.einsum("bhr,bsr->bhs", q_pe.float(), kpe_c.float())) * scale
+    cols = torch.arange(ckv_c.shape[1], device=sc.device)
+    sc = torch.where(cols[None, None, :] < valid_len, sc, L.NEG)
+    m = sc.amax(-1)
+    p = torch.exp(sc - m[..., None])
+    acc = torch.einsum("bhs,bsk->bhk", p, ckv_c.float())
+    return acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+
+
+def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
+                     positions):
+    """One token's self-attention (its K/V row written at ``slot`` in
+    place), through the output projection."""
+    b, hd = h.shape[0], cfg.hd
+    q = (h @ blk["wq"]).view(b, 1, cfg.n_heads, hd)
+    k = (h @ blk["wk"]).view(b, 1, cfg.n_kv_heads, hd)
+    v = (h @ blk["wv"]).view(b, 1, cfg.n_kv_heads, hd)
+    q, k = _rotate(q, k, cfg, positions, _pos3(cfg, positions, None))
+    k_cache.index_copy_(1, slot, k)
+    v_cache.index_copy_(1, slot, v)
+    o = _decode_attn(q[:, 0], k_cache, v_cache, valid)
+    return o.reshape(b, cfg.n_heads * hd) @ blk["wo"]
+
+
+def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions):
+    """One token's MLA (``repro.models.lm._mla_decode``): its latent and
+    rotary key rows written at ``slot`` in place, then the absorbed
+    attention: q_nope through ``w_uk`` into the latent space, attention over
+    the latent cache, back through ``w_uv``, all in float32."""
+    m = cfg.mla
+    b, H = h.shape[0], cfg.n_heads
+    q = (L.rms_norm_of_product(h, blk["wq_a"], blk["q_ln"]) @ blk["wq_b"]).view(
+        b, H, m.nope_dim + m.rope_dim)
+    q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_pe = L.apply_rope(q_pe[:, None], positions, cfg.rope_theta)[:, 0]
+    kv = h @ blk["wkv_a"]
+    ckv = L.rms_norm(kv[..., :m.kv_lora], blk["kv_ln"])
+    kpe = L.apply_rope(kv[..., m.kv_lora:][:, None, None, :], positions,
+                       cfg.rope_theta)[:, 0, 0]
+    ckv_c.index_copy_(1, slot, ckv[:, None])
+    kpe_c.index_copy_(1, slot, kpe[:, None])
+    wkv_b = blk["wkv_b"].view(m.kv_lora, H, m.nope_dim + m.v_dim)
+    w_uk, w_uv = wkv_b[..., :m.nope_dim], wkv_b[..., m.nope_dim:]
+    q_c = torch.einsum("bhn,khn->bhk", q_nope.float(), w_uk.float())
+    ctx = mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid,
+                               (m.nope_dim + m.rope_dim) ** -0.5)
+    o = torch.einsum("bhk,khv->bhv", ctx, w_uv.float())
+    return o.reshape(b, H * m.v_dim).to(h.dtype) @ blk["wo"]
+
+
 def make_decode_step(cfg: ModelConfig):
     """Returns decode_step(params, cache, token [B], enc_h=None) -> (logits
     [B,V], cache).
 
-    The new K/V row goes to slot ``min(len, max_len - 1)``: JAX's
-    ``dynamic_update_slice`` clamps its start the same way, and the
+    The new K/V (or MLA latent) row goes to slot ``min(len, max_len - 1)``:
+    JAX's ``dynamic_update_slice`` clamps its start the same way, and the
     attention then counts ``len + 1`` filled slots, as the JAX package does
-    (all of them once ``len`` has passed ``max_len``). The
-    encoder-decoder's cross-attention reads ``enc_h``, by default the
-    cache's, and recomputes its K and V every step, as the reference does."""
+    (all of them once ``len`` has passed ``max_len``). The recurrent states
+    (the hybrid's conv and SSM states, xLSTM's memories) are overwritten in
+    place with the step's. The encoder-decoder's cross-attention reads
+    ``enc_h``, by default the cache's, and recomputes its K and V every
+    step, as the reference does."""
     check_supported(cfg)
     hd = cfg.hd
 
-    def layer(x, blk, k_cache, v_cache, slot, valid, positions, xblk, enc_h):
-        b = x.shape[0]
-        h = L.rms_norm(x, blk["ln1"])
-        q = (h @ blk["wq"]).view(b, 1, cfg.n_heads, hd)
-        k = (h @ blk["wk"]).view(b, 1, cfg.n_kv_heads, hd)
-        v = (h @ blk["wv"]).view(b, 1, cfg.n_kv_heads, hd)
-        q, k = _rotate(q, k, cfg, positions, _pos3(cfg, positions, None))
-        k_cache.index_copy_(1, slot, k)
-        v_cache.index_copy_(1, slot, v)
-        o = _decode_attn(q[:, 0], k_cache, v_cache, valid)
-        a = o.reshape(b, cfg.n_heads * hd) @ blk["wo"]
-        if xblk is not None:
-            x, h = L.add_rms_norm(x, a, xblk["ln_x"])
-            q = (h @ xblk["xq"]).view(b, cfg.n_heads, hd)
-            ke = (enc_h @ xblk["xk"]).view(b, -1, cfg.n_kv_heads, hd)
-            ve = (enc_h @ xblk["xv"]).view(b, -1, cfg.n_kv_heads, hd)
-            o = _decode_attn(q, ke, ve, ke.shape[1])
-            a = o.reshape(b, cfg.n_heads * hd) @ xblk["xo"]
-        x, h = L.add_rms_norm(x, a, blk["ln2"])
-        return x + _ffn(h, blk, cfg)
+    def decoder(x, params, cache, slot, valid, positions, enc_h):
+        blocks, cross = params["blocks"], params.get("cross")
+        rows = [cache[n] for n in _cache_rows(cfg)]
+        for i in range(_n_layers(blocks)):
+            blk = _layer(blocks, i)
+            h = L.rms_norm(x, blk["ln1"])
+            attn = _mla_decode_attn if cfg.attn == "mla" else _gqa_decode_attn
+            a = attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid, positions)
+            if cross is not None:
+                xblk = _layer(cross, i)
+                x, h = L.add_rms_norm(x, a, xblk["ln_x"])
+                b = x.shape[0]
+                q = (h @ xblk["xq"]).view(b, cfg.n_heads, hd)
+                ke = (enc_h @ xblk["xk"]).view(b, -1, cfg.n_kv_heads, hd)
+                ve = (enc_h @ xblk["xv"]).view(b, -1, cfg.n_kv_heads, hd)
+                o = _decode_attn(q, ke, ve, ke.shape[1])
+                a = o.reshape(b, cfg.n_heads * hd) @ xblk["xo"]
+            x, h = L.add_rms_norm(x, a, blk["ln2"])
+            x = x + _ffn(h, blk, cfg)
+        return x, None
+
+    def hybrid(x, params, cache, slot, valid, positions):
+        mp, sh = params["mamba"], params["shared_attn"]
+        n = _n_layers(mp)
+        last = torch.zeros_like(x)
+        for i in range(n):
+            x = x + last
+            blk = _layer(mp, i)
+            out, (conv_s, ssm_s) = ssm.mamba2_forward(
+                L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
+                state=(cache["conv"][i], cache["ssm"][i]), decode=True)
+            cache["conv"][i].copy_(conv_s)
+            cache["ssm"][i].copy_(ssm_s)
+            last = out[:, 0]
+            if (i + 1) % cfg.attn_every == 0 or i + 1 == n:
+                ai = i // cfg.attn_every
+                x = x + last
+                a = _gqa_decode_attn(L.rms_norm(x, sh["ln1"]), sh, cfg, cache["k"][ai],
+                                     cache["v"][ai], slot, valid, positions)
+                x, h = L.add_rms_norm(x, a, sh["ln2"])
+                last = L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu")
+        return x, last
+
+    def xlstm(x, params, cache):
+        n_seg, per = _xlstm_layout(cfg)
+        last = torch.zeros_like(x)
+        for si in range(n_seg):
+            for li in range(si * per, (si + 1) * per):
+                x = x + last
+                blk = _layer(params["mlstm"], li)
+                out, (S,) = ssm.mlstm_forward(L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
+                                              state=(cache["mS"][li],), decode=True)
+                cache["mS"][li].copy_(S)
+                last = out[:, 0]
+            x = x + last
+            sl = _layer(params["slstm"], si)
+            names = ("sh", "sc", "sn")
+            # the reference casts the norm's output to float32 for the gates;
+            # XLA computes its last op, the product with ``ln``, in float32
+            xn = L.rms_norm(x, torch.ones_like(sl["ln"])).float() * sl["ln"].float()
+            out, state = ssm.slstm_forward(xn[:, None], sl, cfg,
+                                           state=tuple(cache[n][si] for n in names),
+                                           decode=True)
+            for n, t in zip(names, state):
+                cache[n][si].copy_(t)
+            last = out[:, 0]
+        return x, last
 
     def decode_step(params, cache, token, enc_h=None):
         x = _embed(params, cfg, token)  # [B, D]
         dev = x.device
         clen = torch.as_tensor(cache["len"], dtype=torch.int32, device=dev)
         positions = clen.reshape(1, 1).expand(x.shape[0], 1)
-        slot = torch.clamp(clen, max=cache["k"].shape[2] - 1).reshape(1).long()
         valid = clen + 1
-        if enc_h is None:
-            enc_h = cache.get("enc_h")
-        blocks, cross = params["blocks"], params.get("cross")
-        for i in range(_n_layers(params)):
-            x = layer(x, _layer(blocks, i), cache["k"][i], cache["v"][i], slot,
-                      valid, positions, None if cross is None else _layer(cross, i),
-                      enc_h)
-        logits = _logits(params, L.rms_norm(x, params["final_norm"]))
+        if cfg.kind == "xlstm":
+            x, last = xlstm(x, params, cache)
+        else:
+            rows = cache["k"] if cfg.kind == "hybrid" else cache[_cache_rows(cfg)[0]]
+            slot = torch.clamp(clen, max=rows.shape[2] - 1).reshape(1).long()
+            if cfg.kind == "hybrid":
+                x, last = hybrid(x, params, cache, slot, valid, positions)
+            else:
+                x, last = decoder(x, params, cache, slot, valid, positions,
+                                  cache.get("enc_h") if enc_h is None else enc_h)
+        logits = _logits(params, _final_norm(params, x, last))
         cols = torch.arange(cfg.padded_vocab, device=dev)
         logits = torch.where(cols[None, :] < cfg.vocab, logits, L.NEG)
         return logits, dict(cache, len=valid)
@@ -360,21 +680,21 @@ def make_decode_step(cfg: ModelConfig):
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
             pos3=None):
     """Logits of the last token (no vocab mask, as in the JAX package) and
-    a cache of ``max_len`` slots holding the prompt's K and V (and, for the
-    encoder-decoder, the encoder's memory of ``enc_embeds``)."""
+    a cache of ``max_len`` slots holding the prompt's rows (K/V, MLA's
+    latent rows, the hybrid's K/V and states, xLSTM's memories; for the
+    encoder-decoder also the encoder's memory of ``enc_embeds``)."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prefill: prompt of {s} tokens exceeds max_len {max_len}")
     positions = _positions(b, s, x.device)
-    shape = (_n_layers(params), b, max_len, cfg.n_kv_heads, cfg.hd)
-    cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-             "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+    cache = init_cache(cfg, b, max_len, device=x.device)
     enc_h = None
     if cfg.kind == "encdec":
         enc_h = cache["enc_h"] = encode(params, cfg, enc_embeds)
-    x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
-               cross=params.get("cross"), enc_h=enc_h, cache=cache)
+    x, last = _body(params, cfg, x, positions, pos3, enc_h, cache)
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    return _logits(params, L.rms_norm(x[:, -1], params["final_norm"])), cache
+    if last is not None:  # the last token's slice keeps XLA from fusing the add
+        x = x + last
+    return _logits(params, _final_norm(params, x[:, -1])), cache

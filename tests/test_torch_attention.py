@@ -4,6 +4,8 @@ On CPU tensors ``flash_attention`` and the flash_decode wrappers run their
 plain versions (``repro_torch.models.layers``); they are held against the
 JAX wrappers in Pallas interpret mode and against the jnp twins the JAX
 model runs, at the shapes and the 2e-4 bar of ``tests/test_kernels.py``.
+Value head dims unlike the key's (MLA's prefill at 192 / 128, the smoke
+config's 24 / 16) and MLA's latent decode attention are held the same way.
 The CUDA kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
@@ -14,10 +16,10 @@ import torch
 
 from repro.kernels.flash_attention import ops as j_fa, ref as j_fa_ref
 from repro.kernels.flash_decode import ops as j_fd, ref as j_fd_ref
-from repro.models import layers as jL
+from repro.models import layers as jL, lm as jlm
 from repro_torch.kernels.flash_attention import ops as t_fa, ref as t_fa_ref
 from repro_torch.kernels.flash_decode import ops as t_fd, ref as t_fd_ref
-from repro_torch.models import layers as tL
+from repro_torch.models import layers as tL, lm as tlm
 
 ATTN_TOL = 2e-4  # test_flash_attention / test_flash_decode
 
@@ -136,3 +138,62 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError):
         t_fd.gqa_decode_partials(torch.zeros((2, 6, 16)), torch.zeros((2, 8, 4, 16)),
                                  torch.zeros((2, 8, 4, 16)), 3)
+
+
+@pytest.mark.parametrize("d,dv,hq,hkv,s,skv,causal", [
+    (192, 128, 4, 4, 70, 70, True),     # deepseek-v2's prefill, all heads KV heads
+    (24, 16, 4, 4, 12, 12, True),       # the deepseek-v2 smoke config
+    (24, 16, 6, 3, 20, 45, False),      # Skv != S, G 2
+    (64, 32, 2, 2, 130, 130, True)])    # the narrow instance of the card tests
+def test_flash_attention_plain_takes_another_value_dim(d, dv, hq, hkv, s, skv, causal):
+    """[B,S,H,D] q and k with [B,Skv,Hkv,Dv] v against the jnp twin with
+    MLA's scale D**-0.5; the wrapper's CPU path gives [B,Hq,S,Dv]."""
+    q, k, v = _inputs(d + dv + s, (2, s, hq, d), (2, skv, hkv, d), (2, skv, hkv, dv))
+    want = jL.jnp_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, scale=d ** -0.5, chunk=64)
+    got = tL.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), causal=causal, chunk=64)
+    assert got.shape == (2, s, hq, dv)
+    _close(got, want)
+    via_ops = t_fa.flash_attention(*(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
+                                   causal=causal)
+    assert via_ops.shape == (2, hq, s, dv)
+    _close(via_ops.transpose(1, 2), want)
+
+
+@pytest.mark.parametrize("valid_len", [1, 7, 16, 29])
+def test_mla_latent_attention_matches_jax(valid_len):
+    """The reference's ``_mla_latent_attention`` without a mesh: scores of
+    the latent and rotary parts over the first ``valid_len`` of 29 slots."""
+    b, h, kv_lora, rope, s = 2, 4, 32, 8, 29
+    q_c, q_pe, ckv, kpe = _inputs(valid_len, (b, h, kv_lora), (b, h, rope), (b, s, kv_lora),
+                                  (b, s, rope))
+    scale = (16 + rope) ** -0.5
+    want = jlm._mla_latent_attention(*map(jnp.asarray, (q_c, q_pe, ckv, kpe)),
+                                     jnp.asarray(valid_len), scale, None)
+    for n in (valid_len, torch.tensor(valid_len, dtype=torch.int32)):
+        got = tlm.mla_latent_attention(*map(torch.from_numpy, (q_c, q_pe, ckv, kpe)), n, scale)
+        _close(got, want)
+    # bf16 caches, as the model keeps them: read in float32 by both
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q_pe, ckv, kpe)]
+    want = jlm._mla_latent_attention(jnp.asarray(q_c), *bf, valid_len, scale, None)
+    got = tlm.mla_latent_attention(torch.from_numpy(q_c), *(
+        torch.from_numpy(np.asarray(x, np.float32)).bfloat16() for x in bf), valid_len, scale)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("d,dv", [(24, 16), (192, 64), (128, 64), (96, 96)])
+def test_uninstantiated_head_dims_raise(d, dv):
+    """A (D, Dv) pair the kernel does not instantiate raises ValueError on
+    the kernel's path (any tensor not on the CPU; meta tensors here), and V
+    is never padded to D nor handed to the plain version."""
+    assert (d, dv) not in t_fa.HEAD_DIMS
+    with pytest.raises(ValueError, match="not instantiated"):
+        t_fa.check_instance(d, dv)
+    q, k = (torch.empty((1, 2, 8, d), device="meta") for _ in range(2))
+    v = torch.empty((1, 2, 8, dv), device="meta")
+    before = t_fa.launches
+    with pytest.raises(ValueError, match="not instantiated"):
+        t_fa.flash_attention(q, k, v)
+    assert t_fa.launches == before
+    for pair in ((192, 128), (64, 32), (64, 64)):
+        t_fa.check_instance(*pair)

@@ -15,7 +15,9 @@ weights, at rows and pointers that are not 16-byte aligned (their
 element-copy instance), and to bit-equal repeat calls. decision_forest is
 held at the workload forests' shapes, at row and tree counts off its tiles,
 at d = 4096 (rows read from global memory), at ties and out-of-range
-features, and to bit-equal repeat calls. flash_decode is also held to its
+features, and to bit-equal repeat calls. flash_attention is also held
+at value head dims unlike the key's, (192, 128) and (64, 32), with ragged S
+and Skv and the strided views MLA's prefill hands in. flash_decode is also held to its
 merge's tickets being private to each call: calls in flight on two streams,
 and a graph replay beside an eager call, each merge their own partials.
 """
@@ -314,6 +316,50 @@ def test_flash_attention_kernel_strided_views(cuda_device, d, dtype):
     want = fa_ref.flash_attention_plain(qs, ks, vs, causal=True)
     tol = _attn_tol(dtype)
     torch.testing.assert_close(got.transpose(1, 2).float(), want.float(), rtol=tol, atol=tol)
+
+
+# (D, Dv) pairs unlike each other: MLA's prefill (deepseek-v2) and the narrow
+# pair of the card's MLA test config; S and Skv ragged against the tiles
+MLA_PAIRS = [(192, 128), (64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", MLA_PAIRS)
+@pytest.mark.parametrize("b,hq,hkv,s,skv", [(2, 4, 4, 1, 1), (1, 4, 4, 129, 129),
+                                            (2, 6, 3, 70, 200), (1, 2, 2, 300, 65)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_value_dim(cuda_device, d, dv, b, hq, hkv, s, skv, causal,
+                                          dtype):
+    """q and k of head dim D, v of Dv, as [B,S,H,*] tensors handed in as
+    transposed views, v a slice of a wider projection as MLA's prefill
+    takes it: [B,Hq,S,Dv] out, in q's layout, at the plain version's values."""
+    rng = np.random.default_rng(d + dv + s + skv)
+    td = getattr(torch, dtype)
+    qs = _normal(rng, (b, s, hq, d), cuda_device).to(td)
+    ks = _normal(rng, (b, skv, hkv, d), cuda_device).to(td)
+    kvb = _normal(rng, (b, skv, hkv, 48 + dv), cuda_device).to(td)
+    vs = kvb[..., 48:]  # strides of the [.., nope + v] projection, as the model's
+    before = fa.launches
+    got = fa.flash_attention(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+                             causal)
+    assert fa.launches == before + 1
+    assert got.shape == (b, hq, s, dv) and got.dtype == td
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa_ref.flash_attention_plain(qs, ks, vs, causal=causal)
+    tol = _attn_tol(dtype)
+    torch.testing.assert_close(got.transpose(1, 2).float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(24, 16), (128, 64)])
+def test_flash_attention_kernel_refuses_other_pairs(cuda_device, d, dv):
+    q = torch.zeros((1, 2, 8, d), device=cuda_device, dtype=torch.bfloat16)
+    v = torch.zeros((1, 2, 8, dv), device=cuda_device, dtype=torch.bfloat16)
+    before = fa.launches
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa.flash_attention(q, q, v)
+    assert fa.launches == before
 
 
 @pytest.mark.cuda

@@ -203,15 +203,15 @@ def test_decode_forward_consistency(arch):
     assert int(cache2["len"]) == 12
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-1.3b", "zamba2-1.2b"])
-def test_other_kinds_raise(arch):
-    cfg = get_smoke_config(arch)
-    for fn in (lambda: lm.init_params(cfg, device="cpu"),
-               lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
-               lambda: lm.forward({}, cfg, torch.zeros((1, 2), dtype=torch.long)),
-               lambda: lm.make_decode_step(cfg)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            fn()
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_config_is_supported(arch):
+    """All ten configs run on one device, full and smoke; a kind and
+    attention pair that no config has raises ValueError."""
+    for cfg in (get_config(arch), get_smoke_config(arch)):
+        lm.check_supported(cfg)
+        assert lm.param_shapes(cfg)
+    with pytest.raises(ValueError, match="kind="):
+        lm.check_supported(dataclasses.replace(get_smoke_config(arch), attn="sliding"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,19 @@
-"""The port's MoE, M-RoPE and encoder-decoder LMs against the JAX package, on the CPU.
+"""The port's other LM families against the JAX package, on the CPU.
 
-granite-moe-1b-a400m (``kind="moe"``), qwen2-vl-72b (``attn="mrope"``) and
-seamless-m4t-medium (``kind="encdec"``), at their smoke configs. Params
-come from the JAX package's ``init_params`` and cross with
-``convert.lm_params_from_numpy``; tokens, frame embeddings and M-RoPE
-position ids come from a numpy seed. ``forward``, ``prefill`` (logits, the
-K/V cache and the encoder's memory) and three decode steps are held to
-``repro.models.lm`` at 2e-4 in float32 and 3e-2 in bfloat16 (the bars of
+granite-moe-1b-a400m (``kind="moe"``), qwen2-vl-72b (``attn="mrope"``),
+seamless-m4t-medium (``kind="encdec"``), deepseek-v2-236b (``attn="mla"``
+with shared experts), zamba2-1.2b (``kind="hybrid"``) and xlstm-1.3b
+(``kind="xlstm"``), at their smoke configs. Params come from the JAX
+package's ``init_params`` and cross with ``convert.lm_params_from_numpy``;
+tokens, frame embeddings and M-RoPE position ids come from a numpy seed.
+``forward``, ``prefill`` (logits and every cache entry) and three decode
+steps are held to ``jax.jit`` of ``repro.models.lm``'s functions, as its
+server runs them, at 2e-4 in float32 and 3e-2 in bfloat16 (the bars of
 ``test_torch_lm.py``); the ``Server``'s tokens to the JAX ``Server``'s,
 seamless's over the empty encoder memory the reference serves with. The
 MoE's capacity drops, its router on tied gates and M-RoPE's three position
-rows each have a targeted case.
+rows each have a targeted case; ``init_params`` is held to the reference's
+leaves, constants and scale for all ten configs.
 """
 import dataclasses
 
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_smoke_config as j_smoke
+from repro.configs import ARCHS as J_ARCHS, get_smoke_config as j_smoke
 from repro.launch import serve as jserve
 from repro.models import layers as jL, lm as jlm
 from repro_torch import convert
@@ -28,7 +31,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import layers as tL, lm
 
-FAMILIES = ("granite-moe-1b-a400m", "qwen2-vl-72b", "seamless-m4t-medium")
+FAMILIES = ("granite-moe-1b-a400m", "qwen2-vl-72b", "seamless-m4t-medium",
+            "deepseek-v2-236b", "zamba2-1.2b", "xlstm-1.3b")
 F32_TOL, BF16_TOL = 2e-4, 3e-2
 CONSISTENCY_TOL = 1e-2  # tests/test_archs.py::test_smoke_decode_consistency
 
@@ -64,18 +68,63 @@ def _inputs(cfg, rng, b, s, s_enc=7, pos3=False):
 # params
 # ---------------------------------------------------------------------------
 
+def _flat(tree):
+    return {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_param_shapes_and_init_match_jax(arch):
     jcfg, tcfg = _cfgs(arch, "bfloat16")
-    pj = jlm.init_params(jcfg, jax.random.PRNGKey(0))
-    pt = lm.init_params(tcfg, seed=0, device="cpu")
-    flat_j = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(pj)}
-    flat_t = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(pt)}
+    flat_j = _flat(jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    flat_t = _flat(lm.init_params(tcfg, seed=0, device="cpu"))
     assert set(flat_j) == set(flat_t)
     for k, v in flat_j.items():
         assert tuple(v.shape) == tuple(flat_t[k].shape) and flat_t[k].dtype == torch.bfloat16
         if bool((np.asarray(v, np.float32) == 1).all()):  # the reference's norms
             assert bool((flat_t[k] == 1).all()), k
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-1.2b", "xlstm-1.3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_cross_exactly(arch, dtype):
+    """``convert.lm_params_from_numpy`` carries the MLA, hybrid and xLSTM
+    trees (``shared_attn``'s unstacked block, ``mlstm`` / ``slstm``) leaf
+    for leaf, bit for bit, in the reference's types."""
+    jcfg, _ = _cfgs(arch, dtype)
+    pj, pt = _params(jcfg, seed=2)
+    flat_j, flat_t = _flat(pj), _flat(pt)
+    assert set(flat_j) == set(flat_t)
+    for k, v in flat_j.items():
+        assert flat_t[k].dtype == getattr(torch, dtype), k
+        np.testing.assert_array_equal(flat_t[k].float().numpy(), np.asarray(v, np.float32))
+
+
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_constants_and_scale_match_jax(arch, dtype):
+    """Every config's smoke variant: the reference's leaves with its shapes
+    and type; a leaf the reference sets to one value (norms at one,
+    ``dt_bias`` -2, ``A_log`` 0, ``D_skip`` 1) has that value here; every
+    other leaf is drawn with the reference's scale, 1 / sqrt(fan_in), in
+    each layer of a stack (the port draws a stack one layer at a time)."""
+    jcfg, tcfg = _cfgs(arch, dtype)
+    flat_j = _flat(jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    flat_t = _flat(lm.init_params(tcfg, seed=0, device="cpu"))
+    assert set(flat_j) == set(flat_t)
+    for k, v in flat_j.items():
+        want, got = np.asarray(v, np.float32), flat_t[k]
+        assert tuple(got.shape) == want.shape and got.dtype == getattr(torch, dtype), k
+        if (want == want.flat[0]).all():
+            assert bool((got == float(want.flat[0])).all()), k
+            continue
+        fan_in = want.shape[-2]
+        layers = got.float().reshape(got.shape[0] if got.ndim >= 3 else 1, -1)
+        for layer in layers:
+            std = float(layer.std()) * np.sqrt(fan_in)
+            assert 0.8 < std < 1.2 and abs(float(layer.mean())) * np.sqrt(fan_in) < 0.3, k
+    if tcfg.kind == "hybrid":
+        for name, c in (("dt_bias", -2.0), ("A_log", 0.0), ("D_skip", 1.0)):
+            assert bool((flat_t[f"['mamba']['{name}']"] == c).all())
 
 
 # ---------------------------------------------------------------------------
@@ -85,31 +134,46 @@ def test_param_shapes_and_init_match_jax(arch):
 @pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL), ("bfloat16", BF16_TOL)])
 def test_forward_prefill_decode_match_jax(arch, dtype, tol):
+    """``jax.jit`` of the reference's functions, as its server runs them
+    (XLA rounds bf16 otherwise than eager JAX in places, and the port
+    follows XLA). Each package decodes three steps from its own cache,
+    except xLSTM in bf16: there each step starts JAX from the port's cache,
+    so each step is held to the reference's on equal inputs. Its sLSTM
+    input gate is ``exp`` of a float32 sum of bf16-rounded inputs (up to
+    e^5): the prefill states, within the bar, grow to a difference of 1.2
+    in ``sc`` / ``sn`` and 0.15 in the logits after one step from each
+    package's own cache."""
     jcfg, tcfg = _cfgs(arch, dtype)
     pj, pt = _params(jcfg)
     B, S, max_len = 2, 12, 16
     rng = np.random.default_rng(0)
     toks, jkw, tkw = _inputs(jcfg, rng, B, S)
     _close(lm.forward(pt, tcfg, torch.from_numpy(toks), **tkw),
-           jlm.forward(pj, jcfg, jnp.asarray(toks), **jkw), tol)
+           jax.jit(lambda p, t, kw: jlm.forward(p, jcfg, t, **kw))(pj, jnp.asarray(toks), jkw),
+           tol)
 
-    lj, cj = jlm.prefill(pj, jcfg, jnp.asarray(toks[:, :-1]), max_len=max_len, **jkw)
+    lj, cj = jax.jit(lambda p, t, kw: jlm.prefill(p, jcfg, t, max_len=max_len, **kw))(
+        pj, jnp.asarray(toks[:, :-1]), jkw)
     lt, ct = lm.prefill(pt, tcfg, torch.from_numpy(toks[:, :-1]), max_len=max_len, **tkw)
     _close(lt, lj, tol)
     assert set(ct) == set(cj)
     for name in set(cj) - {"len"}:
-        assert ct[name].shape == cj[name].shape and ct[name].dtype == getattr(torch, dtype)
+        assert ct[name].shape == cj[name].shape
+        assert ct[name].dtype == getattr(torch, np.dtype(cj[name].dtype).name), name
         _close(ct[name], cj[name], tol)
     assert int(ct["len"]) == int(cj["len"]) == S - 1
 
-    step_j, step_t = jlm.make_decode_step(jcfg), lm.make_decode_step(tcfg)
+    step_j, step_t = jax.jit(jlm.make_decode_step(jcfg)), lm.make_decode_step(tcfg)
+    restart = arch == "xlstm-1.3b" and dtype == "bfloat16"
     tok = toks[:, -1]
     for i in range(3):
+        if restart:  # copies: the port's step then writes its cache in place
+            cj = {k: jnp.asarray(np.array(v.float()), cj[k].dtype) for k, v in ct.items()}
         dlj, cj = step_j(pj, cj, jnp.asarray(tok))
         dlt, ct = step_t(pt, ct, torch.from_numpy(tok))
         _close(dlt, dlj, tol)
         assert bool((dlt[:, tcfg.vocab:] == tL.NEG).all())
-        for name in ("k", "v"):
+        for name in set(cj) - {"len", "enc_h"}:
             _close(ct[name], cj[name], tol)
         assert int(ct["len"]) == int(cj["len"]) == S + i
         tok = rng.integers(0, jcfg.vocab, (B,)).astype(np.int32)
@@ -367,7 +431,8 @@ def test_server_decode_is_the_eager_step(arch):
         assert torch.equal(nxt, logits.argmax(-1).to(torch.int32))
         assert torch.equal(server.logits, logits)
         assert int(server.cache["len"]) == int(cache["len"]) == i + 1
-        torch.testing.assert_close(server.cache["k"], cache["k"], rtol=0, atol=0)
+        for name in cache:
+            torch.testing.assert_close(server.cache[name], cache[name], rtol=0, atol=0)
         tok = nxt
 
 
