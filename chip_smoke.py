@@ -96,6 +96,22 @@ Phases, each printing its own lines; any failure exits non-zero:
 5e. [feedback]: ``calibrate_profile`` on the mix's signatures beside the
    H100 prior, and the signatures whose decisions ``apply_calibration``
    changes. Printed, not installed.
+5f. [mesh]: the multi-device engine on the one card. A 1-wide mesh over an
+   NCCL group of one rank: ``get_or_compile_partitioned`` is the plain
+   entry and nothing shards. Then 4 gloo ranks spawned onto cuda:0 (NCCL
+   refuses two ranks on one GPU; gloo takes CUDA tensors), each running
+   ``mesh_rank``: the 12 workloads at scale 1.0 row- and hash-partitioned,
+   through ``kernel_plan`` and through costed lowering's decisions, each
+   against the rank's single-device run (masks and ints exact, floats
+   2e-5), then analytics_q1@100 and rec_q3@20 (kernel plans) through
+   ``QueryServer(mesh=, memory_budget=)`` under an artificial budget
+   (``repro_torch.testing.partition_budget``), each served by the
+   partitioned executable, against ``execute``; launch counts zeroed just before
+   each partitioned run and read just after. Per rank: launches (block_matmul
+   and decision_forest must be non-zero) and the kernels' shapes, row blocks
+   and their tail padding marked; each engine kernel at its largest
+   tail-padded row block against its plain version; the seconds and each
+   rank's peak memory: ranks time-slicing one card, no multi-card speed.
 6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
    query heads over 8 KV heads, random weights from a seed):
    a. float32: prefill(prompt[:, :-1]) and one decode step reproduce
@@ -510,27 +526,36 @@ def _work(shape: tuple) -> int:
 
 
 @contextlib.contextmanager
-def recording_shapes(seen: dict):
-    """Inside it, each engine kernel's wrapper keeps in ``seen[kernel]`` the
-    largest operand shape (by the product of its sizes) of its calls on
-    the card. The plans look the wrappers up at each call, so they go
-    through the recorder; the calls and their launch counts are unchanged."""
+def engine_calls(record):
+    """Inside it, each engine kernel's wrapper calls ``record(kernel,
+    shape)`` with its operand shape at each call on the card. The plans look
+    the wrappers up at each call, so they go through the recorder; the
+    calls and their launch counts are unchanged."""
     saved = []
     for name, (mod, attr, key) in _engine_wrappers().items():
         fn = getattr(mod, attr)
 
         def recorder(*a, _fn=fn, _name=name, _key=key, **kw):
-            shape = _key(*a, **kw)
-            if a[0].is_cuda and _work(shape) > _work(seen.get(_name, ())):
-                seen[_name] = shape
+            if a[0].is_cuda:
+                record(_name, _key(*a, **kw))
             return _fn(*a, **kw)
         saved.append((mod, attr, fn))
         setattr(mod, attr, recorder)
     try:
-        yield seen
+        yield
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def recording_shapes(seen: dict):
+    """Inside it, each engine kernel's wrapper keeps in ``seen[kernel]`` the
+    largest operand shape (by the product of its sizes) of its calls on
+    the card."""
+    def keep_largest(name, shape):
+        if _work(shape) > _work(seen.get(name, ())):
+            seen[name] = shape
+    return engine_calls(keep_largest)
 
 
 def bar_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1502,6 +1527,235 @@ def phase_feedback(server, cache) -> None:
     print(f"[feedback] apply_calibration: profile epoch {cache.profile_epoch}, "
           f"{changed} of {len(before)} signatures' #cl= decisions changed (the fit is "
           f"printed, not installed in core/cost.py)")
+
+
+MESH_RANKS = 4  # gloo ranks time-slicing cuda:0 in [mesh]
+MESH_TIMEOUT_S = 300.0  # their group's timeout
+
+
+def _row_blocks(pplan, catalog, ways: int) -> dict:
+    """Rows of a rank's block -> the padding rows the last rank's block of
+    that size carries, for each row-partitioned node of ``pplan`` (its
+    per-device capacity); the padding comes from the nearest row slice
+    below it, scaled by a cross join's right side."""
+    from repro_torch.core import cost
+    from repro_torch.core import physical as ph
+    out = {}
+
+    def walk(node, path):
+        if pplan.part_for(path).kind == "row":
+            rows = cost.phys_node_info(node, pplan.registry, catalog)[1]
+            sl = next(n for n in _phys_nodes(node)
+                      if isinstance(n, ph.PRepartition) and n.op == "slice")
+            pad = (sl.out_capacity * ways - sl.in_capacity) * (rows // sl.out_capacity)
+            out[rows] = max(out.get(rows, 0), pad)
+        for i, c in enumerate(node.children()):
+            walk(c, f"{path}.{i}")
+    walk(pplan.root, "r")
+    return out
+
+
+def mesh_rank(rank: int, ways: int, out_dir: str) -> None:
+    """One rank of [mesh]: the 12 workloads at scale 1.0, row- and
+    hash-partitioned over the ranks, through ``kernel_plan`` and through
+    costed lowering's decisions, each against this rank's single-device
+    run of the same realization (masks and ints exact, floats 2e-5); then
+    the full-size queries through ``QueryServer(mesh=, memory_budget=)``
+    against ``execute``. Launch counts are zeroed just before each
+    partitioned run and read just after; the kernels' operand shapes are
+    recorded. Writes its report to ``out_dir/rank{rank}.json``."""
+    from repro_torch.core import cost, costed_lowering, stage_graph
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core import physical as ph
+    from repro_torch.core.executor import execute
+    from repro_torch.core.rules import kernel_plan
+    from repro_torch.data.workloads import ALL_WORKLOADS
+    from repro_torch.serving import QueryServer
+    from repro_torch.testing import (PARTITION_TOL, assert_tables_equal, partition_budget,
+                                     partition_flavours, replicated, run_partitioned)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mesh_util.data_mesh()
+    profile = cost.default_profile("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(KERNELS, 0)
+    shapes = {k: {} for k in ENGINE_KERNELS}
+    blocks: dict = {}  # rows of a rank's row block -> its tail padding
+
+    def counted(fn):
+        reset_launches()
+        with engine_calls(lambda k, shape: shapes[k].update({shape: shapes[k].get(shape, 0) + 1})):
+            out = fn()
+        torch.cuda.synchronize()
+        for k, n in read_launches().items():
+            launches[k] += n
+        return out
+
+    runs = 0
+    for name in sorted(ALL_WORKLOADS):
+        w = ALL_WORKLOADS[name](scale=1.0, device="cuda")
+        tables = dict(w.catalog.tables)
+        for variant, plan in (("kernel_plan", kernel_plan(w.plan, w.catalog)),
+                              ("costed", w.plan)):
+            g = stage_graph.build(plan, w.catalog, profile=profile, ways=ways)
+            base = (None if variant == "kernel_plan" else costed_lowering.lower_costed(
+                plan, w.catalog, profile=profile, ways=ways).decisions)
+            for flavour, d in partition_flavours(g, base).items():
+                want = ph.run(g.realize(replicated(g, d)), tables)
+                pplan = g.realize(d)
+                blocks.update(_row_blocks(pplan, w.catalog, ways))
+                got = counted(lambda: run_partitioned(pplan, tables, mesh))
+                assert_tables_equal(want, got, f"[mesh] rank {rank} {name}/{variant}/{flavour}")
+                runs += 1
+    workloads_s = time.perf_counter() - t0
+    served = []
+    for name, scale in FULL_SIZE:
+        w = ALL_WORKLOADS[name](scale=scale, device="cuda")
+        plan = kernel_plan(w.plan, w.catalog)
+        # these queries fit on one card: the budget is an artificial one,
+        # which makes the server route them to the partitioned executable
+        peak, part, budget = partition_budget(plan, w.catalog, ways, profile)
+        srv = QueryServer(max_batch_size=4, max_wait_s=3600.0, mesh=mesh,
+                          memory_budget=budget)
+        req = srv.submit(plan, w.catalog)
+        if not (req.partitioned and "#be=part" in req.key):
+            raise AssertionError(f"[mesh] {name}@{scale}: not routed to the partitioned path")
+        t1 = time.perf_counter()
+        if counted(srv.drain) != 1 or req.error is not None:
+            raise AssertionError(f"[mesh] {name}@{scale}: {req.error}")
+        serve_s = time.perf_counter() - t1
+        exe = srv.cache.get_or_compile_partitioned(plan, w.catalog, mesh, cache_key=req.key)
+        low = costed_lowering.lower_costed(plan, w.catalog, profile=srv.cache.profile,
+                                           ways=ways)
+        if (exe.kind != "partitioned" or exe.pplan.ways != ways or srv.cache.traces != 1
+                or low.budget_pruned_all or low.peak_memory > budget):
+            raise AssertionError(f"[mesh] {name}@{scale}: served by the {exe.kind} entry "
+                                 f"({exe.pplan.ways} ways, {srv.cache.traces} builds), "
+                                 f"chosen peak {low.peak_memory:.4g} B against the budget "
+                                 f"{budget:.4g} B")
+        blocks.update(_row_blocks(exe.pplan, w.catalog, ways))
+        want = execute(plan, w.catalog)
+        assert_canonical_close(want.canonical(), req.result.canonical(),
+                               f"[mesh] rank {rank} served {name}@{scale}", PARTITION_TOL)
+        served.append({"query": f"{name}@{scale}", "peak": peak, "seed_peak": part,
+                       "budget": budget, "chosen_peak": low.peak_memory,
+                       "kind": exe.kind, "parts": exe.pplan.part_signature(),
+                       "serve_s": serve_s})
+        del w, srv, exe, want, req
+    report = {
+        "launches": launches, "runs": runs, "workloads_s": workloads_s,
+        "seconds": time.perf_counter() - t0, "served": served,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        # per kernel: [shape, tail padding rows or None off a row block, calls]
+        "shapes": {k: sorted(([list(sh), blocks.get(sh[0]), n] for sh, n in v.items()),
+                             key=lambda e: -_work(tuple(e[0])))
+                   for k, v in shapes.items()}}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def mesh_kernel_parity(shapes: dict) -> None:
+    """Each engine kernel against its plain version at the largest of its
+    [mesh] row-block shapes with tail padding (its last rows zero, as the
+    last rank's block holds them), else at its largest row-block shape, at
+    its bar."""
+    from repro_torch.kernels.block_matmul import ops as bm, ref as bm_ref
+    from repro_torch.kernels.decision_forest import ops as df, ref as df_ref
+    from repro_torch.kernels.fused_dense import ops as fd, ref as fd_ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for kernel in ENGINE_KERNELS:
+        blocks = [(tuple(sh), pad) for sh, pad, _ in shapes[kernel] if pad is not None]
+        if not blocks:
+            raise AssertionError(f"[mesh] {kernel}: never launched on a row block")
+        shape, pad = ([b for b in blocks if b[1]] or blocks)[0]
+        if kernel == "decision_forest":
+            n, d, t, depth = shape
+            x, feat, thresh, leaf = _forest_inputs(gen, n, d, t, depth)
+            x[n - pad:] = 0
+            got, want = (df.forest_predict(x, feat, thresh, leaf),
+                         df_ref.forest_predict(x, feat, thresh, leaf))
+        else:
+            m, k, n, arg = shape
+            x, w = _normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5)
+            x[m - pad:] = 0
+            if kernel == "block_matmul":
+                got, want = bm.block_matmul(x, w, arg), bm_ref.block_matmul(x, w, arg)
+            else:
+                b = _normal(gen, (n,))
+                got, want = fd.fused_dense(x, w, b, arg), fd_ref.fused_dense(x, w, b, arg)
+        err = kernel_vs_plain(got, want, F32_TOL, f"[mesh] {kernel} at {shape}")
+        tail = (f"the last {pad} rows zero, the tail padding" if pad
+                else "no tail padding on this path: the largest row block")
+        print(f"[mesh] parity {kernel} at row block {shape} ({tail}): max|err|={err:.3g} "
+              f"(bar rtol=atol={F32_TOL:g})")
+
+
+def phase_mesh() -> None:
+    """[mesh]: the multi-device engine on the one card. A 1-wide mesh on an
+    NCCL group of one rank: the partitioned entry is the plain one and
+    nothing shards. Then ``MESH_RANKS`` gloo ranks time-slicing cuda:0
+    (``mesh_rank``); each rank's launches and kernel shapes, and each
+    engine kernel at a tail-padded row block against its plain version.
+    The times are of ranks sharing one card: they say nothing of the speed
+    of several cards."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data.workloads import ALL_WORKLOADS
+    from repro_torch.testing import spawn_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1, device_id=torch.device("cuda:0"),
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = mesh_util.data_mesh(1)
+            w = ALL_WORKLOADS["retail_q3"](scale=1.0, device="cuda")
+            cache = PlanCache(device="cuda")
+            plain = cache.get_or_compile_partitioned(w.plan, w.catalog, mesh)
+            if plain is not cache.get_or_compile(w.plan, w.catalog) or mesh_util.can_shard(mesh, 8):
+                raise AssertionError("[mesh] a 1-wide mesh must fall back to the plain entry")
+            print(f"[mesh] 1 wide: a {dist.get_backend()} group of one rank on cuda:0, "
+                  f"mesh {mesh_util.mesh_signature(mesh)}: get_or_compile_partitioned is the "
+                  f"plain entry, can_shard(mesh, 8) False")
+            del plain, cache, w
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        # NCCL refuses two ranks on one GPU; gloo takes CUDA tensors, so the
+        # ranks share cuda:0 and time-slice it
+        spawn_ranks(mesh_rank, MESH_RANKS, args=(out,), device="cuda:0",
+                    timeout_s=MESH_TIMEOUT_S)
+        reports = [json.loads(Path(out, f"rank{r}.json").read_text())
+                   for r in range(MESH_RANKS)]
+    secs = time.perf_counter() - t0
+    for r, rep in enumerate(reports):
+        seen = {k: [f"{'x'.join(map(str, sh))}"
+                    f"{'' if pad is None else f' row block, tail {pad}'}: {n}"
+                    for sh, pad, n in v[:6]] for k, v in rep["shapes"].items()}
+        print(f"[mesh] rank {r} kernels {json.dumps(rep['launches'])} over {rep['runs']} "
+              f"partitioned workload runs and 2 served queries; shapes (largest 6, "
+              f"calls each) {json.dumps(seen)}")
+        missing = [k for k in ("block_matmul", "decision_forest") if rep["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"[mesh] rank {r}: kernels not launched: {missing}")
+    for q in reports[0]["served"]:
+        print(f"[mesh] served {q['query']} kernel plan on {MESH_RANKS} ranks: routed to "
+              f"get_or_compile_partitioned, which gave the {q['kind']} executable (parts "
+              f"{q['parts']}); tree-order peak {q['peak'] / 2 ** 20:.1f} MiB a device, "
+              f"row-partitioned seed {q['seed_peak'] / 2 ** 20:.1f} MiB, budget halfway "
+              f"{q['budget'] / 2 ** 20:.1f} MiB (artificial: the query fits on one card), "
+              f"chosen plan's peak {q['chosen_peak'] / 2 ** 20:.1f} MiB; == execute at "
+              f"2e-05; rank 0's dispatch {q['serve_s']:.3f} s")
+    mesh_kernel_parity(reports[-1]["shapes"])
+    print(f"[mesh] {MESH_RANKS} gloo ranks time-slicing cuda:0 (not a multi-card speed): "
+          f"{secs:.1f} s in all, spawn included; workloads "
+          + ", ".join(f"rank {r} {rep['workloads_s']:.1f} s" for r, rep in enumerate(reports))
+          + "; peak memory " + ", ".join(f"rank {r} {rep['peak_bytes'] / 2 ** 30:.2f} GiB"
+                                       for r, rep in enumerate(reports)))
 
 
 def _attn_inputs(gen, b, hq, hkv, s, d, dtype=torch.float32):
@@ -2516,6 +2770,7 @@ def main() -> int:
     timed(phase_feedback)(server, cache)
     del server, cache
     torch.cuda.empty_cache()
+    timed(phase_mesh)()
     timed(phase_lm_f32)()
     torch.cuda.empty_cache()
     lm_launches, cache = timed(phase_lm_bf16)()

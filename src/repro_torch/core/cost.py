@@ -16,9 +16,8 @@ over a table's full capacity, which is why compaction after selective
 filters pays.
 
 The formulas and the TPU, A100 and CPU priors are the JAX package's, number
-for number, so both packages price a plan alike under one profile. The
-partition-boundary costs (``PRepartition``) belong to the multi-device path,
-which the port does not have yet (ROADMAP.md, queue 1 item 12).
+for number, so both packages price a plan alike under one profile,
+partition boundaries (``PRepartition``) included.
 """
 from __future__ import annotations
 
@@ -114,8 +113,9 @@ H100_PROFILE = DeviceProfile(
     # chip_smoke.py's [lower] line on an H100 80GB HBM3 at 700 W; one eager
     # torch operator alone took 8.37 us there
     op_overhead_s=3.9e-4,
-    # no measurement: the port has no multi-device path yet (ROADMAP.md,
-    # queue 1 item 12); the A100 prior's value
+    # no measurement: the card's multi-device runs share one H100 between
+    # ranks over gloo, which says nothing of NVLink collectives; the A100
+    # prior's value
     collective_overhead_s=2e-6,
     supports_kernel=True)
 
@@ -232,6 +232,30 @@ def _matmul_cost(fn, x_dim, capacity, cfg: ir.PhysConfig, profile) -> OpCost:
     return OpCost("matmul", flops=fl, data_bytes=2 * xby, param_bytes=pb,
                   bw="vmem" if cfg.backend == "kernel" else "hbm",
                   n_ops=1 + extra)
+
+
+def _repartition_cost(node, schema, in_cap, profile) -> OpCost:
+    """Partition-boundary cost: local copies for slice/bucket, exchange
+    volume + per-shard collective launches for allgather/combine."""
+    rb = _row_bytes(schema, profile)
+    if node.op == "slice":
+        return OpCost("repart_slice", data_bytes=2.0 * rb * node.out_capacity)
+    if node.op == "allgather":
+        # each device receives and writes the full reassembled table
+        return OpCost("repart_allgather",
+                      data_bytes=2.0 * rb * node.out_capacity,
+                      n_coll=node.ways)
+    if node.op == "bucket":
+        # hash + compare on the key column, mask write
+        return OpCost("repart_bucket", flops=4.0 * in_cap,
+                      data_bytes=3.0 * profile.elem_bytes * in_cap)
+    if node.op == "combine":
+        # zero-and-psum of every column: full-table exchange per device
+        return OpCost("repart_combine",
+                      flops=float(max(len(schema), 1)) * in_cap,
+                      data_bytes=2.0 * rb * node.out_capacity,
+                      n_coll=node.ways)
+    raise ValueError(f"unknown repartition op {node.op!r}")
 
 
 def _forest_cost(fn, x_dim, capacity, cfg: ir.PhysConfig, profile) -> OpCost:
@@ -380,6 +404,14 @@ def _derive_info(node, registry: Registry, catalog: ir.Catalog,
         schema = dict(cs) if node.keep is None else {k: cs[k] for k in node.keep}
         schema[node.out_col] = 0
         return schema, cc
+    if isinstance(node, ph.PRepartition):
+        cs, cc = child_infos[0]
+        if node.op in ("slice", "allgather"):
+            # the walk downstream of a slice sees the per-device block
+            # capacity, which is what makes the physical walk price (and
+            # phys_peak_memory bound) *per-device* work on partitioned plans
+            return cs, node.out_capacity
+        return cs, cc  # bucket/combine: capacity unchanged
     raise TypeError(type(node))
 
 
@@ -444,6 +476,9 @@ def phys_op_costs(pplan, catalog: ir.Catalog,
             cfg = ir.PhysConfig(mode=node.mode, backend=node.backend)
             out.append(_forest_cost(registry.get(node.fn), cs[node.x_col],
                                     cc, cfg, profile))
+        elif isinstance(node, ph.PRepartition):
+            cs, cc = child_infos[0]
+            out.append(_repartition_cost(node, cs, cc, profile))
         elif not isinstance(node, ph.PScan):
             raise TypeError(type(node))
         return info
@@ -491,6 +526,10 @@ def phys_peak_memory(pplan, catalog: ir.Catalog,
             fn = registry.get(node.fn)
             p = fn.graph.nodes[0].atom.params
             m += fn.param_bytes() / max(int(p["feat"].shape[0]), 1)
+        elif isinstance(node, ph.PRepartition) and node.op == "allgather":
+            # the gather target holds the padded concatenation of every
+            # device's block (in_capacity = per-device block) briefly
+            m = base(schema, node.in_capacity * node.ways)
         peak = max(peak, m)
         return schema, cap
 
@@ -626,7 +665,9 @@ def batched_plan_cost(plan, catalog: ir.Catalog, batch_size: int,
     same-signature queries: data traffic and FLOPs scale with the per-shard
     slice (``batch_size / ways``), weights are replicated (streamed once per
     shard), and a ``ways``-way sharded dispatch pays the profile's collective
-    overhead per shard. ``ways=1`` is the single-device realization."""
+    overhead per shard. ``ways=1`` is the single-device realization;
+    the serving tier's batched-vs-sharded choice compares the two
+    (``costed_lowering.choose_batch_realization``)."""
     from repro_torch.core import physical as ph
     profile = profile or catalog_profile(catalog)
     if isinstance(plan, ph.PhysicalPlan):

@@ -15,9 +15,8 @@ of each site against the current best decisions). Deviating from the
 tree-order default requires a *strictly* cheaper candidate, so plans the
 oracle cannot separate keep the heuristic lowering (and its cache keys).
 
-The serving tier's batched-vs-sharded choice (the JAX package's
-``choose_batch_realization``) needs the multi-device mesh, which the port
-does not have yet (ROADMAP.md, queue 1 item 12).
+``choose_batch_realization`` is the same oracle applied to the serving
+tier's batched-vs-sharded choice for one micro-batch.
 """
 from __future__ import annotations
 
@@ -42,10 +41,10 @@ class Lowered:
 
     ``budget_pruned`` counts candidates the per-device memory budget
     hard-rejected; ``budget_pruned_all`` is the misconfiguration flag:
-    *every* scored candidate busted the budget and lowering fell back to
-    tree order, so the chosen plan does NOT fit. Surfacing it here (plus a
-    log line) keeps a too-small budget visible instead of silently
-    degrading to arbitrary plans."""
+    *every* scored candidate (including the partitioned ones) busted the
+    budget and lowering fell back to tree order, so the chosen plan does
+    NOT fit. Surfacing it here (plus a log line) keeps a too-small budget
+    visible instead of silently degrading to arbitrary plans."""
     plan: ph.PhysicalPlan
     decisions: Dict[str, int]
     signature: str
@@ -64,11 +63,12 @@ def lower_costed(plan: ir.Plan, catalog: ir.Catalog, *,
                  memory_budget: Optional[float] = None,
                  max_candidates: int = MAX_CANDIDATES,
                  ways: int = 1) -> Lowered:
-    """Min-cost lowering. ``profile`` defaults to that of the device the
-    catalog's tables live on; ``memory_budget`` (defaulting to the
-    profile's per-device budget) hard-rejects any candidate whose
-    ``phys_peak_memory`` exceeds it. ``ways > 1`` (partitioned lowering)
-    raises ``NotImplementedError``, see ``stage_graph.build``."""
+    """Min-cost lowering. ``ways > 1`` opens per-node PartSpec sites
+    (intra-query sharding over a ``ways``-rank data mesh); ``profile``
+    defaults to that of the device the catalog's tables live on;
+    ``memory_budget`` (defaulting to the profile's per-device budget)
+    hard-rejects any candidate whose ``phys_peak_memory`` exceeds it: the
+    serving tier's admission path for oversized single queries."""
     profile = profile or cost.catalog_profile(catalog)
     if memory_budget is None:
         memory_budget = profile.memory_budget
@@ -109,7 +109,18 @@ def lower_costed(plan: ir.Plan, catalog: ir.Catalog, *,
                 if c < best_cost:  # strict: ties keep the tree order
                     best, best_cost = d, c
         else:
-            # deterministic coordinate descent, two sweeps
+            # deterministic coordinate descent, two sweeps. Under a memory
+            # budget the all-replicated default can be infeasible while no
+            # single-site flip is (partitioning one node just moves the
+            # full-size boundary), so the maximally partitioned vector is
+            # scored as a second seed and the descent starts from the
+            # better of the two.
+            if graph.ways > 1:
+                seed = graph.partitioned_decisions()
+                c = score(seed)
+                scored += 1
+                if c < best_cost:
+                    best, best_cost = seed, c
             for _ in range(2):
                 moved = False
                 for site in open_sites:
@@ -134,9 +145,9 @@ def lower_costed(plan: ir.Plan, catalog: ir.Catalog, *,
         best_cost = cost.plan_cost(graph.realize(best), catalog, profile,
                                    memory_budget=memory_budget)
         logger.warning(
-            "memory budget %.3g B pruned all %d scored lowering candidates; "
-            "falling back to tree order, which does NOT fit",
-            memory_budget, scored)
+            "memory budget %.3g B pruned all %d scored lowering candidates "
+            "(ways=%d); falling back to tree order, which does NOT fit",
+            memory_budget, scored, graph.ways)
     chosen = graph.realize(best)
     return Lowered(plan=chosen, decisions=best,
                    signature=graph.decision_signature(best),
@@ -149,3 +160,31 @@ def lower_costed(plan: ir.Plan, catalog: ir.Catalog, *,
                    memory_budget=memory_budget,
                    budget_pruned=pruned["n"],
                    budget_pruned_all=pruned_all)
+
+
+def choose_batch_realization(plan: ir.Plan, catalog: ir.Catalog,
+                             batch_size: int, mesh=None,
+                             profile: Optional[cost.DeviceProfile] = None
+                             ) -> str:
+    """'sharded' or 'batched' for one eligible micro-batch, by the shared
+    oracle: a ``ways``-way sharded dispatch runs each shard on the
+    ``batch_size/ways`` slice (weights replicated) but pays the profile's
+    per-shard collective overhead. Each side is priced at the realization
+    it would actually run: the sharded path lowers every node to the ATen
+    backend (``PLAN_LEVEL_BACKENDS``), so a kernel-annotated plan does not
+    get kernel bandwidth credited to its sharded candidate. Ineligible
+    meshes are always 'batched' (``core.mesh.can_shard`` is the legality
+    gate, this is the cost gate)."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core.lowering import lower
+
+    if mesh is None or not mesh_util.can_shard(mesh, batch_size):
+        return "batched"
+    profile = profile or cost.catalog_profile(catalog)
+    ways = mesh_util.batch_ways(mesh)
+    pp_vmap = lower(plan, catalog, costed=False)
+    pp_shard = lower(plan, catalog, costed=False, backend="sharded")
+    c_vmap = cost.batched_plan_cost(pp_vmap, catalog, batch_size, profile)
+    c_shard = cost.batched_plan_cost(pp_shard, catalog, batch_size, profile,
+                                     ways=ways)
+    return "sharded" if c_shard <= c_vmap else "batched"

@@ -13,7 +13,11 @@ per pipeline instead of one interpreter dispatch per logical node.
 
 ``backend`` overrides every annotation's backend ('torch' forces ATen ops,
 'kernel' the hand-written kernels) without touching the plan: the paper's
-"re-realize without touching the logical query" knob.
+"re-realize without touching the logical query" knob. ``backend="sharded"``
+is the multi-device realization: per node it resolves to the ATen path
+(each rank runs an ordinary single-device program on its slice of the
+stacked batch axis; see ``PlanCache.get_or_compile_sharded``), while the
+choice itself stays first-class in compiled-plan cache keys.
 """
 from __future__ import annotations
 
@@ -23,10 +27,17 @@ from repro_torch.core import ir
 from repro_torch.core import physical as ph
 
 
+# plan-level realizations and the node-level backend they resolve to: the
+# sharded path splits the stacked batch axis *around* the plan body, so each
+# rank's slice runs the ordinary ATen program
+_PLAN_LEVEL_BACKENDS = {"sharded": "torch"}
+
+
 def _config(plan: ir.Plan, node: ir.RelNode,
             backend: Optional[str]) -> ir.PhysConfig:
     cfg = plan.phys_for(node)  # resolves the weight-derived n_tiles default
     if backend is not None:
+        backend = _PLAN_LEVEL_BACKENDS.get(backend, backend)
         cfg = ir.PhysConfig(mode=cfg.mode, backend=backend, n_tiles=cfg.n_tiles)
     return cfg
 
@@ -102,16 +113,14 @@ def lower(plan: ir.Plan, catalog: ir.Catalog, *,
     tree order), which is also the costed path's baseline and the shape
     ``plan_cost`` assumes when costing a *logical* plan. ``backend``
     force-overrides every node's backend annotation in either mode.
-    ``ways > 1`` (partitioned lowering) raises ``NotImplementedError``: the
-    multi-device path is not ported yet (ROADMAP.md, queue 1 item 12).
+    ``ways > 1`` (costed only) opens per-node ``PartSpec`` candidates:
+    intra-query sharding over a ``ways``-rank data mesh, with explicit
+    ``PRepartition`` boundaries; the resulting plan must run on every rank
+    of the mesh (``PlanCache.get_or_compile_partitioned``).
     """
     if costed:
         from repro_torch.core.costed_lowering import lower_costed
         return lower_costed(plan, catalog, backend=backend, profile=profile,
                             memory_budget=memory_budget, ways=ways).plan
-    if ways > 1:
-        raise NotImplementedError(
-            "partitioned lowering (ways > 1) is not ported yet "
-            "(ROADMAP.md, queue 1 item 12)")
     root = _lower_node(plan.root, plan, backend)
     return ph.PhysicalPlan(root=root, registry=plan.registry)

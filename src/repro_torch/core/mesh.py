@@ -1,0 +1,293 @@
+"""Device-mesh utilities of the multi-device paths, on ``torch.distributed``.
+
+The port of ``repro.core.mesh``. The JAX package runs one controller over a
+``jax.sharding.Mesh`` and moves data with ``shard_map`` collectives; here
+every rank of a ``torch.distributed`` process group runs the same program
+on the same replicated inputs (multi-controller, as JAX runs on several
+hosts), and the collectives are explicit calls on the mesh's group:
+
+* ``data_mesh``      : a 1-D ``DeviceMesh`` over the ranks, dimension name
+                       ``"data"`` (the batch/data axis; no model axis).
+* ``batch_ways``     : total rank count over the mesh's batch axes.
+* ``shard_spec``     : the batch spec of ``models.sharding.batch_spec``:
+                       shard only when the batch divides the rank count.
+* ``can_shard``      : more than one rank on the batch axes AND the fitting
+                       policy sharded.
+* ``mesh_signature`` : the mesh's part of a compiled-plan cache key
+                       (``data=8``, the reference's string).
+* ``shard_batch``    : each rank runs its ``B/ways`` slice of a stacked
+                       batch, then the outputs are all-gathered back.
+* ``shard_replicated``: a partitioned plan body over replicated inputs and
+                       outputs; the data moves through the ``PRepartition``
+                       collectives inside it (``all_gather_rows``,
+                       ``all_reduce_sum``, ``rank_of``).
+
+``jax.lax.axis_index`` becomes the rank in the mesh's group,
+``all_gather(..., tiled=True)`` an all-gather into one tensor on dim 0 and
+``psum`` an all-reduce with SUM. Masks cross a collective as ``uint8`` (an
+all-gather) or ``int32`` (a sum), never ``bool``. gloo takes CUDA tensors
+as they are (it copies them through the host itself), so several ranks can
+share one card over gloo; NCCL refuses two ranks on one GPU.
+
+A mesh needs the default process group (``torch.distributed
+.init_process_group``, or ``repro_torch.testing.spawn_ranks``); every
+group made here takes that group's timeout, so a rank that never joins a
+collective fails the others within it instead of hanging them.
+
+Also here: the intra-query partition arithmetic of the PartSpec layer
+(``row_block``, ``padded_capacity``, ``hash_bucket``) and ``make_host_mesh``
+(``repro.launch.mesh`` re-exports it). The reference's 256-chip
+``make_production_mesh`` belongs to launch analysis (ROADMAP item 16).
+"""
+from __future__ import annotations
+
+import datetime
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.sharding import axis_size, batch_axes, batch_spec
+
+DATA_AXIS = "data"
+
+
+def _require_group() -> None:
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "no torch.distributed process group: call init_process_group "
+            "(or run under repro_torch.testing.spawn_ranks) before building a mesh")
+
+
+def group_timeout(group=None) -> datetime.timedelta:
+    """The timeout of ``group`` (default: the world group): what a
+    collective on it waits for a rank that does not join."""
+    pg = group if group is not None else dist.group.WORLD
+    for dev in ("cpu", "cuda"):
+        try:
+            return pg._get_backend(torch.device(dev)).options._timeout
+        except (RuntimeError, AttributeError):
+            continue
+    raise RuntimeError("the process group exposes no timeout")
+
+
+def _device_mesh(groups, device_type: str, shape: tuple, names: tuple):
+    from torch.distributed.device_mesh import DeviceMesh
+    if len(names) == 1:
+        return DeviceMesh.from_group(groups[0], device_type, mesh_dim_names=names)
+    mesh = torch.arange(dist.get_world_size(), dtype=torch.int).reshape(shape)
+    return DeviceMesh.from_group(groups, device_type, mesh=mesh, mesh_dim_names=names)
+
+
+def data_mesh(n_devices: Optional[int] = None, *, device=None,
+              axis: str = DATA_AXIS):
+    """A 1-D mesh of ``n_devices`` ranks (default: all of them) on
+    ``device``'s type (``cuda`` unless the caller names one; raises without
+    CUDA otherwise).
+
+    With fewer ranks than the world holds, the ranks split into replicas of
+    ``n_devices`` consecutive ranks (``n_devices`` must divide the world
+    size), and each rank's mesh is its own replica: under several
+    controllers every rank must belong to the mesh it runs on. ``axis``
+    must be a batch axis name (``models.sharding.batch_axes``), otherwise
+    the mesh would silently never shard anything."""
+    dev = resolve_device(device)
+    if axis not in ("pod", DATA_AXIS):
+        raise ValueError(
+            f"axis {axis!r} is not a recognized batch axis "
+            f"('pod'/'{DATA_AXIS}'): can_shard would always be False")
+    _require_group()
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"n_devices={n} out of range for {world} rank(s)")
+    if world % n:
+        raise ValueError(f"n_devices={n} does not divide the {world} ranks "
+                         "into whole replicas")
+    if n == world:
+        group = dist.group.WORLD
+    else:
+        group, _ = dist.new_subgroups(n, timeout=group_timeout())
+    return _device_mesh([group], dev.type, (n,), (axis,))
+
+
+def batch_ways(mesh) -> int:
+    """Total shard count over the mesh's batch axes (pod x data)."""
+    ways = 1
+    for a in batch_axes(mesh):
+        ways *= axis_size(mesh, a)
+    return ways
+
+
+def shard_spec(mesh, batch_size: int) -> tuple:
+    """Batch-axis spec under the divisibility-fitting policy."""
+    return batch_spec(mesh, batch_size)
+
+
+def can_shard(mesh, batch_size: int) -> bool:
+    """True iff the mesh would actually split ``batch_size``: more than one
+    rank on the batch axes and the fitting policy sharded (batch divides
+    the rank count). Everything else falls back to the single-device
+    vmapped program."""
+    if mesh is None or batch_ways(mesh) <= 1:
+        return False
+    return any(ax is not None for ax in shard_spec(mesh, batch_size))
+
+
+def mesh_signature(mesh) -> str:
+    """The mesh's contribution to a compiled-plan cache key: axis layout and
+    per-axis size (rank identity doesn't change the program)."""
+    return "x".join(f"{a}={axis_size(mesh, a)}" for a in mesh.mesh_dim_names)
+
+
+# ---------------------------------------------------------------------------
+# collectives over one mesh axis
+# ---------------------------------------------------------------------------
+
+def _group(mesh, axis: str):
+    _require_group()
+    return mesh.get_group(axis)
+
+
+def rank_of(mesh, axis: str = DATA_AXIS) -> int:
+    """This rank's index along ``axis`` (``jax.lax.axis_index``)."""
+    _require_group()
+    return mesh.get_local_rank(axis)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it crosses a collective: contiguous, a mask as uint8."""
+    return (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+
+
+def all_gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on dim 0 in rank order
+    (``jax.lax.all_gather(x, axis, axis=0, tiled=True)``)."""
+    group = _group(mesh, axis)
+    w = _wire(x)
+    out = w.new_empty((w.shape[0] * axis_size(mesh, axis),) + tuple(w.shape[1:]))
+    dist.all_gather_into_tensor(out, w, group=group)
+    return out.to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """The sum of every rank's ``x`` (``jax.lax.psum``); a mask sums as
+    int32 and comes back as ``count > 0``."""
+    group = _group(mesh, axis)
+    w = x.to(torch.int32) if x.dtype == torch.bool else x.clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
+    return w > 0 if x.dtype == torch.bool else w
+
+
+def agree(value, mesh, axis: str = DATA_AXIS, what: str = "plan") -> None:
+    """Raise on every rank unless all ranks along ``axis`` hold an equal
+    ``value`` (a string): the plans that ranks run must match, collective
+    for collective."""
+    group = _group(mesh, axis)
+    got = [None] * axis_size(mesh, axis)
+    dist.all_gather_object(got, value, group=group)
+    if any(g != got[0] for g in got):
+        diff = sorted({i for i, g in enumerate(got) if g != got[0]})
+        raise RuntimeError(f"ranks {diff} disagree with rank 0 about the {what}")
+
+
+def broadcast_from_first(value, mesh, axis: str = DATA_AXIS):
+    """Rank 0's ``value`` on every rank along ``axis``."""
+    group = _group(mesh, axis)
+    box = [value]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def shard_batch(fn: Callable, mesh) -> Callable:
+    """Split a stacked-batch function over the mesh's batch axes.
+
+    ``fn`` takes / returns nested dicts and tuples of tensors whose leading
+    axis is the stacked batch; each rank runs ``fn`` on its
+    ``batch/ways`` slice and the outputs are all-gathered back to the full
+    batch, so every rank returns the whole result. Callers must have
+    checked ``can_shard``. Weights and other closed-over tensors are
+    replicated (every rank holds its own)."""
+    (axis,) = batch_axes(mesh)
+    ways = axis_size(mesh, axis)
+
+    def run(stacked):
+        i = rank_of(mesh, axis)
+
+        def take(x):
+            blk = x.shape[0] // ways
+            return x[i * blk:(i + 1) * blk]
+
+        out = fn(tree_map(take, stacked))
+        return tree_map(lambda y: all_gather_rows(y, mesh, axis), out)
+
+    return run
+
+
+def shard_replicated(fn: Callable, mesh) -> Callable:
+    """A *partitioned plan body* over the mesh: inputs and outputs are
+    replicated (every rank holds the full catalog tables and returns the
+    full result), and all data movement happens in the explicit
+    ``PRepartition`` collectives inside ``fn``. The single-oversized-query
+    counterpart of ``shard_batch``: no stacked batch axis is split, the
+    *operators* are partitioned."""
+    _group(mesh, batch_axes(mesh)[0])  # raises without a process group
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# intra-query partition arithmetic (the PartSpec layer's shared helpers)
+# ---------------------------------------------------------------------------
+
+def row_block(capacity: int, ways: int) -> int:
+    """Per-device row-block size of a ``ways``-way row partition of a
+    ``capacity``-row table: ``ceil(capacity / ways)``; non-dividing
+    capacities pad the tail with invalid rows (``padded_capacity``)."""
+    if ways < 1:
+        raise ValueError(f"ways must be >= 1, got {ways}")
+    return -(-int(capacity) // ways)
+
+
+def padded_capacity(capacity: int, ways: int) -> int:
+    """Smallest multiple of ``row_block`` covering ``capacity``: the shape
+    row-partitioned blocks re-concatenate to before the trailing padding
+    rows (all invalid, all at the tail) are sliced off."""
+    return row_block(capacity, ways) * ways
+
+
+def hash_bucket(keys, ways: int) -> torch.Tensor:
+    """Device bucket of each (integer) join key: ``key mod ways``, int32.
+
+    The single bucketing function of hash-partitioned joins: both join
+    sides and the cost model must agree on it. ``torch.remainder`` is
+    non-negative for positive ``ways`` regardless of key sign, as
+    ``jnp.mod`` is."""
+    k = torch.as_tensor(keys).to(torch.int32)
+    return torch.remainder(k, ways).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# host mesh builder (repro.launch.mesh re-exports it)
+# ---------------------------------------------------------------------------
+
+def make_host_mesh(data: Optional[int] = None, model: int = 1, *, device=None):
+    """A (data, model) mesh over the ranks already in the default group
+    (``data * model`` must be the world size); rank ``d * model + m`` sits
+    at (d, m). Each dimension's groups take the world group's timeout."""
+    dev = resolve_device(device)
+    _require_group()
+    n = dist.get_world_size()
+    data = data if data is not None else max(n // model, 1)
+    if data * model != n:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} ranks, "
+                         f"the group has {n}")
+    timeout = group_timeout()
+    data_group, _ = dist.new_subgroups_by_enumeration(
+        [[d * model + m for d in range(data)] for m in range(model)], timeout=timeout)
+    model_group, _ = dist.new_subgroups_by_enumeration(
+        [[d * model + m for m in range(model)] for d in range(data)], timeout=timeout)
+    return _device_mesh([data_group, model_group], dev.type, (data, model),
+                        ("data", "model"))

@@ -42,9 +42,29 @@ into their rows, one launch each), then sliced per query; on the card the
 stacking copies into static buffers and the vmapped body is one captured
 graph.
 
-The multi-device realizations (``get_or_compile_sharded``,
-``get_or_compile_partitioned``, ``key(..., mesh=)``) are not ported yet
-(ROADMAP.md, queue 1 item 12) and raise ``NotImplementedError``.
+``get_or_compile_sharded(plan, catalog, batch_size, mesh)`` realizes the
+same micro-batch on a multi-rank mesh (``backend="sharded"``, key
+``#be=sharded#cl=...#vmap=B#mesh=...``): each rank of the mesh's data axis
+runs the vmapped plan body on its ``B/ways`` slice of the stacked batch and
+the outputs are all-gathered back, with fallback to the batched executable
+when the batch doesn't divide the rank count or the mesh is 1 wide.
+
+``get_or_compile_partitioned(plan, catalog, mesh)`` is the intra-query
+counterpart for a *single oversized* query: lowering opens per-node
+``PartSpec`` candidates (operators partitioned over the mesh's data axis,
+explicit ``PRepartition`` collectives) under the profile's per-device
+``memory_budget``, and every rank runs the chosen plan on the replicated
+inputs (``core.mesh.shard_replicated``). ``key(plan, catalog, mesh=...)``
+exposes the matching key (``#be=part#mesh=...#cl=...``; the ``pt*``
+decision tokens are the PartSpec vector); a 1-wide mesh falls back to the
+plain entry.
+
+Both multi-rank executables run eagerly, on the card too: a gloo
+collective cannot be captured in a CUDA graph, and there is one between the
+stages. (Capturing them under NCCL waits for a cell with several cards.)
+Every rank of the mesh must call them alike; at its first call an
+executable checks that all ranks hold the same key and plan, and raises on
+every rank if they do not.
 
 ``LRUCache`` + ``CacheStats`` are the shared bounded-cache machinery.
 """
@@ -63,8 +83,6 @@ from repro_torch.core import cost, costed_lowering, ir
 from repro_torch.core import physical as ph
 from repro_torch.kernels.common import resolve_device
 from repro_torch.relational.table import Table
-
-NOT_PORTED = "the multi-device path is not ported yet (ROADMAP.md, queue 1 item 12)"
 
 
 @dataclasses.dataclass
@@ -320,27 +338,37 @@ class _Executable:
 
     ``batch_size`` None takes one ``{name: Table}`` dict and returns a
     Table; an int B takes a sequence of B dicts and returns B Tables, run
-    as one vmapped body."""
+    as one vmapped body. With a ``mesh``, ``kind`` 'partitioned' runs a
+    partitioned plan on every rank and 'sharded' splits the vmapped batch
+    over the ranks; neither is captured."""
 
     def __init__(self, cache: "PlanCache", pplan: ph.PhysicalPlan, names: tuple,
-                 kind: str, batch_size: Optional[int] = None):
+                 kind: str, batch_size: Optional[int] = None, mesh=None,
+                 key: str = ""):
         # a weak reference: no cycle with the cache, so an executable and
         # its graph go as soon as the last reference does
         self._cache, self.pplan, self.names = weakref.ref(cache), pplan, names
-        self.kind, self.batch_size = kind, batch_size
+        self.kind, self.batch_size, self.mesh, self.key = kind, batch_size, mesh, key
         self.device = cache.device
         self._spec = None
         self.captured: Optional[CapturedGraph] = None
 
     # -- the plan body over a payload tree ---------------------------------
     def _run(self, tree: dict) -> Table:
+        if self.kind == "partitioned":
+            from repro_torch.core import mesh as mesh_util
+            return ph.run(self.pplan, _tables(tree), self.mesh, mesh_util.DATA_AXIS)
         return ph.run(self.pplan, _tables(tree))
 
     def _run_batched(self, stacked: dict) -> Table:
         def one(tree):
             out = self._run(tree)
             return dict(out.columns), out.valid
-        cols, valid = torch.func.vmap(one)(stacked)
+        body = torch.func.vmap(one)
+        if self.kind == "sharded":
+            from repro_torch.core import mesh as mesh_util
+            body = mesh_util.shard_batch(body, self.mesh)
+        cols, valid = body(stacked)
         return Table(columns=cols, valid=valid)
 
     # -- build / release ---------------------------------------------------
@@ -375,7 +403,11 @@ class _Executable:
         return True
 
     def _build(self, example: dict, spec: tuple) -> None:
-        if self.device.type == "cuda":
+        if self.mesh is not None:
+            from repro_torch.core import mesh as mesh_util
+            mesh_util.agree(f"{self.key}|{self.pplan.signature()}", self.mesh,
+                            what=f"{self.kind} executable")
+        elif self.device.type == "cuda":
             body = self._run if self.batch_size is None else self._run_batched
             self.captured = CapturedGraph(body, example, self.device)
         self._spec = spec
@@ -479,12 +511,28 @@ class PlanCache:
     def key(self, plan: ir.Plan, catalog: ir.Catalog, *, mesh=None,
             backend: Optional[str] = None) -> str:
         """Full executable key: base signature + the realization vector the
-        costed lowering chose under the cache's current profile. ``mesh``
-        (the partitioned realization's key) raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(f"PlanCache.key(mesh=...): {NOT_PORTED}")
+        costed lowering chose under the cache's current profile.
+
+        With ``mesh`` given (and more than one rank on it), the key is the
+        *partitioned* realization's: ``#be=part#mesh=...`` plus the decision
+        vector of the PartSpec-aware lowering; the ``pt*`` site tokens in
+        the ``#cl=`` suffix ARE the PartSpec vector, so two queries only
+        share a partitioned executable when every node's partitioning
+        decision agrees. The serving tier keys oversized single queries this
+        way (``QueryServer.submit``); ``backend`` is the caller's node-level
+        kernel override, mirrored into the partitioned lowering so the key
+        matches what ``get_or_compile_partitioned`` will compile."""
+        from repro_torch.core import mesh as mesh_util
+
         base = self.base_key(plan, catalog)
-        low = self._lowered_for(plan, catalog, base, None)
+        ways = mesh_util.batch_ways(mesh) if mesh is not None else 1
+        if ways > 1:
+            base = f"{base}#be=part#mesh={mesh_util.mesh_signature(mesh)}"
+            if backend is not None:
+                base = f"{base}#nbe={backend}"
+            low = self._lowered_for(plan, catalog, base, backend, ways=ways)
+        else:
+            low = self._lowered_for(plan, catalog, base, None)
         return base + "#cl=" + low.signature
 
     def _lowered_for(self, plan: ir.Plan, catalog: ir.Catalog,
@@ -553,21 +601,97 @@ class PlanCache:
                                             kind="batched")
 
     def _get_or_compile_stacked(self, key: str, pplan, plan: ir.Plan,
-                                batch_size: int, *, kind: str):
+                                batch_size: int, *, kind: str, mesh=None):
         fn = self._cache.get(key)
         if fn is None:
             fn = _Executable(self, pplan, scan_table_names(plan), kind,
-                             batch_size=batch_size)
+                             batch_size=batch_size, mesh=mesh, key=key)
             self._cache.put(key, fn)
         return fn
 
-    def get_or_compile_sharded(self, plan, catalog, batch_size, mesh, *,
-                               cache_key=None):
-        raise NotImplementedError(f"get_or_compile_sharded: {NOT_PORTED}")
+    def get_or_compile_sharded(self, plan: ir.Plan, catalog: ir.Catalog,
+                               batch_size: int, mesh, *,
+                               cache_key: Optional[str] = None):
+        """Multi-rank variant of ``get_or_compile_batched``: the stacked
+        batch axis of the micro-batch is split over ``mesh``'s data axis, so
+        each rank runs the vmapped plan body on its ``batch_size / ways``
+        slice, and the slices' results are all-gathered back to every rank.
+        The batch axis is embarrassingly parallel (no cross-query
+        communication), which is why this needs no operator changes; weights
+        replicate.
 
-    def get_or_compile_partitioned(self, plan, catalog, mesh, *, backend=None,
-                                   cache_key=None):
-        raise NotImplementedError(f"get_or_compile_partitioned: {NOT_PORTED}")
+        The realization is first-class in the cache key
+        (``#be=sharded#cl=...#vmap=B#mesh=...``), distinct from the
+        single-device vmapped executable of the same plan and batch size.
+        Ineligible calls (a 1-wide mesh, or a ``batch_size`` the rank count
+        doesn't divide: ``core.mesh.can_shard``, the divisibility-fitting
+        policy of ``models.sharding``) fall back to the plain batched
+        executable under *its* key, so fallback traffic shares the existing
+        entry instead of building a duplicate."""
+        from repro_torch.core import mesh as mesh_util
+
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if not mesh_util.can_shard(mesh, batch_size):
+            return self.get_or_compile_batched(plan, catalog, batch_size,
+                                               cache_key=cache_key)
+        base = self._strip_cl(cache_key if cache_key is not None
+                              else self.base_key(plan, catalog))
+        base = f"{base}#be=sharded"
+        low = self._lowered_for(plan, catalog, base, "sharded")
+        key = (base + "#cl=" + low.signature + f"#vmap={batch_size}"
+               + f"#mesh={mesh_util.mesh_signature(mesh)}")
+        return self._get_or_compile_stacked(key, low.plan, plan, batch_size,
+                                            kind="sharded", mesh=mesh)
+
+    def get_or_compile_partitioned(self, plan: ir.Plan, catalog: ir.Catalog,
+                                   mesh, *, backend: Optional[str] = None,
+                                   cache_key: Optional[str] = None):
+        """One *intra-query-sharded* executable for a single oversized
+        query: lowering opens per-node ``PartSpec`` candidates
+        (``ways = batch_ways(mesh)``), rejects candidates whose per-device
+        ``phys_peak_memory`` busts the profile's ``memory_budget``, and
+        every rank of the mesh runs the chosen plan, explicit
+        ``PRepartition`` collectives included, over the replicated inputs
+        (``core.mesh.shard_replicated``). Unlike ``get_or_compile_sharded``
+        there is no batch axis: the *operators* are partitioned (PCrossJoin
+        by left rows, PJoin by probe rows or hash bucket, pipelines/ML by row
+        block), which is what lets one query larger than a device use the
+        whole mesh.
+
+        Returns ``run(tables) -> Table`` like ``get_or_compile``. The
+        realization is first-class in the key (``#be=part#mesh=...#cl=...``;
+        the ``pt*`` decision tokens are the PartSpec vector). ``backend``
+        constrains every node's *kernel* realization exactly as in
+        ``get_or_compile`` (partitioning is a distribution choice,
+        orthogonal to the caller's kernel choice). A 1-wide mesh, and
+        lowerings that decide partitioning does not pay (every PartSpec
+        replicated), fall back to the plain executable under *its* key: no
+        duplicate build."""
+        from repro_torch.core import mesh as mesh_util
+
+        ways = mesh_util.batch_ways(mesh) if mesh is not None else 1
+        if ways <= 1:
+            return self.get_or_compile(plan, catalog, backend=backend,
+                                       cache_key=cache_key)
+        base = self._strip_cl(cache_key if cache_key is not None
+                              else self.base_key(plan, catalog))
+        base = f"{base}#be=part#mesh={mesh_util.mesh_signature(mesh)}"
+        if backend is not None:
+            base = f"{base}#nbe={backend}"
+        low = self._lowered_for(plan, catalog, base, backend, ways=ways)
+        if low.plan.ways <= 1:
+            # the oracle kept every node replicated: the partitioned
+            # program would be the plain one run redundantly on every
+            # rank; share the plain executable instead
+            return self.get_or_compile(plan, catalog, backend=backend)
+        key = base + "#cl=" + low.signature
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = _Executable(self, low.plan, scan_table_names(plan), "partitioned",
+                             mesh=mesh, key=key)
+            self._cache.put(key, fn)
+        return fn
 
     def __call__(self, plan: ir.Plan, catalog: ir.Catalog) -> Table:
         """Convenience: compile-or-reuse, then execute on catalog tables."""

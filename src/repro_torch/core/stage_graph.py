@@ -21,11 +21,18 @@ tree order:
   (the kernel backend only on profiles that support it). Explicit ``Plan.phys``
   annotations and caller ``backend=`` overrides are sovereign: the rule
   engine / caller chose, lowering does not second-guess.
-
-The partitioning sites of intra-query sharding (``ways > 1``: per-node
-``PartSpec`` candidates and ``PRepartition`` boundaries) belong to the
-multi-device path, which the port does not have yet (ROADMAP.md, queue 1
-item 12); ``build`` refuses ``ways > 1``.
+* **partitioning** (``ways > 1`` — the intra-query sharding path) — every
+  pipeline without a Compact, every ML node, and both join kinds offer
+  per-node ``PartSpec`` candidates: row-block partitioning over the
+  mesh's data axis (joins: probe side partitioned, build replicated), and
+  for ``PJoin`` additionally hash-bucket partitioning of both sides.
+  ``realize`` inserts explicit ``PRepartition`` boundaries exactly where
+  adjacent nodes' specs disagree (slice / allgather / bucket / combine)
+  and records the chosen spec of every node in the physical plan's
+  ``parts`` side table. A row-partitioned pipeline containing a Compact is
+  split at its last compact stage — the prefix runs replicated (a
+  per-block compact would reorder rows against the global compaction),
+  the row-local suffix partitions.
 
 ``core.costed_lowering`` enumerates the site options and scores realized
 candidates through the shared ``cost.plan_cost`` oracle; ``realize`` with
@@ -41,6 +48,11 @@ import numpy as np
 from repro_torch.core import evaluator, ir
 from repro_torch.core import physical as ph
 from repro_torch.mlfuncs.registry import Registry
+
+# plan-level realizations resolve per-node to the ATen path (the sharded
+# path splits the stacked batch axis *around* the plan body); kept in sync
+# with repro_torch.core.lowering._PLAN_LEVEL_BACKENDS
+PLAN_LEVEL_BACKENDS = {"sharded": "torch"}
 
 _ROW_LOCAL = (ir.Filter, ir.Project, ir.Compact)
 
@@ -249,7 +261,7 @@ class Site:
     """One lowering decision: a named, bounded option set. ``default`` is
     the tree-order / off / as-annotated option."""
     sid: str
-    kind: str      # 'order' | 'compact' | 'realize'
+    kind: str      # 'order' | 'compact' | 'realize' | 'part'
     options: tuple
     default: int = 0
 
@@ -271,6 +283,7 @@ class GPipeline(GNode):
     order_sid: str
     # (site id, vertex index of the filter the optional compact glues to)
     compact_sids: Tuple[Tuple[str, int], ...]
+    part_sid: Optional[str] = None
 
     def children(self):
         return (self.child,)
@@ -283,6 +296,7 @@ class GJoin(GNode):
     left_key: str
     right_key: str
     rprefix: str = ""
+    part_sid: Optional[str] = None
 
     def children(self):
         return (self.left, self.right)
@@ -294,6 +308,7 @@ class GCrossJoin(GNode):
     right: GNode
     aprefix: str = ""
     bprefix: str = ""
+    part_sid: Optional[str] = None
 
     def children(self):
         return (self.left, self.right)
@@ -320,6 +335,7 @@ class GML(GNode):
     fn: str
     keep: Optional[Tuple[str, ...]]
     realize_sid: str
+    part_sid: Optional[str] = None
 
     def children(self):
         return (self.child,)
@@ -330,10 +346,26 @@ class StageGraph:
     root: GNode
     registry: Registry
     sites: Dict[str, Site]
+    ways: int = 1  # >1 iff partition sites were built (intra-query sharding)
+    # catalog the graph was built against (scan capacities for partition
+    # boundary sizing); realize() needs it only when partition sites exist
+    catalog: Optional[ir.Catalog] = None
 
     # -- decisions ---------------------------------------------------------
     def default_decisions(self) -> Dict[str, int]:
         return {sid: s.default for sid, s in self.sites.items()}
+
+    def partitioned_decisions(self) -> Dict[str, int]:
+        """The maximally row-partitioned decision vector: every partition
+        site takes its row-block option, everything else stays at the
+        default. The coordinate-descent seed for memory-budgeted lowering —
+        partitioning usually only fits the budget when *every* heavy node
+        partitions, which no single-site flip from the default reaches."""
+        d = self.default_decisions()
+        for sid, s in self.sites.items():
+            if s.kind == "part":
+                d[sid] = 1  # options[1] is the row-block spec
+        return d
 
     def decision_signature(self, decisions: Dict[str, int]) -> str:
         """Compact, stable realization-vector token (plan-cache key part)."""
@@ -357,14 +389,86 @@ class StageGraph:
 
     # -- realization -------------------------------------------------------
     def realize(self, decisions: Dict[str, int]) -> ph.PhysicalPlan:
-        return ph.PhysicalPlan(root=self._realize(self.root, decisions),
-                               registry=self.registry)
+        self._spec_of: Dict[int, ph.PartSpec] = {}
+        root, spec, gcap, lcap = self._realize(self.root, decisions)
+        if spec.kind != "rep":
+            # the query result is a single table: always end replicated
+            root = self._convert(root, spec, ph.REPLICATED, gcap, lcap)
+        parts: Dict[str, ph.PartSpec] = {}
 
-    def _realize(self, node: GNode, d: Dict[str, int]) -> ph.PhysNode:
+        def walk(n: ph.PhysNode, path: str) -> None:
+            s = self._spec_of.get(id(n), ph.REPLICATED)
+            if s.kind != "rep":
+                parts[path] = s
+            for i, c in enumerate(n.children()):
+                walk(c, f"{path}.{i}")
+
+        walk(root, "r")
+        ways = self.ways if parts else 1
+        return ph.PhysicalPlan(root=root, registry=self.registry,
+                               parts=parts, ways=ways)
+
+    def _part_spec(self, node, d: Dict[str, int]) -> ph.PartSpec:
+        sid = getattr(node, "part_sid", None)
+        if sid is None:
+            return ph.REPLICATED
+        return self.sites[sid].options[d[sid]]
+
+    def _boundary(self, node: ph.PhysNode, op: str, ways: int,
+                  in_cap: int, out_cap: int, key: Optional[str],
+                  spec: ph.PartSpec) -> ph.PhysNode:
+        b = ph.PRepartition(child=node, op=op, ways=ways,
+                            in_capacity=in_cap, out_capacity=out_cap, key=key)
+        self._spec_of[id(b)] = spec
+        return b
+
+    def _convert(self, node: ph.PhysNode, frm: ph.PartSpec, to: ph.PartSpec,
+                 gcap: int, local_cap: Optional[int] = None) -> ph.PhysNode:
+        """Insert the PRepartition boundary chain converting ``frm`` into
+        ``to`` (normalizing through replicated). ``gcap`` is the global
+        capacity at this point; ``local_cap`` the per-device capacity of a
+        row-partitioned ``node`` (defaults to the padded block size)."""
+        if frm == to:
+            return node
+        cur, spec = node, frm
+        if spec.kind == "hash" and spec != to:
+            cur = self._boundary(cur, "combine", spec.ways, gcap, gcap, None,
+                                 ph.REPLICATED)
+            spec = ph.REPLICATED
+        if spec.kind == "row" and spec != to:
+            from repro_torch.core import mesh as mesh_util
+            local = (local_cap if local_cap is not None
+                     else mesh_util.row_block(gcap, spec.ways))
+            cur = self._boundary(cur, "allgather", spec.ways, local, gcap,
+                                 None, ph.REPLICATED)
+            spec = ph.REPLICATED
+        if to.kind == "row":
+            from repro_torch.core import mesh as mesh_util
+            blk = mesh_util.row_block(gcap, to.ways)
+            cur = self._boundary(cur, "slice", to.ways, gcap, blk, None, to)
+        elif to.kind == "hash":
+            cur = self._boundary(cur, "bucket", to.ways, gcap, gcap, to.key,
+                                 to)
+        return cur
+
+    def _realize(self, node: GNode, d: Dict[str, int]
+                 ) -> Tuple[ph.PhysNode, ph.PartSpec, int, int]:
+        """Returns (physical node, its PartSpec, global capacity, local
+        per-device capacity). Global and local agree except under a row
+        partition, where local is this device's block."""
+        out = self._realize_inner(node, d)
+        self._spec_of[id(out[0])] = out[1]
+        return out
+
+    def _realize_inner(self, node: GNode, d: Dict[str, int]
+                       ) -> Tuple[ph.PhysNode, ph.PartSpec, int, int]:
         if isinstance(node, GScan):
-            return ph.PScan(table=node.table)
+            cap = (self.catalog.stats[node.table].capacity
+                   if self.catalog is not None else 0)
+            return ph.PScan(table=node.table), ph.REPLICATED, cap, cap
         if isinstance(node, GPipeline):
-            child = self._realize(node.child, d)
+            spec = self._part_spec(node, d)
+            child, cspec, gcap, lcap = self._realize(node.child, d)
             order = self.sites[node.order_sid].options[d[node.order_sid]]
             glued = {}
             for sid, fidx in node.compact_sids:
@@ -376,32 +480,104 @@ class StageGraph:
                 stages.append(node.vertices[idx].stage)
                 if idx in glued:
                     stages.append(ph.CompactStage(capacity=glued[idx]))
-            return ph.PPipeline(child=child, stages=tuple(stages))
+            compacts = [i for i, st in enumerate(stages)
+                        if isinstance(st, ph.CompactStage)]
+            if spec.kind == "row" and compacts:
+                # a per-block compact would reorder rows against the global
+                # compaction, so the prefix through the LAST compact runs
+                # replicated and only the (row-local) suffix partitions —
+                # which is also where the expensive per-row ML projects live
+                from repro_torch.core import mesh as mesh_util
+                child = self._convert(child, cspec, ph.REPLICATED, gcap,
+                                      lcap)
+                cut = compacts[-1] + 1
+                pre = ph.PPipeline(child=child, stages=tuple(stages[:cut]))
+                self._spec_of[id(pre)] = ph.REPLICATED
+                for st in stages[:cut]:
+                    if isinstance(st, ph.CompactStage):
+                        gcap = st.capacity
+                child = self._convert(pre, ph.REPLICATED, spec, gcap)
+                return (ph.PPipeline(child=child, stages=tuple(stages[cut:])),
+                        spec, gcap, mesh_util.row_block(gcap, spec.ways))
+            child = self._convert(child, cspec, spec, gcap, lcap)
+            if spec.kind == "row":
+                from repro_torch.core import mesh as mesh_util
+                lcap = mesh_util.row_block(gcap, spec.ways)
+            else:
+                lcap = gcap
+            for st in stages:  # compacts only reach here replicated
+                if isinstance(st, ph.CompactStage):
+                    gcap = lcap = st.capacity
+            return (ph.PPipeline(child=child, stages=tuple(stages)),
+                    spec, gcap, lcap)
         if isinstance(node, GJoin):
-            return ph.PJoin(left=self._realize(node.left, d),
-                            right=self._realize(node.right, d),
-                            left_key=node.left_key, right_key=node.right_key,
-                            rprefix=node.rprefix)
+            spec = self._part_spec(node, d)
+            left, ls, lg, ll = self._realize(node.left, d)
+            right, rs, rg, rr = self._realize(node.right, d)
+            if spec.kind == "row":      # probe partitioned, build replicated
+                from repro_torch.core import mesh as mesh_util
+                left = self._convert(left, ls, spec, lg, ll)
+                right = self._convert(right, rs, ph.REPLICATED, rg, rr)
+                lloc = mesh_util.row_block(lg, spec.ways)
+            elif spec.kind == "hash":   # both sides bucket-exchanged
+                left = self._convert(
+                    left, ls, dataclasses.replace(spec, key=node.left_key),
+                    lg, ll)
+                right = self._convert(
+                    right, rs, dataclasses.replace(spec, key=node.right_key),
+                    rg, rr)
+                lloc = lg
+            else:
+                left = self._convert(left, ls, ph.REPLICATED, lg, ll)
+                right = self._convert(right, rs, ph.REPLICATED, rg, rr)
+                lloc = lg
+            out_spec = (spec if spec.kind != "hash"
+                        else dataclasses.replace(spec, key=node.left_key))
+            return (ph.PJoin(left=left, right=right, left_key=node.left_key,
+                             right_key=node.right_key, rprefix=node.rprefix),
+                    out_spec, lg, lloc)
         if isinstance(node, GCrossJoin):
-            return ph.PCrossJoin(left=self._realize(node.left, d),
-                                 right=self._realize(node.right, d),
-                                 aprefix=node.aprefix, bprefix=node.bprefix)
+            spec = self._part_spec(node, d)
+            left, ls, lg, ll = self._realize(node.left, d)
+            right, rs, rg, rr = self._realize(node.right, d)
+            right = self._convert(right, rs, ph.REPLICATED, rg, rr)
+            if spec.kind == "row":      # left rows partitioned, right whole
+                from repro_torch.core import mesh as mesh_util
+                left = self._convert(left, ls, spec, lg, ll)
+                lloc = mesh_util.row_block(lg, spec.ways) * rg
+            else:
+                left = self._convert(left, ls, ph.REPLICATED, lg, ll)
+                lloc = lg * rg
+            return (ph.PCrossJoin(left=left, right=right,
+                                  aprefix=node.aprefix, bprefix=node.bprefix),
+                    spec, lg * rg, lloc)
         if isinstance(node, GAggregate):
-            return ph.PAggregate(child=self._realize(node.child, d),
-                                 key=node.key, aggs=node.aggs,
-                                 num_groups=node.num_groups)
+            child, cspec, gcap, lcap = self._realize(node.child, d)
+            child = self._convert(child, cspec, ph.REPLICATED, gcap, lcap)
+            return (ph.PAggregate(child=child, key=node.key, aggs=node.aggs,
+                                  num_groups=node.num_groups),
+                    ph.REPLICATED, node.num_groups, node.num_groups)
         if isinstance(node, GML):
+            spec = self._part_spec(node, d)
             cfg = self.sites[node.realize_sid].options[d[node.realize_sid]]
-            child = self._realize(node.child, d)
+            child, cspec, gcap, lcap = self._realize(node.child, d)
+            child = self._convert(child, cspec, spec, gcap, lcap)
+            if spec.kind == "row":
+                from repro_torch.core import mesh as mesh_util
+                lcap = mesh_util.row_block(gcap, spec.ways)
+            else:
+                lcap = gcap
             if node.kind == "matmul":
-                return ph.PBlockedMatmul(
+                pnode: ph.PhysNode = ph.PBlockedMatmul(
                     child=child, x_col=node.x_col, out_col=node.out_col,
                     fn=node.fn, n_tiles=cfg.n_tiles, mode=cfg.mode,
                     backend=cfg.backend, keep=node.keep)
-            return ph.PForestRelational(
-                child=child, x_col=node.x_col, out_col=node.out_col,
-                fn=node.fn, mode=cfg.mode, backend=cfg.backend,
-                keep=node.keep)
+            else:
+                pnode = ph.PForestRelational(
+                    child=child, x_col=node.x_col, out_col=node.out_col,
+                    fn=node.fn, mode=cfg.mode, backend=cfg.backend,
+                    keep=node.keep)
+            return pnode, spec, gcap, lcap
         raise TypeError(type(node))
 
 
@@ -411,11 +587,12 @@ class StageGraph:
 
 class _Builder:
     def __init__(self, plan: ir.Plan, catalog: ir.Catalog,
-                 backend: Optional[str], profile):
+                 backend: Optional[str], profile, ways: int = 1):
         self.plan = plan
         self.catalog = catalog
         self.backend = backend
         self.profile = profile
+        self.ways = max(int(ways), 1)
         self.sites: Dict[str, Site] = {}
         self._n = 0
 
@@ -424,10 +601,23 @@ class _Builder:
         self._n += 1
         return sid
 
+    def _part_site(self, *extra) -> Optional[str]:
+        """A per-node PartSpec decision site: replicated (the default),
+        row-block partitioned, plus any node-specific ``extra`` specs.
+        Only built when lowering targets a multi-device mesh (ways > 1)."""
+        if self.ways <= 1:
+            return None
+        opts = (ph.REPLICATED, ph.PartSpec(kind="row", ways=self.ways),
+                *extra)
+        sid = self._sid("pt")
+        self.sites[sid] = Site(sid, "part", opts, 0)
+        return sid
+
     def _realize_options(self, node) -> Tuple[ir.PhysConfig, ...]:
         cfg = self.plan.phys_for(node)  # resolves weight-derived n_tiles
         if self.backend is not None:
-            return (ir.PhysConfig(mode=cfg.mode, backend=self.backend,
+            be = PLAN_LEVEL_BACKENDS.get(self.backend, self.backend)
+            return (ir.PhysConfig(mode=cfg.mode, backend=be,
                                   n_tiles=cfg.n_tiles),)
         if node.uid in (self.plan.phys or {}):
             # the optimizer chose explicitly (R3/R4-2); lowering does not
@@ -483,7 +673,8 @@ class _Builder:
         osid = self._sid("p")
         self.sites[osid] = Site(osid, "order", orders, 0)
         return GPipeline(child=self.visit(cur), vertices=vertices,
-                         order_sid=osid, compact_sids=tuple(compact_sids))
+                         order_sid=osid, compact_sids=tuple(compact_sids),
+                         part_sid=self._part_site())
 
     def visit(self, node: ir.RelNode) -> GNode:
         if isinstance(node, _ROW_LOCAL):
@@ -491,14 +682,20 @@ class _Builder:
         if isinstance(node, ir.Scan):
             return GScan(table=node.table)
         if isinstance(node, ir.Join):
+            # row = probe (left) row-partitioned with the build side
+            # replicated; hash = both sides bucket-exchanged on their keys
             return GJoin(left=self.visit(node.left),
                          right=self.visit(node.right),
                          left_key=node.left_key, right_key=node.right_key,
-                         rprefix=node.rprefix)
+                         rprefix=node.rprefix,
+                         part_sid=self._part_site(
+                             ph.PartSpec(kind="hash", ways=self.ways,
+                                         key=node.left_key)))
         if isinstance(node, ir.CrossJoin):
             return GCrossJoin(left=self.visit(node.left),
                               right=self.visit(node.right),
-                              aprefix=node.aprefix, bprefix=node.bprefix)
+                              aprefix=node.aprefix, bprefix=node.bprefix,
+                              part_sid=self._part_site())
         if isinstance(node, ir.Aggregate):
             return GAggregate(child=self.visit(node.child), key=node.key,
                               aggs=node.aggs, num_groups=node.num_groups)
@@ -510,7 +707,8 @@ class _Builder:
                        kind=("matmul" if isinstance(node, ir.BlockedMatmul)
                              else "forest"),
                        x_col=node.x_col, out_col=node.out_col, fn=node.fn,
-                       keep=node.keep, realize_sid=sid)
+                       keep=node.keep, realize_sid=sid,
+                       part_sid=self._part_site())
         raise TypeError(type(node))
 
 
@@ -518,17 +716,15 @@ def build(plan: ir.Plan, catalog: ir.Catalog, *,
           backend: Optional[str] = None, profile=None,
           ways: int = 1) -> StageGraph:
     """Stage-DAG of ``plan``'s lowering choices. ``backend`` force-overrides
-    every realization's backend; ``profile`` (default: that of the
-    catalog's device) gates device-specific candidates (the kernels).
-    ``ways > 1``, intra-query sharding over a multi-device mesh, is not
-    ported yet (ROADMAP.md, queue 1 item 12)."""
-    if ways > 1:
-        raise NotImplementedError(
-            "partitioned lowering (ways > 1) is not ported yet "
-            "(ROADMAP.md, queue 1 item 12)")
+    every realization's backend (plan-level realizations resolve per-node
+    first); ``profile`` (default: that of the catalog's device) gates
+    device-specific candidates (the kernels). ``ways > 1`` additionally
+    opens per-node ``PartSpec`` sites (intra-query sharding over a
+    ``ways``-rank data mesh)."""
     if profile is None:
         from repro_torch.core.cost import catalog_profile
         profile = catalog_profile(catalog)
-    b = _Builder(plan, catalog, backend, profile)
+    b = _Builder(plan, catalog, backend, profile, ways=ways)
     root = b.visit(plan.root)
-    return StageGraph(root=root, registry=plan.registry, sites=b.sites)
+    return StageGraph(root=root, registry=plan.registry, sites=b.sites,
+                      ways=max(int(ways), 1), catalog=catalog)

@@ -14,7 +14,7 @@ them for the model:
 
 The MoE is the reference's sort-based capacity dispatch on one device
 (``moe_block`` with ``mesh=None``); the expert-parallel path and the
-S-sharded decode wait for multi-device (ROADMAP queue 1 items 12, 14.7).
+S-sharded decode wait for the LM's mesh (ROADMAP queue 1 item 14.7).
 Every function here keeps its shapes fixed and reads nothing back to the
 host, so a decode step built from them can be captured into a CUDA graph.
 """
@@ -234,6 +234,6 @@ def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None) -> torch.Tensor:
     if mesh is not None:
         raise NotImplementedError(
             "moe_block: expert parallelism over a mesh is not ported "
-            "(ROADMAP queue 1 item 12 / 14.7)")
+            "(ROADMAP queue 1 item 14.7)")
     return _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg, 0,
                                  cfg.moe.n_experts)

@@ -92,6 +92,24 @@ class MicroBatcher:
             del self._groups[key]
         return ready
 
+    def take(self, key: str, rids) -> MicroBatch:
+        """The requests ``rids`` of the ``key`` group, as one micro-batch in
+        the given order: a batch that another rank's scheduler formed (the
+        server on a mesh follows rank 0's decisions). Raises if any is not
+        pending here."""
+        group = self._groups.get(key)
+        pending = {r.rid: r for r in group.requests} if group is not None else {}
+        missing = [rid for rid in rids if rid not in pending]
+        if missing:
+            raise RuntimeError(f"requests {missing} of {key[:60]!r} are not pending "
+                               "here: the ranks were submitted different traffic")
+        chosen = set(rids)
+        group.requests = deque(r for r in group.requests if r.rid not in chosen)
+        if not group.requests:
+            del self._groups[key]
+        self.groups_formed += 1
+        return MicroBatch(key=key, requests=[pending[rid] for rid in rids])
+
     def _take(self, key: str, group: _Group, n: int) -> MicroBatch:
         batch = MicroBatch(key=key,
                            requests=[group.requests.popleft() for _ in range(n)])

@@ -26,8 +26,10 @@ class QueryRequest:
     dispatch_t: float = 0.0
     finish_t: float = 0.0
     batch_size: int = 0             # occupancy of the batch that served it
-    # oversized single query served by the partitioned executable: not
-    # ported yet (ROADMAP.md, queue 1 item 12), so always False here
+    # oversized single query: its plan's working set busts the per-device
+    # memory budget, so it is keyed and served through the *partitioned*
+    # executable (PlanCache.get_or_compile_partitioned) instead of being
+    # refused or thrashing a single device
     partitioned: bool = False
     result: Optional[Table] = None
     done: bool = False

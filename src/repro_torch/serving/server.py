@@ -11,8 +11,18 @@ policy; ``drain`` flushes the rest. Per-signature traffic statistics
 The server runs on ``device`` (its cache's; ``cuda`` unless the caller
 names one). The clock is injectable (``clock=``) so schedulers and tests
 can drive deadlines deterministically; the default is ``time.monotonic``.
-A ``mesh`` (the reference's sharded and partitioned routing) raises
-``NotImplementedError``: not ported yet (ROADMAP.md, queue 1 item 12).
+
+With a ``mesh`` every rank of it runs the same server and submits the same
+traffic (multi-controller). Eligible micro-batches are sharded over the
+mesh, and a submitted plan whose working set busts the per-device
+``memory_budget`` is routed to the partitioned executable. Each route is a
+sequence of collectives, so the ranks must dispatch the same batches by
+the same routes; a wall-clock batching window would differ between them.
+So rank 0 forms each step's micro-batches and picks their routes, and
+broadcasts both before the dispatch: the one decision the reference's
+single controller makes. A batch that fails on one device fails its own
+requests; on a mesh of several ranks the failure raises, so that a fault
+on any rank stops the run instead of leaving the others in a collective.
 """
 from __future__ import annotations
 
@@ -21,8 +31,10 @@ import time
 import weakref
 from typing import Callable, Dict, Optional
 
+from repro_torch.core import cost as cost_mod
 from repro_torch.core import ir
-from repro_torch.core.plan_cache import LRUCache, NOT_PORTED, PlanCache, scan_table_names
+from repro_torch.core import mesh as mesh_util
+from repro_torch.core.plan_cache import LRUCache, PlanCache, scan_table_names
 from repro_torch.relational.table import Table
 from repro_torch.serving.batcher import MicroBatcher
 from repro_torch.serving.executor import BatchedExecutor
@@ -37,9 +49,9 @@ class SignatureStats:
     served_requests: int = 0        # successfully dispatched requests only
     dispatches: int = 0
     batched_requests: int = 0       # requests served in a batch of >= 2
-    sharded_dispatches: int = 0     # multi-device dispatches: 0 until
-    partitioned_dispatches: int = 0  # queue 1 item 12
-    ways: int = 0
+    sharded_dispatches: int = 0     # dispatches served multi-rank (batch
+    partitioned_dispatches: int = 0  # axis sharded / operators partitioned)
+    ways: int = 0                   # mesh rank count of those dispatches
     failures: int = 0               # requests whose dispatch raised
     total_dispatch_s: float = 0.0
     total_wait_s: float = 0.0
@@ -51,7 +63,8 @@ class SignatureStats:
     @property
     def mean_occupancy(self) -> float:
         # served / dispatches: pending submissions and failed batches never
-        # rode a dispatch
+        # rode a dispatch, so counting them (as `requests` would) inflates
+        # the occupancy the MCTS feedback channel prioritizes by
         return (self.served_requests / self.dispatches
                 if self.dispatches else 0.0)
 
@@ -86,17 +99,21 @@ class QueryServer:
                  backend: Optional[str] = None, mesh=None,
                  memory_budget: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic, device=None):
-        if mesh is not None:
-            raise NotImplementedError(f"QueryServer(mesh=...): {NOT_PORTED}")
         self.cache = cache or PlanCache(device=device)
         self.cache.device  # resolved here: no CUDA and no device raises
         self.batcher = MicroBatcher(max_batch_size=max_batch_size,
                                     max_wait_s=max_wait_s)
+        # mesh: multi-rank batch sharding; eligible micro-batches take
+        # the backend="sharded" executable (see BatchedExecutor.route)
         self.executor = BatchedExecutor(self.cache, backend=backend,
-                                        clock=clock)
+                                        mesh=mesh, clock=clock)
         self.mesh = mesh
+        self._ways = mesh_util.batch_ways(mesh) if mesh is not None else 1
         # per-device working-set budget: installed on the cache's profile,
-        # so every costed-lowering decision this server triggers sees it
+        # so every costed-lowering decision this server triggers sees it.
+        # A submitted plan that busts it is routed to the *partitioned*
+        # executable (operators sharded over the mesh) instead of being
+        # served on one device (thrashing) or refused.
         if memory_budget is not None:
             self.cache.profile.memory_budget = float(memory_budget)
         self.clock = clock
@@ -128,17 +145,30 @@ class QueryServer:
                                  or memo[4] != self.cache.profile_epoch):
             memo = None  # id was reused by a different object
         if memo is None:
-            memo = (weakref.ref(plan), weakref.ref(catalog),
-                    self.cache.key(plan, catalog), scan_table_names(plan),
-                    self.cache.profile_epoch)
+            # oversized single query: a working set over the per-device
+            # budget can't be served on one device; key it (and flag it)
+            # for the partitioned executable, whose PartSpec vector rides
+            # the key's #cl= decision tokens
+            budget = self.cache.profile.memory_budget
+            partitioned = (
+                self._ways > 1 and budget is not None
+                and cost_mod.plan_peak_memory(plan, catalog,
+                                              self.cache.profile) > budget)
+            key = (self.cache.key(plan, catalog, mesh=self.mesh,
+                                  backend=self.executor.backend)
+                   if partitioned else self.cache.key(plan, catalog))
+            memo = (weakref.ref(plan), weakref.ref(catalog), key,
+                    scan_table_names(plan), self.cache.profile_epoch,
+                    partitioned)
             self._submit_memo.put((id(plan), id(catalog)), memo)
-        _, _, key, scanned, _ = memo
+        _, _, key, scanned, _, partitioned = memo
         # ship only the tables the plan scans: the batched executor stacks
         # every leaf of every request, so catalog tables the query never
         # touches would be pure copy overhead on the dispatch path
         req = QueryRequest(rid=self._next_rid, plan=plan, catalog=catalog,
                            tables={k: tables[k] for k in scanned},
-                           key=key, submit_t=self.clock())
+                           key=key, submit_t=self.clock(),
+                           partitioned=partitioned)
         self._next_rid += 1
         sig = self.signatures.get(req.key)
         if sig is None:
@@ -153,22 +183,45 @@ class QueryServer:
         """Dispatch every signature group that satisfies the admission
         policy (size cap reached or wait deadline expired). Returns the
         number of requests completed this step."""
-        return self._dispatch(self.batcher.pop_ready(self.clock()))
+        return self._dispatch(self._decide(lambda: self.batcher.pop_ready(self.clock())))
 
     def drain(self) -> int:
         """Flush all pending requests regardless of deadlines."""
-        return self._dispatch(self.batcher.pop_all())
+        return self._dispatch(self._decide(self.batcher.pop_all))
 
-    def _dispatch(self, batches) -> int:
+    def _decide(self, pop):
+        """The micro-batches to dispatch now and their routes. On a mesh of
+        several ranks rank 0 pops and routes them and broadcasts the
+        decision (keys, request ids, routes); the other ranks take exactly
+        those requests from their own scheduler."""
+        if self._ways <= 1:
+            return [(b, self.executor.route(b)) for b in pop()]
+        first = mesh_util.rank_of(self.mesh) == 0
+        decision = None
+        if first:
+            batches = pop()
+            decision = [(b.key, [r.rid for r in b.requests], self.executor.route(b))
+                        for b in batches]
+        decision = mesh_util.broadcast_from_first(decision, self.mesh)
+        if not first:
+            batches = [self.batcher.take(key, rids) for key, rids, _ in decision]
+        return [(b, route) for b, (_, _, route) in zip(batches, decision)]
+
+    def _dispatch(self, routed) -> int:
         done = 0
-        for batch in batches:
+        for batch, route in routed:
             sig = self.signatures[batch.key]
             try:
-                dt = self.executor.dispatch(batch)
+                dt = self.executor.dispatch(batch, route)
             except Exception as e:  # noqa: BLE001 — a bad payload (e.g.
                 # tables whose shapes disagree with the signature's schema)
                 # must fail its own batch, not hang its requests forever or
-                # take the serving loop down with them
+                # take the serving loop down with them. On a mesh of several
+                # ranks it raises: the other ranks may wait in a collective
+                # this rank will not enter, and going on would put the
+                # ranks' collectives out of step
+                if self._ways > 1:
+                    raise
                 now = self.clock()
                 for req in batch.requests:
                     req.done = True
@@ -180,6 +233,12 @@ class QueryServer:
             sig.dispatches += 1
             sig.served_requests += len(batch)
             sig.total_dispatch_s += dt
+            if batch.sharded:
+                sig.sharded_dispatches += 1
+                sig.ways = self._ways
+            if batch.partitioned:
+                sig.partitioned_dispatches += 1
+                sig.ways = self._ways
             for req in batch.requests:
                 sig.total_wait_s += req.queue_wait_s
                 if req.batch_size >= 2:

@@ -1,11 +1,38 @@
-"""Comparison helpers shared by the parity tests and ``chip_smoke.py``."""
+"""Comparison helpers shared by the parity tests and ``chip_smoke.py``, and
+the multi-rank runs of the mesh paths.
+
+``spawn_ranks(body, ways)`` runs ``body(rank, ways, *args)`` on ``ways``
+processes joined in one gloo group (spawned, one intra-op thread each, a
+``FileStore`` in a temporary directory, the group's ``timeout``); a
+failure of any rank raises in the caller. The rank bodies of the CPU proof
+live here too (``partitioned_suite`` and ``sharded_suite``, the
+counterparts of the JAX package's ``tests/partitioned_equality_driver.py``
+and ``tests/sharded_equality_driver.py`` plus the multi-device checks of
+``tests/test_partitioned.py`` and ``tests/test_serving_sharded.py``, and
+``fault_suite``, where one rank's bad payload must fail the run), so that
+the ranks import neither JAX nor the test modules:
+
+    PYTHONPATH=src python -m repro_torch.testing partitioned --ways 8 --out DIR
+
+Rank 0 prints an ``... OK`` line per check and writes the canonical results
+the parent holds against the JAX reference to ``DIR``.
+"""
 from __future__ import annotations
 
-from typing import Mapping
+import argparse
+import datetime
+import sys
+import tempfile
+from pathlib import Path
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 
 WORKLOAD_TOL = 5e-4  # .canonical() bar of the JAX package's workload tests
+PARTITION_TOL = 2e-5  # floats of a multi-rank run against one device
+GROUP_TIMEOUT_S = 120.0  # a rank that never joins a collective fails the rest
+MESH_SCALE = 0.25  # the reference drivers' SCALE
+MESH_BATCH = 8  # the sharded driver's BATCH
 
 
 def assert_canonical_close(a: Mapping[str, np.ndarray], b: Mapping[str, np.ndarray],
@@ -22,3 +49,605 @@ def assert_canonical_close(a: Mapping[str, np.ndarray], b: Mapping[str, np.ndarr
             np.testing.assert_array_equal(x, y, err_msg=f"{label}:{k}")
         else:
             np.testing.assert_allclose(x, y, rtol=tol, atol=tol, err_msg=f"{label}:{k}")
+
+
+def assert_tables_equal(want, got, label: str, tol: float = PARTITION_TOL) -> None:
+    """Two result Tables row for row: valid masks and int columns exactly,
+    float columns at rtol=atol=``tol`` on the valid rows (invalid rows carry
+    garbage), and the canonical forms alike."""
+    if set(want.columns) != set(got.columns):
+        raise AssertionError(f"{label}: schemas differ")
+    m = want.valid.cpu().numpy()
+    np.testing.assert_array_equal(m, got.valid.cpu().numpy(), err_msg=f"{label}.valid")
+    for k in want.columns:
+        a, b = want[k].cpu().numpy()[m], got[k].cpu().numpy()[m]
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=f"{label}.{k}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=f"{label}.{k}")
+    assert_canonical_close(want.canonical(), got.canonical(), label, tol)
+
+
+# ---------------------------------------------------------------------------
+# ranks
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, body: Callable, ways: int, store: str, device: str,
+               timeout_s: float, args: tuple) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo", store=dist.FileStore(store, ways), rank=rank,
+                            world_size=ways,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        body(rank, ways, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(body: Callable, ways: int, *, args: tuple = (), device: str = "cpu",
+                timeout_s: float = GROUP_TIMEOUT_S) -> None:
+    """Run ``body(rank, ways, *args)`` on ``ways`` spawned processes in one
+    gloo group on ``device`` (``cpu`` or ``cuda:0``: gloo lets several
+    ranks share one card, NCCL does not). ``body`` must be importable by
+    name (a module-level function). Returns when every rank has; raises
+    if any rank raised, after stopping the others."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank_main, nprocs=ways, join=True, start_method="spawn",
+                           args=(body, ways, str(Path(tmp) / "store"), device,
+                                 timeout_s, args))
+
+
+def say(rank: int, line: str) -> None:
+    """Print ``line`` from rank 0 only."""
+    if rank == 0:
+        print(line, flush=True)
+
+
+def _save(out_dir: Optional[str], rank: int, label: str, table) -> None:
+    if out_dir is not None and rank == 0:
+        np.savez(Path(out_dir) / f"{label}.npz", **table.canonical())
+
+
+def load_canonical(out_dir, label: str) -> dict:
+    """A canonical result rank 0 saved under ``label``."""
+    with np.load(Path(out_dir) / f"{label}.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _walk(node):
+    yield node
+    for c in node.children():
+        yield from _walk(c)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned (PartSpec) suite
+# ---------------------------------------------------------------------------
+
+def partition_flavours(graph, base: Optional[dict] = None) -> dict:
+    """The partitioned decision vectors of a stage graph built with
+    ``ways > 1``, on top of ``base`` (default: the default decisions):
+    'row' (every partition site row-blocked) and, where a join offers it,
+    'hash' (joins hash-bucketed, the rest row-blocked)."""
+    sites = [s for s in graph.sites.values() if s.kind == "part"]
+    if not sites:
+        raise AssertionError("no partition sites")
+    base = dict(base if base is not None else graph.default_decisions())
+    flavours = {"row": dict(base, **{s.sid: 1 for s in sites})}
+    if any(len(s.options) > 2 for s in sites):
+        flavours["hash"] = dict(base, **{s.sid: len(s.options) - 1 for s in sites})
+    return flavours
+
+
+def replicated(graph, decisions: dict) -> dict:
+    """``decisions`` with every partition site replicated: the same
+    realization on one device."""
+    return {sid: (0 if graph.sites[sid].kind == "part" else i)
+            for sid, i in decisions.items()}
+
+
+def run_partitioned(pplan, tables: dict, mesh):
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core import physical as ph
+    return mesh_util.shard_replicated(
+        lambda t: ph.run(pplan, t, mesh, mesh_util.DATA_AXIS), mesh)(tables)
+
+
+def _check_workload(name, mesh, ways, rank, out_dir):
+    from repro_torch.core import cost, physical as ph, stage_graph
+    from repro_torch.data import workloads
+    w = workloads.ALL_WORKLOADS[name](scale=MESH_SCALE, device="cpu")
+    g = stage_graph.build(w.plan, w.catalog, profile=cost.DeviceProfile.detect("cpu"),
+                          ways=ways)
+    for flavour, d in partition_flavours(g).items():
+        pplan = g.realize(d)
+        assert pplan.ways == ways and pplan.parts, (name, flavour)
+        want = ph.run(g.realize(replicated(g, d)), dict(w.catalog.tables))
+        got = run_partitioned(pplan, dict(w.catalog.tables), mesh)
+        assert_tables_equal(want, got, f"{name}/{flavour}")
+        _save(out_dir, rank, f"{name}.{flavour}", got)
+        say(rank, f"{name}/{flavour}: OK")
+
+
+def _check_r3(mesh, ways, rank, out_dir):
+    """Row-partitioned PBlockedMatmul / PForestRelational (the R3 rewrites'
+    realizations) equal one device."""
+    from repro_torch.core import cost, physical as ph, stage_graph
+    from repro_torch.core.rules import ALL_RULES
+    from repro_torch.data import workloads
+    for name, rule in (("rec_q3", "R3-1"), ("analytics_q1", "R3-2")):
+        w = workloads.ALL_WORKLOADS[name](scale=MESH_SCALE, device="cpu")
+        cfgs = ALL_RULES[rule].configs(w.plan, w.catalog)
+        assert cfgs, f"{rule} must apply to {name}"
+        plan = ALL_RULES[rule].apply(w.plan, w.catalog, cfgs[0])
+        g = stage_graph.build(plan, w.catalog, profile=cost.DeviceProfile.detect("cpu"),
+                              ways=ways)
+        d = g.partitioned_decisions()
+        pplan = g.realize(d)
+        assert any(isinstance(n, (ph.PBlockedMatmul, ph.PForestRelational))
+                   for n in _walk(pplan.root)), name
+        want = ph.run(g.realize(replicated(g, d)), dict(w.catalog.tables))
+        got = run_partitioned(pplan, dict(w.catalog.tables), mesh)
+        assert_tables_equal(want, got, f"{name}/{rule}/row")
+        _save(out_dir, rank, f"{name}.{rule}", got)
+        say(rank, f"{name}/{rule}: OK")
+
+
+def join_plans(ways: int, lcap: int, rcap: int) -> dict:
+    """Hash- and row-partitioned PJoin over tables L(k, v) and R(rk, w),
+    and a row-partitioned PCrossJoin, as explicit physical plans."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core import physical as ph
+    blk = mesh_util.row_block(lcap, ways)
+
+    def rp(child, op, cin, cout, key=None):
+        return ph.PRepartition(child, op=op, ways=ways, in_capacity=cin,
+                               out_capacity=cout, key=key)
+
+    roots = {
+        "hash": rp(ph.PJoin(left=rp(ph.PScan("L"), "bucket", lcap, lcap, "k"),
+                            right=rp(ph.PScan("R"), "bucket", rcap, rcap, "rk"),
+                            left_key="k", right_key="rk", rprefix="r_"),
+                   "combine", lcap, lcap),
+        "row": rp(ph.PJoin(left=rp(ph.PScan("L"), "slice", lcap, blk), right=ph.PScan("R"),
+                           left_key="k", right_key="rk", rprefix="r_"),
+                  "allgather", blk, lcap),
+        "xjoin": rp(ph.PCrossJoin(left=rp(ph.PScan("L"), "slice", lcap, blk),
+                                  right=ph.PScan("R"), aprefix="a_", bprefix="b_"),
+                    "allgather", blk * rcap, lcap * rcap),
+    }
+    return {k: ph.PhysicalPlan(root=r, registry=None, ways=ways) for k, r in roots.items()}
+
+
+def _join_tables(keys, lvalid, rkeys, rvalid, rng, device):
+    import torch
+    from repro_torch.relational.table import Table
+    n, m = len(keys), len(rkeys)
+    lt = Table.from_columns({"k": np.asarray(keys, np.int32),
+                             "v": rng.standard_normal(n).astype(np.float32)},
+                            valid=np.asarray(lvalid), device=device)
+    rt = Table.from_columns({"rk": np.asarray(rkeys, np.int32),
+                             "w": rng.standard_normal(m).astype(np.float32)},
+                            valid=np.asarray(rvalid), device=device)
+    assert lt.valid.dtype == rt.valid.dtype == torch.bool
+    return lt, rt
+
+
+def _check_joins(lt, rt, mesh, ways, label):
+    from repro_torch.relational import ops
+    tables = {"L": lt, "R": rt}
+    plans = join_plans(ways, lt.capacity, rt.capacity)
+    want_join = ops.fk_join(lt, rt, "k", "rk", "r_")
+    want_x = ops.cross_join(lt, rt, "a_", "b_")
+    for flavour, pplan in plans.items():
+        want = want_x if flavour == "xjoin" else want_join
+        assert_tables_equal(want, run_partitioned(pplan, tables, mesh), f"{label}/{flavour}")
+
+
+def skew_cases(ways: int, seed: int = 7) -> dict:
+    """Left join keys that corner bucket partitioning: every key in one
+    bucket, buckets with no keys, and a row count ``ways`` doesn't divide."""
+    rng = np.random.default_rng(seed)
+    return {
+        "all-one-bucket": np.full(37, 2 * ways + 5, np.int32),
+        "empty-buckets": (rng.integers(0, 3, 41) * ways + 3).astype(np.int32),
+        "uniform-53": rng.integers(0, 100, 53).astype(np.int32),
+    }
+
+
+def _check_skew(mesh, ways, rank, device="cpu"):
+    rng = np.random.default_rng(7)
+    for label, keys in skew_cases(ways).items():
+        rkeys = np.unique(np.concatenate([keys, np.arange(6, dtype=np.int32)]))
+        lt, rt = _join_tables(keys, rng.random(len(keys)) < 0.8, rkeys,
+                              np.ones(len(rkeys), bool), rng, device)
+        _check_joins(lt, rt, mesh, ways, f"skew {label}")
+        say(rank, f"skew {label}: OK")
+
+
+LCAP, RCAP, JOIN_EXAMPLES = 24, 40, 12  # tests/test_partitioned.py's property test
+
+
+def _check_join_property(mesh, ways, rank):
+    """The reference's hypothesis test on skewed keys, as seeded examples
+    (every rank must draw the same ones): keys over the right table's range
+    with extra mass on one key, random left and right masks."""
+    rng = np.random.default_rng(11)
+    for i in range(JOIN_EXAMPLES):
+        keys = np.where(rng.random(LCAP) < 0.4, 5, rng.integers(0, RCAP, LCAP))
+        lt, rt = _join_tables(keys, rng.random(LCAP) < 0.7, np.arange(RCAP),
+                              rng.random(RCAP) < 0.7, rng, "cpu")
+        _check_joins(lt, rt, mesh, ways, f"property example {i}")
+    say(rank, f"skewed join property ({JOIN_EXAMPLES} examples): OK")
+
+
+def partition_budget(plan, catalog, ways: int, profile) -> tuple:
+    """(replicated peak, partitioned peak, budget) of a query on ``ways``
+    ranks: the per-device peaks of the tree-order realization (the peak
+    ``QueryServer`` routes on) and of the maximally row-partitioned one
+    (costed lowering's second descent seed), and a budget halfway between
+    them. The tree-order plan busts that budget, so a server routes the
+    query to the partitioned executable; the seed fits it, so the descent
+    starts from a plan that fits (a budget below the seed's peak can prune
+    every candidate the descent scores, as it did rec_q3@20's)."""
+    from repro_torch.core import cost, stage_graph
+    g = stage_graph.build(plan, catalog, profile=profile, ways=ways)
+    rep = cost.phys_peak_memory(g.realize(g.default_decisions()), catalog, profile)
+    part = cost.phys_peak_memory(g.realize(g.partitioned_decisions()), catalog, profile)
+    return rep, part, (rep + part) / 2.0
+
+
+def _check_budgeted_serving(mesh, ways, rank, out_dir):
+    """A per-device budget below the unpartitioned working set routes the
+    oversized query through the partitioned path, end to end."""
+    from repro_torch.core import cost, costed_lowering
+    from repro_torch.core.executor import execute
+    from repro_torch.data import workloads
+    from repro_torch.serving import QueryServer
+    w = workloads.ALL_WORKLOADS["retail_q3"](scale=MESH_SCALE, device="cpu")
+    profile = cost.DeviceProfile.detect("cpu")
+    budget = partition_budget(w.plan, w.catalog, ways, profile)[2]
+    low = costed_lowering.lower_costed(w.plan, w.catalog, profile=profile,
+                                       memory_budget=budget, ways=ways)
+    assert low.plan.ways == ways and low.plan.parts, low.signature
+    assert low.peak_memory <= budget
+    assert low.budget_pruned > 0 and not low.budget_pruned_all
+
+    srv = QueryServer(max_batch_size=4, max_wait_s=3600.0, mesh=mesh,
+                      memory_budget=budget, device="cpu")
+    req = srv.submit(w.plan, w.catalog)
+    assert req.partitioned
+    assert "#be=part" in req.key and "#mesh=" in req.key
+    assert any(tok.startswith("pt") for tok in req.key.split("#cl=")[1].split(";")), req.key
+    assert req.key == srv.cache.key(w.plan, w.catalog, mesh=mesh)
+    assert srv.drain() == 1 and req.error is None, req.error
+    assert srv.stats()["partitioned_dispatches"] == 1
+    want = execute(w.plan, w.catalog, device="cpu")
+    assert_canonical_close(want.canonical(), req.result.canonical(), "served-oversized",
+                           PARTITION_TOL)
+    _save(out_dir, rank, "served-oversized", req.result)
+
+    # repeated traffic of the signature hits the same executable
+    t0 = srv.cache.traces
+    req2 = srv.submit(w.plan, w.catalog, workloads.roll_tables(dict(w.catalog.tables), 1))
+    assert srv.drain() == 1 and req2.error is None, req2.error
+    assert srv.cache.traces == t0, "a warm partitioned dispatch rebuilt"
+    assert int(req2.result.valid.sum()) > 0
+    say(rank, "budgeted serving: OK")
+
+
+def _check_cache_entries(mesh, ways, rank):
+    """tests/test_partitioned.py's multi-device checks: the partitioned
+    entry is first class, a kernel override composes with it, a 1-wide
+    mesh falls back to the plain entry, and the server routes an oversized
+    query (the feedback export carries its multi-rank features)."""
+    from repro_torch.core import cost
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data import workloads
+    from repro_torch.serving import QueryServer, feedback
+    profile = cost.DeviceProfile.detect("cpu")
+    w = workloads.retail_q3(scale=MESH_SCALE, device="cpu")
+    budget = partition_budget(w.plan, w.catalog, ways, profile)[2]
+
+    cache = PlanCache(device="cpu")
+    cache.profile.memory_budget = budget
+    key = cache.key(w.plan, w.catalog, mesh=mesh)
+    assert "#be=part" in key and "#mesh=" in key
+    assert any(t.startswith("pt") for t in key.split("#cl=")[1].split(";"))
+    fn = cache.get_or_compile_partitioned(w.plan, w.catalog, mesh)
+    assert cache._cache.get(key) is fn  # the key IS the entry's key
+    plain = cache.get_or_compile(w.plan, w.catalog)
+    assert plain is not fn
+    assert_tables_equal(plain(dict(w.catalog.tables)), fn(dict(w.catalog.tables)),
+                        "partitioned entry")
+    t0 = cache.traces
+    assert cache.get_or_compile_partitioned(w.plan, w.catalog, mesh) is fn
+    assert cache.traces == t0
+    say(rank, "partitioned cache entry is first class: OK")
+
+    cache = PlanCache(device="cpu")
+    cache.profile.memory_budget = budget
+    fn = cache.get_or_compile_partitioned(w.plan, w.catalog, mesh, backend="torch")
+    fn_plain = cache.get_or_compile_partitioned(w.plan, w.catalog, mesh)
+    assert any("#be=part" in k and "#nbe=torch" in k for k in cache._cache._data)
+    assert cache._cache.get(cache.key(w.plan, w.catalog, mesh=mesh, backend="torch")) is fn
+    a, b = fn(dict(w.catalog.tables)), fn_plain(dict(w.catalog.tables))
+    assert bool((a.valid == b.valid).all())
+    say(rank, "partitioned composes with a backend override: OK")
+
+    small = workloads.simple_q1(scale=MESH_SCALE, device="cpu")
+    cache = PlanCache(device="cpu")
+    one = mesh_util.data_mesh(1, device="cpu")
+    assert mesh_util.batch_ways(one) == 1 and not mesh_util.can_shard(one, 8)
+    assert (cache.get_or_compile_partitioned(small.plan, small.catalog, one)
+            is cache.get_or_compile(small.plan, small.catalog))
+    say(rank, "1-wide mesh falls back to the plain entry: OK")
+
+    srv = QueryServer(max_batch_size=4, max_wait_s=3600.0, mesh=mesh,
+                      memory_budget=budget, device="cpu")
+    req = srv.submit(w.plan, w.catalog)
+    assert req.partitioned and "#be=part" in req.key
+    fits = workloads.simple_q1(scale=0.1, device="cpu")
+    r2 = srv.submit(fits.plan, fits.catalog)
+    assert not r2.partitioned and "#be=part" not in r2.key
+    assert srv.drain() == 2
+    assert req.error is None and r2.error is None, (req.error, r2.error)
+    assert srv.stats()["partitioned_dispatches"] == 1
+    sig = srv.signatures[req.key]
+    assert sig.partitioned_dispatches == 1 and sig.ways == ways
+    e = [x for x in feedback.export_signature_stats(srv) if x.key == req.key][0]
+    assert e.partitioned_dispatches == 1 and e.ways == ways
+    say(rank, "server routes the oversized query to the partitioned path: OK")
+
+
+def _check_disagreement_raises(mesh, ways, rank):
+    """Ranks whose plans differ fail at the executable's first call, on
+    every rank, instead of entering mismatched collectives."""
+    from repro_torch.core import cost
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data import workloads
+    w = workloads.retail_q3(scale=MESH_SCALE, device="cpu")
+    cache = PlanCache(device="cpu")
+    cache.profile.memory_budget = partition_budget(w.plan, w.catalog, ways,
+                                                   cost.DeviceProfile.detect("cpu"))[2]
+    # rank 0 alone overrides the kernel backend: its key differs
+    fn = cache.get_or_compile_partitioned(w.plan, w.catalog, mesh,
+                                          backend="torch" if rank == 0 else None)
+    try:
+        fn(dict(w.catalog.tables))
+    except RuntimeError as e:
+        assert "disagree" in str(e), e
+    else:
+        raise AssertionError("ranks that disagree about the plan ran it")
+    say(rank, "ranks that disagree about the plan raise: OK")
+
+
+def partitioned_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the PartSpec layer's proof (see module docstring)."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.data import workloads
+    mesh = mesh_util.data_mesh(device="cpu")
+    assert mesh_util.batch_ways(mesh) == ways
+    for name in sorted(workloads.ALL_WORKLOADS):
+        _check_workload(name, mesh, ways, rank, out_dir)
+    say(rank, f"all {len(workloads.ALL_WORKLOADS)} workloads: partitioned == one device")
+    _check_r3(mesh, ways, rank, out_dir)
+    _check_skew(mesh, ways, rank)
+    _check_join_property(mesh, ways, rank)
+    _check_budgeted_serving(mesh, ways, rank, out_dir)
+    _check_cache_entries(mesh, ways, rank)
+    _check_disagreement_raises(mesh, ways, rank)
+    say(rank, "partitioned suite: OK")
+
+
+# ---------------------------------------------------------------------------
+# the sharded (batch-axis) suite
+# ---------------------------------------------------------------------------
+
+def _agree(a, b, what: str) -> None:
+    np.testing.assert_array_equal(a.valid.numpy(), b.valid.numpy(), err_msg=f"{what}.valid")
+    for k in a.columns:
+        x, y = a[k].numpy(), b[k].numpy()
+        if x.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=PARTITION_TOL, atol=PARTITION_TOL,
+                                       err_msg=f"{what}.{k}")
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f"{what}.{k}")
+
+
+def _check_sharded_workload(name, mesh, rank, out_dir):
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data import workloads
+    w = workloads.ALL_WORKLOADS[name](scale=MESH_SCALE, device="cpu")
+    tabs = workloads.rolled_instances(dict(w.catalog.tables), MESH_BATCH)
+    cache = PlanCache(device="cpu")
+    run_seq = cache.get_or_compile(w.plan, w.catalog)
+    seq = [run_seq(t) for t in tabs]
+    bat = cache.get_or_compile_batched(w.plan, w.catalog, MESH_BATCH)(tuple(tabs))
+    shd = cache.get_or_compile_sharded(w.plan, w.catalog, MESH_BATCH, mesh)(tuple(tabs))
+    # the sharded entry is its own build, not a fallback hit on the batched one
+    assert cache.traces == 3, f"{name}: expected 3 builds, got {cache.traces}"
+    for i in range(MESH_BATCH):
+        s, b, h = seq[i], bat[i], shd[i]
+        assert set(h.columns) == set(s.columns) == set(b.columns)
+        _agree(h, b, f"{name}[{i}] sharded vs batched")
+        _agree(h, s, f"{name}[{i}] sharded vs sequential")
+        _agree(b, s, f"{name}[{i}] batched vs sequential")
+    _save(out_dir, rank, f"{name}.sharded0", shd[0])
+    say(rank, f"{name}: OK")
+
+
+def _check_sharded_server(mesh, ways, rank):
+    """The server shards one full group (one dispatch, results equal to the
+    vmapped program) and falls back to the batched executable for a
+    remainder the rank count doesn't divide; the feedback fit sees the
+    sharded dispatches as multi-rank samples."""
+    from repro_torch.core import cost
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data import workloads
+    from repro_torch.serving import QueryServer, feedback
+    w = workloads.ALL_WORKLOADS["simple_q1"](scale=MESH_SCALE, device="cpu")
+    base = dict(w.catalog.tables)
+    ticks = iter(range(10 ** 6))
+    srv = QueryServer(max_batch_size=MESH_BATCH, max_wait_s=3600.0, mesh=mesh,
+                      device="cpu", clock=lambda: float(next(ticks)))
+    reqs = [srv.submit(w.plan, w.catalog, workloads.roll_tables(base, i))
+            for i in range(MESH_BATCH)]
+    assert srv.step() == MESH_BATCH  # one full group, one dispatch
+    assert srv.executor.sharded_dispatches == 1
+    assert all(r.done and r.error is None and r.batch_size == MESH_BATCH for r in reqs)
+    refs = PlanCache(device="cpu").get_or_compile_batched(w.plan, w.catalog, MESH_BATCH)(
+        tuple(workloads.roll_tables(base, i) for i in range(MESH_BATCH)))
+    for i, (r, ref) in enumerate(zip(reqs, refs)):
+        _agree(r.result, ref, f"served request {i}")
+
+    rest = [srv.submit(w.plan, w.catalog, workloads.roll_tables(base, i)) for i in range(3)]
+    assert srv.drain() == 3
+    assert all(r.done and r.error is None for r in rest)
+    assert srv.executor.sharded_dispatches == 1  # unchanged: fallback path
+    assert srv.stats()["sharded_dispatches"] == 1
+    (sig,) = srv.signatures.values()
+    assert sig.sharded_dispatches == 1 and sig.ways == ways
+
+    samples = []
+    fit = cost.fit_profile
+
+    def recording(s, prior, **kw):
+        samples.extend(s)
+        return fit(s, prior, **kw)
+    feedback.cost.fit_profile = recording
+    try:
+        feedback.calibrate_profile(feedback.export_signature_stats(srv),
+                                   cost.DeviceProfile.detect("cpu"))
+    finally:
+        feedback.cost.fit_profile = fit
+    # 1 of 2 dispatches sharded: the fit takes the signature as multi-rank
+    assert [b.n_coll for b, _, _ in samples] == [float(ways)], samples
+    say(rank, "server: OK")
+
+
+def _check_sharded_policy(mesh, ways, rank):
+    """tests/test_serving_sharded.py's mesh checks: the mesh's shape and
+    signature, the eligibility policy on 2-wide meshes, a 1-wide mesh
+    falling back to the batched entry, the sharded key first class, and a
+    backend override disabling sharding."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.data import workloads
+    from repro_torch.serving import QueryServer
+    assert mesh.mesh_dim_names == ("data",)
+    assert mesh_util.batch_ways(mesh) == ways
+    assert mesh_util.mesh_signature(mesh) == f"data={ways}"
+    for bad in (ways + 1, 0, 3):
+        try:
+            mesh_util.data_mesh(bad, device="cpu")
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"data_mesh({bad}) on {ways} ranks")
+    one = mesh_util.data_mesh(1, device="cpu")
+    two = mesh_util.data_mesh(2, device="cpu")
+    assert mesh_util.batch_ways(one) == 1 and not mesh_util.can_shard(one, 8)
+    assert mesh_util.can_shard(two, 4) and not mesh_util.can_shard(two, 3)
+    assert not mesh_util.can_shard(two, 1) and not mesh_util.can_shard(None, 8)
+
+    w = workloads.ALL_WORKLOADS["simple_q1"](scale=MESH_SCALE, device="cpu")
+    cache = PlanCache(device="cpu")
+    fb = cache.get_or_compile_sharded(w.plan, w.catalog, 2, one)
+    assert cache.stats.misses == 1 and len(cache._cache) == 1
+    assert cache.get_or_compile_batched(w.plan, w.catalog, 2) is fb
+    assert len(fb(tuple(workloads.rolled_instances(dict(w.catalog.tables), 2)))) == 2
+
+    cache = PlanCache(device="cpu")
+    fsh = cache.get_or_compile_sharded(w.plan, w.catalog, 2, two)
+    fbat = cache.get_or_compile_batched(w.plan, w.catalog, 2)
+    assert fsh is not fbat and cache.stats.misses == 2
+    assert any("#be=sharded" in k and "#mesh=data=2" in k for k in cache._cache._data)
+    assert cache.get_or_compile_sharded(w.plan, w.catalog, 2, two) is fsh
+    try:
+        fsh(tuple(workloads.rolled_instances(dict(w.catalog.tables), 3)))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a sharded executable took another batch size")
+
+    srv = QueryServer(max_batch_size=2, max_wait_s=3600.0, backend="torch", mesh=two,
+                      device="cpu")
+    base = dict(w.catalog.tables)
+    reqs = [srv.submit(w.plan, w.catalog, workloads.roll_tables(base, i)) for i in range(2)]
+    assert srv.step() == 2 and all(r.done and r.error is None for r in reqs)
+    st = srv.stats()
+    assert st["sharded_dispatches"] == 0 and st["dispatches"] == 1
+    assert any("#be=torch" in k for k in srv.cache._cache._data)
+    assert not any("#be=sharded" in k for k in srv.cache._cache._data)
+    say(rank, "mesh policy, fallback and keys: OK")
+
+
+def sharded_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the batch-axis proof (see module docstring)."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.data import workloads
+    mesh = mesh_util.data_mesh(device="cpu")
+    assert mesh_util.can_shard(mesh, MESH_BATCH)
+    for name in sorted(workloads.ALL_WORKLOADS):
+        _check_sharded_workload(name, mesh, rank, out_dir)
+    say(rank, f"all {len(workloads.ALL_WORKLOADS)} workloads: "
+              "sharded == batched == sequential")
+    _check_sharded_server(mesh, ways, rank)
+    _check_sharded_policy(mesh, ways, rank)
+    say(rank, "sharded suite: OK")
+
+
+def fault_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the fault check: one rank's bad payload fails the
+    run. Every rank submits the same B 8 micro-batch of simple_q1, except
+    that the last rank's copy of the last request has tables one row short.
+    Its batch fails to stack there while the other ranks run their slices
+    into the all-gather; the last rank raises out of ``drain`` (it prints
+    the error first), and the others fail when its group goes down, well
+    inside the group's timeout."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.data import workloads
+    from repro_torch.relational.table import Table
+    from repro_torch.serving import QueryServer
+    mesh = mesh_util.data_mesh(device="cpu")
+    w = workloads.ALL_WORKLOADS["simple_q1"](scale=MESH_SCALE, device="cpu")
+    base = dict(w.catalog.tables)
+    srv = QueryServer(max_batch_size=MESH_BATCH, max_wait_s=3600.0, mesh=mesh, device="cpu")
+    for i in range(MESH_BATCH):
+        tables = workloads.roll_tables(base, i)
+        if rank == ways - 1 and i == MESH_BATCH - 1:
+            tables = {k: Table(columns={c: v[:-1] for c, v in t.columns.items()},
+                               valid=t.valid[:-1]) for k, t in tables.items()}
+        srv.submit(w.plan, w.catalog, tables)
+    try:
+        srv.drain()
+    except Exception as e:
+        print(f"rank {rank}: drain raised {type(e).__name__}", flush=True)
+        raise
+    print(f"rank {rank}: drain returned, {srv.failed} requests failed", flush=True)
+
+
+SUITES = {"partitioned": partitioned_suite, "sharded": sharded_suite, "fault": fault_suite}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Run a mesh suite on gloo ranks on the CPU.")
+    ap.add_argument("suite", choices=sorted(SUITES))
+    ap.add_argument("--ways", type=int, default=8)
+    ap.add_argument("--out", default=None, help="directory for rank 0's results")
+    ap.add_argument("--timeout", type=float, default=GROUP_TIMEOUT_S,
+                    help="the group's timeout in seconds")
+    a = ap.parse_args(argv)
+    spawn_ranks(SUITES[a.suite], a.ways, args=(a.out,), timeout_s=a.timeout)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -203,9 +203,16 @@ def test_plan_cost_accepts_both_plan_levels():
 
 
 def test_memory_budget_that_nothing_fits_falls_back_to_tree_order():
-    tw = _plans("rec_q1")[1]
-    low = costed_lowering.lower_costed(tw.plan, tw.catalog, memory_budget=1.0)
-    assert low.budget_pruned_all and low.budget_pruned == low.candidates_scored
-    assert low.plan.signature() == lower(tw.plan, tw.catalog, costed=False).signature()
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        costed_lowering.lower_costed(tw.plan, tw.catalog, ways=4)
+    """One device or four: a budget nothing fits prunes every candidate
+    (the partitioned ones too) and falls back to tree order, with the JAX
+    package's counts."""
+    jw, tw = _plans("rec_q1")[:2]
+    tree = lower(tw.plan, tw.catalog, costed=False).signature()
+    for ways in (1, 4):
+        low = costed_lowering.lower_costed(tw.plan, tw.catalog, memory_budget=1.0, ways=ways)
+        jlow = jcl.lower_costed(jw.plan, jw.catalog, profile=jcost.DeviceProfile.detect(),
+                                memory_budget=1.0, ways=ways)
+        assert low.budget_pruned_all and low.budget_pruned == low.candidates_scored
+        assert low.plan.signature() == tree and not low.plan.parts
+        assert (low.candidates_scored, low.signature) == (jlow.candidates_scored,
+                                                          _signature(jlow.signature))

@@ -6,8 +6,8 @@ there, executable builds here) must be equal, keys equal after the backend
 map (``jnp``->``torch``, ``pallas``->``kernel``), and compiled results equal
 at the ``.canonical()`` bar (5e-4). Also: the LRU machinery step for step,
 eviction dropping an executable's build, an executable refusing a payload of
-another schema, and the multi-device entry points raising until queue 1
-item 12.
+another schema, and the multi-device entry points keyed as the JAX
+package's and raising without a process group.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -241,14 +241,45 @@ def test_executable_refuses_another_schema():
     assert fn(dict(cat.tables)).capacity == 32 and cache.traces == 3
 
 
+class _MeshShape:
+    """A stand-in for an n-rank 1-D mesh in either package: its shape."""
+    mesh_dim_names = axis_names = ("data",)
+
+    def __init__(self, n):
+        self.n, self.shape = n, {"data": n}
+
+    def size(self, dim=None):
+        return self.n
+
+
 def test_multi_device_entry_points_raise():
-    cache = tpc.PlanCache(device="cpu")
+    """The multi-device entries key and build as the JAX package's on an
+    8-wide mesh (``#be=part#mesh=data=8``, ``#be=sharded#vmap=8#mesh=``)
+    and fall back to the plain entries where they must; run without a
+    process group, a multi-rank executable raises."""
+    jcache, cache = _caches()
+    jplan, jcat = _mini("jax")
     plan, cat = _mini("torch")
-    for call in (lambda: cache.key(plan, cat, mesh=object()),
-                 lambda: cache.get_or_compile_sharded(plan, cat, 2, object()),
-                 lambda: cache.get_or_compile_partitioned(plan, cat, object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            call()
+    eight, one = _MeshShape(8), _MeshShape(1)
+    for mesh in (eight, one):
+        assert cache.key(plan, cat, mesh=mesh) == port_signature(
+            jcache.key(jplan, jcat, mesh=mesh))
+    assert "#be=part#mesh=data=8" in cache.key(plan, cat, mesh=eight)
+    assert cache.get_or_compile_partitioned(plan, cat, one) is cache.get_or_compile(plan, cat)
+    assert (cache.get_or_compile_sharded(plan, cat, 3, eight)
+            is cache.get_or_compile_batched(plan, cat, 3))
+    sharded = cache.get_or_compile_sharded(plan, cat, 8, eight)
+    jcache.get_or_compile_sharded(jplan, jcat, 8, eight)
+    (key,) = [k for k in cache._cache._data if "#be=sharded" in k]
+    assert [key] == [port_signature(k) for k in jcache._cache._data if "#be=sharded" in k]
+    assert key.endswith("#vmap=8#mesh=data=8")
+    with pytest.raises(RuntimeError, match="process group"):
+        sharded([dict(cat.tables)] * 8)
+    # partitioning does not lower this plan's peak: both oracles keep it
+    # replicated, and the partitioned entry is the plain one
+    assert cache.get_or_compile_partitioned(plan, cat, eight) is cache.get_or_compile(plan, cat)
+    assert (jcache.get_or_compile_partitioned(jplan, jcat, eight)
+            is jcache.get_or_compile(jplan, jcat))
 
 
 def test_cache_device_and_profile():

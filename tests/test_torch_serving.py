@@ -274,12 +274,34 @@ def test_dispatch_and_finish_share_one_timebase():
 
 
 def test_server_multi_device_routes_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tserving.QueryServer(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tserving.BatchedExecutor(PlanCache(device="cpu"), mesh=object())
-    srv = tserving.QueryServer(device="cpu", memory_budget=1e9)
-    assert srv.cache.profile.memory_budget == 1e9
+    """On a 4-wide mesh under a budget the oversized query is keyed and
+    flagged for the partitioned executable as in the JAX package; without a
+    process group the server cannot agree its batches with the other ranks
+    and raises."""
+    from test_torch_plan_cache import _MeshShape
+    mesh = _MeshShape(4)
+    budget = 2e5
+    jsrv = jserving.QueryServer(max_batch_size=4, max_wait_s=3600.0, mesh=mesh,
+                                memory_budget=budget)
+    srv = tserving.QueryServer(max_batch_size=4, max_wait_s=3600.0, mesh=mesh,
+                               memory_budget=budget, device="cpu")
+    assert isinstance(tserving.BatchedExecutor(PlanCache(device="cpu"), mesh=mesh).mesh,
+                      _MeshShape)
+    reqs = {}
+    for pkg, server, wl, kw in (("jax", jsrv, jwl, {}), ("torch", srv, twl, {"device": "cpu"})):
+        big = wl.ALL_WORKLOADS["retail_q3"](scale=0.25, **kw)
+        small = wl.ALL_WORKLOADS["simple_q1"](scale=0.1, **kw)
+        reqs[pkg] = (server.submit(big.plan, big.catalog),
+                     server.submit(small.plan, small.catalog))
+    (jbig, jsmall), (big, small) = reqs["jax"], reqs["torch"]
+    assert big.partitioned and jbig.partitioned and not small.partitioned
+    assert (big.key, small.key) == (port_signature(jbig.key), port_signature(jsmall.key))
+    assert "#be=part#mesh=data=4" in big.key
+    # one process and no process group: rank 0's decision cannot be shared
+    with pytest.raises(RuntimeError, match="process group"):
+        srv.drain()
+    assert srv.pending() == 2 and srv.stats()["partitioned_dispatches"] == 0
+    assert srv.cache.profile.memory_budget == budget
     assert tcost.default_profile("cpu").memory_budget is None
 
 

@@ -27,6 +27,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import evaluator, ir
 from repro_torch.core import executor as tex
 from repro_torch.core.lowering import lower
+from repro_torch.core.mesh import data_mesh, make_host_mesh
 from repro_torch.core.optimizer import init_embedder
 from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.rules import ALL_RULES as T_RULES, kernel_plan
@@ -217,7 +218,9 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.serving.feedback', 'repro_torch.core.embedding',\n"
         "        'repro_torch.core.optimizer', 'repro_torch.core.wl',\n"
         "        'repro_torch.train.optim', 'repro_torch.models.layers',\n"
-        "        'repro_torch.launch.serve'} <= set(sys.modules)\n"
+        "        'repro_torch.launch.serve', 'repro_torch.core.mesh',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.models.sharding',\n"
+        "        'repro_torch.testing'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -242,7 +245,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for entry in (lambda: PlanCache().get_or_compile(w.plan, w.catalog),
                   lambda: PlanCache().device,
                   lambda: tex.compile_plan(w.plan, w.catalog),
-                  lambda: QueryServer()):
+                  lambda: QueryServer(),
+                  lambda: QueryServer(mesh=object()),
+                  lambda: data_mesh(),
+                  lambda: data_mesh(1),
+                  lambda: make_host_mesh()):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     cfg = get_smoke_config("granite-3-2b")
@@ -270,8 +277,19 @@ def test_costed_lowering_is_the_default():
 
     costed, tree = lower(w.plan, w.catalog), lower(w.plan, w.catalog, costed=False)
     assert compacts(costed) > compacts(tree) == 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        lower(w.plan, w.catalog, ways=2)
+    # partitioned lowering (ways > 1) is costed too, and picks the JAX
+    # package's plan under a budget that makes it partition
+    from repro.core import cost as jcost
+    from repro.core.lowering import lower as jlower
+    from repro_torch.core import cost
+    from test_torch_rules import port_signature
+    jw = jwl.ALL_WORKLOADS["rec_q1"](scale=SCALE)
+    budget = cost.phys_peak_memory(costed, w.catalog, cost.CPU_PROFILE) / 2
+    part = lower(w.plan, w.catalog, ways=2, memory_budget=budget, profile=cost.CPU_PROFILE)
+    want = jlower(jw.plan, jw.catalog, ways=2, memory_budget=budget,
+                  profile=jcost.CPU_PROFILE)
+    assert part.signature() == port_signature(want.signature())
+    assert part.ways == want.ways and part.part_signature() == want.part_signature()
 
 
 def _phys_nodes(node):
