@@ -112,6 +112,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    and their tail padding marked; each engine kernel at its largest
    tail-padded row block against its plain version; the seconds and each
    rank's peak memory: ranks time-slicing one card, no multi-card speed.
+5g. [lm-mesh]: the LM on a (data, model) mesh of the same 4 gloo ranks on
+   cuda:0. Each config runs first on one rank in this process (prefill
+   B 4 x 2048, max_len 4096, 8 decode steps on seeded tokens, and one step
+   from an empty cache; its logits saved, the rest freed): granite-3-2b
+   (bf16, on a 1x4 and a 2x2 mesh), granite-moe-1b-a400m (bf16, 32 experts
+   over 4 ranks), deepseek-v2-236b at full width (160 experts over 4 ranks,
+   the latent cache S-sharded; f32 at 2 and bf16 at 6 of its 60 layers)
+   and zamba2-1.2b (f32 and bf16), all 1x4 but the 2x2. Every rank makes
+   its own params (``init_params(mesh=)``, one rank at a time), steps once
+   from an empty cache (every slice but the first rank's empty), prefills
+   with ``prefill(mesh=)`` and decodes 8 steps through ``Server(mesh=)``
+   (eager); its logits against the one rank's at ``lm_mesh_bar`` (2e-4 in
+   f32; in bf16 3e-2 or 4x the one-rank run's response to a one-ulp move
+   of the embeddings, if larger; the rows past 3e-2 are printed); the
+   flash_decode kernel on its own slice of the cache against its plain
+   version (2e-4; an empty slice: m -1e30, finite acc and l).
+   Launches are zeroed just before the prefill, the steps and the empty
+   step and read just after each: flash_attention once a layer in the
+   prefill, flash_decode once an attention layer a step on every rank
+   (none for MLA). Per rank: launches, errors, seconds, ms per eager step,
+   peak memory, all of ranks time-slicing one card.
 6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
    query heads over 8 KV heads, random weights from a seed):
    a. float32: prefill(prompt[:, :-1]) and one decode step reproduce
@@ -1758,6 +1779,275 @@ def phase_mesh() -> None:
                                        for r, rep in enumerate(reports)))
 
 
+LM_MESH_STEPS = 8  # decode steps after the B 4 x 2048 prefill in [lm-mesh]
+LM_MESH_CONFIGS = (  # arch, layers kept (None: all), type, (data, model) meshes
+    ("granite-3-2b", None, "bfloat16", ((1, MESH_RANKS), (2, MESH_RANKS // 2))),
+    ("granite-moe-1b-a400m", None, "bfloat16", ((1, MESH_RANKS),)),
+    ("deepseek-v2-236b", 2, "float32", ((1, MESH_RANKS),)),
+    ("deepseek-v2-236b", 6, "bfloat16", ((1, MESH_RANKS),)),
+    ("zamba2-1.2b", None, "float32", ((1, MESH_RANKS),)),
+    ("zamba2-1.2b", None, "bfloat16", ((1, MESH_RANKS),)),
+)
+
+
+def _lm_mesh_cfg(arch: str, layers, dtype: str):
+    return _family_cfg(arch, dtype, **({} if layers is None else {"n_layers": layers}))
+
+
+def _lm_mesh_name(arch: str, layers, dtype: str) -> str:
+    return f"{arch}-{layers or 'all'}-{dtype}"
+
+
+def _lm_mesh_inputs(cfg, seed: int = 21):
+    """The prompt [B, 2048] and each step's tokens [steps, B], from a CPU
+    generator: the same in every process."""
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT), generator=gen)
+    steps = torch.randint(0, cfg.vocab, (LM_MESH_STEPS, FAMILY_BATCH), generator=gen)
+    return prompt.cuda(), steps.cuda()
+
+
+def _one_rank_logits(cfg, params: dict) -> tuple:
+    """(the empty-cache step's logits [B, vocab], prefill's and each step's
+    [1 + steps, B, vocab]) on one rank, float32 on the host."""
+    from repro_torch.models import lm
+    prompt, steps = _lm_mesh_inputs(cfg)
+    step = lm.make_decode_step(cfg)
+    empty = step(params, lm.init_cache(cfg, FAMILY_BATCH, FAMILY_MAX_LEN, device="cuda"),
+                 steps[0])[0]
+    logits, cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN)
+    outs = [logits]
+    for tok in steps:
+        lg, cache = step(params, cache, tok)
+        outs.append(lg)
+    return (empty[:, :cfg.vocab].float().cpu(),
+            torch.stack(outs)[..., :cfg.vocab].float().cpu())
+
+
+def lm_mesh_one_rank(name: str, cfg, out_dir: str) -> tuple:
+    """A config's run on one rank, in this process: prefill, then
+    ``LM_MESH_STEPS`` decode steps on the seeded tokens, and one step from
+    an empty cache. In bfloat16 it runs again with every embedding element
+    moved one ulp (``_ulp_moved``): the largest change of the logits is the
+    run's response to one rounding at its input. Saves the logits (the real
+    vocabulary, float32) and the response to ``out_dir/<name>.npz`` and
+    frees the rest. Returns (seconds, response)."""
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    empty, steps = _one_rank_logits(cfg, params)
+    response = 0.0
+    if cfg.dtype == "bfloat16":
+        moved = _one_rank_logits(cfg, _ulp_moved(params, seed=5))[1]
+        response = float((moved - steps).abs().max())
+    np.savez(Path(out_dir, f"{name}.npz"), steps=steps.numpy(), empty=empty.numpy(),
+             response=np.float64(response))
+    del params
+    _free()
+    return time.perf_counter() - t0, response
+
+
+def _lm_mesh_partials(cache: dict, cfg, mesh, rank: int) -> dict:
+    """The flash_decode kernel on this rank's slice of the first attention
+    layer's cache (its filled slots, a seeded query) against its plain
+    version. A slice with no filled slot is held to what the merge needs of
+    it: m = -1e30 and finite acc and l in both, so that it weighs zero."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.kernels.flash_decode import ops as fdec
+    from repro_torch.kernels.flash_decode.ref import decode_partials_plain
+    k, v = cache["k"][0], cache["v"][0]
+    s_loc = k.shape[1]
+    valid = min(max(int(cache["len"]) - mesh_util.rank_of(mesh, "model") * s_loc, 0), s_loc)
+    gen = torch.Generator(device="cuda").manual_seed(31 + rank)
+    q = _normal(gen, (k.shape[0], cfg.n_heads, cfg.hd), dtype=k.dtype)
+    n = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    got = fdec.gqa_decode_partials(q, k, v, n)
+    want = decode_partials_plain(q, k, v, n, cfg.hd ** -0.5)
+    if valid:
+        err = max(kernel_vs_plain(x, y, ATTN_TOL, f"[lm-mesh] rank {rank} flash_decode {part}")
+                  for x, y, part in zip(got, want, ("acc", "m", "l")))
+    else:
+        for part, x, y in zip(("acc", "m", "l"), got, want):
+            if not (bool(x.isfinite().all()) and bool(y.isfinite().all())):
+                raise AssertionError(f"[lm-mesh] rank {rank}: empty slice, {part} not finite")
+        if not (bool((got[1] == -1e30).all()) and bool((want[1] == -1e30).all())):
+            raise AssertionError(f"[lm-mesh] rank {rank}: empty slice, m is not -1e30")
+        err = 0.0
+    return {"shape": [list(q.shape), list(k.shape)], "valid": valid, "err": err,
+            "empty_l": [float(got[2].max()), float(want[2].max())] if not valid else None}
+
+
+def lm_mesh_bar(dtype: str, response: float) -> float:
+    """The bar of a rank's logits against one rank's: the CPU tests' LM bar
+    (``testing.lm_tol``: 2e-4 in float32, 3e-2 in bfloat16); in bfloat16 at
+    least ``XLSTM_ULPS`` times the one-rank run's response to a one-ulp move
+    of the embeddings, as ``[lm-xlstm]`` holds depth that amplifies
+    rounding. The ranks sum the MoE's combine in another association than
+    one device (the reference's psum does too), and a top-6-of-160 router
+    can flip a near tie on one rounding."""
+    from repro_torch.testing import lm_tol
+    return max(lm_tol(dtype), XLSTM_ULPS * response if dtype == "bfloat16" else 0.0)
+
+
+def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict:
+    """One config on this rank of ``mesh``: the params made one rank at a
+    time (each draws whole layers and keeps its experts), an empty-cache
+    step, prefill(mesh=) and ``LM_MESH_STEPS`` steps through
+    ``Server(mesh=)``, each held to the one-rank logits at ``lm_mesh_bar``;
+    launches zeroed just before the prefill and the steps and read just
+    after each; the kernel against its plain version on this rank's slice."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, sharding
+    bar = lm_mesh_bar(cfg.dtype, float(want["response"]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(ways):
+        if r == rank:
+            params = lm.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+        dist.barrier()
+    init_s = time.perf_counter() - t0
+    prompt, steps = _lm_mesh_inputs(cfg)
+    server = serve.Server(cfg, FAMILY_BATCH, FAMILY_MAX_LEN, device="cuda", params=params,
+                          mesh=mesh)
+    v = cfg.vocab
+    reset_launches()
+    server.decode(steps[0])  # len 0: every slice but the first rank's is empty
+    empty_launches = read_launches()
+    empty_err = kernel_vs_plain(server.logits[:, :v].float().cpu(),
+                                torch.from_numpy(want["empty"]), bar,
+                                f"[lm-mesh] rank {rank} {arch} empty-cache step")
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, server.cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, mesh=mesh)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_launches = read_launches()
+    got, ms = [logits[:, :v].float().cpu()], []
+    reset_launches()
+    for tok in steps:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        server.decode(tok)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        got.append(server.logits[:, :v].float().cpu())
+    step_launches = read_launches()
+    if server.logits.device.type != "cuda" or server.captured is not None:
+        raise AssertionError(f"[lm-mesh] rank {rank} {arch}: the step ran on "
+                             f"{server.logits.device}, captured {server.captured}")
+    got, ref = torch.stack(got), torch.from_numpy(want["steps"])
+    rows = (got - ref).abs().amax(-1)  # [1 + steps, B]
+    worst = divmod(int(rows.argmax()), rows.shape[1])
+    over = int((rows > lm_mesh_bar(cfg.dtype, 0.0)).sum())
+    err = kernel_vs_plain(got, ref, bar, f"[lm-mesh] rank {rank} {arch} {cfg.dtype} logits "
+                          f"against one rank (worst at step {worst[0]}, row {worst[1]}; "
+                          f"{over} of {rows.numel()} rows past {lm_mesh_bar(cfg.dtype, 0.0):g})")
+    rows = "k" if "k" in server.cache else "ckv"
+    report = {
+        "arch": arch, "mesh": list(mesh.mesh.shape), "rank": rank, "bar": bar,
+        "worst": list(worst), "over": over,
+        "experts_split": sharding.sharded_experts(cfg, mesh),
+        "cache_block": list(server.cache[rows].shape), "len": int(server.cache["len"]),
+        "prefill_launches": prefill_launches, "step_launches": step_launches,
+        "empty_launches": empty_launches, "err": err, "empty_err": empty_err,
+        "init_s": init_s, "prefill_s": prefill_s, "step_ms": ms,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "partials": _lm_mesh_partials(server.cache, cfg, mesh, rank) if rows == "k" else None}
+    del params, server, logits, prompt, steps
+    _free()
+    return report
+
+
+def lm_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
+    """One rank of [lm-mesh]: every config of ``LM_MESH_CONFIGS`` on each of
+    its meshes (``_lm_mesh_run``); writes its reports to
+    ``out_dir/lm-rank{rank}.json``."""
+    from repro_torch.core import mesh as mesh_util
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reports = []
+    for arch, layers, dtype, shapes in LM_MESH_CONFIGS:
+        cfg = _lm_mesh_cfg(arch, layers, dtype)
+        with np.load(Path(out_dir, f"{_lm_mesh_name(arch, layers, dtype)}.npz")) as z:
+            want = {k: z[k] for k in z.files}
+        for shape in shapes:
+            mesh = mesh_util.make_host_mesh(*shape, device="cuda")
+            reports.append(_lm_mesh_run(arch, cfg, mesh, want, rank, ways))
+    Path(out_dir, f"lm-rank{rank}.json").write_text(json.dumps(reports))
+
+
+def phase_lm_mesh() -> None:
+    """[lm-mesh]: the LM on a (data, model) mesh of ``MESH_RANKS`` gloo ranks
+    time-slicing cuda:0. Each config runs first on one rank here
+    (``lm_mesh_one_rank``), then on the ranks (``lm_mesh_rank``); per rank
+    and config: the launches (flash_attention in the prefill, flash_decode
+    in the steps; a GQA or hybrid step must launch flash_decode on every
+    rank), the logits' largest |err| against one rank, the kernel on the
+    rank's slice against its plain version, seconds, ms per eager step and
+    peak memory. The times are of ranks sharing one card: they say nothing
+    of the speed of several cards."""
+    import tempfile
+    from repro_torch.models import lm
+    from repro_torch.testing import spawn_ranks
+    _free()
+    with tempfile.TemporaryDirectory() as out:
+        for arch, layers, dtype, shapes in LM_MESH_CONFIGS:
+            cfg = _lm_mesh_cfg(arch, layers, dtype)
+            secs, response = lm_mesh_one_rank(_lm_mesh_name(arch, layers, dtype), cfg, out)
+            full = _family_cfg(arch)
+            print(f"[lm-mesh] {arch} {dtype} full width, {cfg.n_layers} of {full.n_layers} "
+                  f"layers ({cfg.param_count() / 1e9:.2f} B params): one rank, prefill "
+                  f"B{FAMILY_BATCH} x {FAMILY_PROMPT} (max_len {FAMILY_MAX_LEN}), "
+                  f"{LM_MESH_STEPS} steps and an empty-cache step, {secs:.1f} s"
+                  + (f"; response to a one-ulp move of the embeddings {response:.3g}, bar "
+                     f"{lm_mesh_bar(dtype, response):.3g}" if dtype == "bfloat16" else "")
+                  + "; meshes " + ", ".join(f"{d}x{m}" for d, m in shapes))
+        t0 = time.perf_counter()
+        spawn_ranks(lm_mesh_rank, MESH_RANKS, args=(out,), device="cuda:0",
+                    timeout_s=MESH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        reports = [json.loads(Path(out, f"lm-rank{r}.json").read_text())
+                   for r in range(MESH_RANKS)]
+    for i, (arch, layers, dtype) in enumerate(
+            (a, ly, dt) for a, ly, dt, shapes in LM_MESH_CONFIGS for _ in shapes):
+        cfg = _lm_mesh_cfg(arch, layers, dtype)
+        gqa = cfg.attn != "mla"
+        n_attn = lm._n_attn(cfg) if cfg.kind == "hybrid" else cfg.n_layers
+        for r in range(MESH_RANKS):
+            rep = reports[r][i]
+            fa, fd = rep["prefill_launches"], rep["step_launches"]
+            want = {"flash_attention": n_attn, "flash_decode": n_attn * LM_MESH_STEPS * gqa}
+            got = {"flash_attention": fa["flash_attention"], "flash_decode": fd["flash_decode"]}
+            if got != want or (gqa and rep["empty_launches"]["flash_decode"] != n_attn):
+                raise AssertionError(f"[lm-mesh] rank {r} {arch} {rep['mesh']}: launches "
+                                     f"{got} (empty step {rep['empty_launches']}), want {want}")
+            p = rep["partials"]
+            part = ("no kernel: MLA attends in its latent space" if p is None else
+                    f"flash_decode on its slice (q {p['shape'][0]}, k/v {p['shape'][1]}, "
+                    f"{p['valid']} filled) == plain, max|err|={p['err']:.3g} (bar {ATTN_TOL:g})"
+                    + ("" if p["valid"] else
+                       f"; empty slice: m -1e30 in both, l {p['empty_l'][0]:g} (kernel) / "
+                       f"{p['empty_l'][1]:g} (plain), weight 0 in the merge"))
+            steps = sorted(rep["step_ms"])
+            print(f"[lm-mesh] {arch} {dtype} {cfg.n_layers} layers, mesh "
+                  f"{rep['mesh'][0]}x{rep['mesh'][1]} rank {r}: experts "
+                  f"{'split over model' if rep['experts_split'] else 'whole' if cfg.moe else '-'}"
+                  f", cache block {rep['cache_block']}; launches prefill "
+                  f"{json.dumps({k: v for k, v in fa.items() if v})}, {LM_MESH_STEPS} steps "
+                  f"{json.dumps({k: v for k, v in fd.items() if v})}; logits vs one rank "
+                  f"max|err|={rep['err']:.3g} (worst at step {rep['worst'][0]}, row "
+                  f"{rep['worst'][1]}; {rep['over']} of {FAMILY_BATCH * (LM_MESH_STEPS + 1)} rows past "
+                  f"{lm_mesh_bar(dtype, 0.0):g}), empty-cache step {rep['empty_err']:.3g} (bar "
+                  f"{rep['bar']:.3g}); {part}; init {rep['init_s']:.1f} s, prefill "
+                  f"{rep['prefill_s']:.2f} s, eager step median {steps[len(steps) // 2]:.1f} ms "
+                  f"(min {steps[0]:.1f}), peak {rep['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"[lm-mesh] {MESH_RANKS} gloo ranks time-slicing cuda:0 (not a multi-card speed): "
+          f"{secs:.1f} s, spawn included")
+
+
 def _attn_inputs(gen, b, hq, hkv, s, d, dtype=torch.float32):
     """q, k, v as [B,H,S,D] views of [B,S,H,D] tensors, as the model passes
     its projections."""
@@ -2771,6 +3061,7 @@ def main() -> int:
     del server, cache
     torch.cuda.empty_cache()
     timed(phase_mesh)()
+    timed(phase_lm_mesh)()
     timed(phase_lm_f32)()
     torch.cuda.empty_cache()
     lm_launches, cache = timed(phase_lm_bf16)()

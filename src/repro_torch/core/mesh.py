@@ -23,8 +23,9 @@ hosts), and the collectives are explicit calls on the mesh's group:
                        ``all_reduce_sum``, ``rank_of``).
 
 ``jax.lax.axis_index`` becomes the rank in the mesh's group,
-``all_gather(..., tiled=True)`` an all-gather into one tensor on dim 0 and
-``psum`` an all-reduce with SUM. Masks cross a collective as ``uint8`` (an
+``all_gather(..., tiled=True)`` an all-gather into one tensor on dim 0,
+``psum`` an all-reduce with SUM (in the tensor's own type, bfloat16
+included) and ``pmax`` one with MAX. Masks cross a collective as ``uint8`` (an
 all-gather) or ``int32`` (a sum), never ``bool``. gloo takes CUDA tensors
 as they are (it copies them through the host itself), so several ranks can
 share one card over gloo; NCCL refuses two ranks on one GPU.
@@ -180,6 +181,14 @@ def all_reduce_sum(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor
         memory_format=torch.contiguous_format)
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     return w > 0 if x.dtype == torch.bool else w
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` (``jax.lax.pmax``)."""
+    group = _group(mesh, axis)
+    w = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group)
+    return w
 
 
 def agree(value, mesh, axis: str = DATA_AXIS, what: str = "plan") -> None:

@@ -15,6 +15,15 @@ every step after (``core.plan_cache.CapturedGraph``); the graph advances
 the cache's ``len`` in place and picks the greedy tokens itself, so the
 host sends [B] tokens and reads [B] back. A capture that fails raises. On
 the CPU the same step runs eagerly.
+
+``Server(mesh=)`` (the reference's ``Server(mesh=)``) serves on a (data,
+model) mesh of ``torch.distributed`` ranks, every rank running the same
+server: params and the cache are each rank's (``models.sharding``), the
+step is ``lm.make_decode_step(cfg, mesh)``, and rank 0 decides every
+admission's slot and every step's tokens and broadcasts them, so that the
+ranks keep one slot state and enter the same collectives. On a mesh the
+step runs eagerly, on the card too: a gloo collective cannot be captured
+into a CUDA graph.
 """
 from __future__ import annotations
 
@@ -27,9 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import mesh as mesh_util
 from repro_torch.core.plan_cache import CapturedGraph
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, sharding
 from repro_torch.models.config import ModelConfig
 
 
@@ -53,18 +63,26 @@ class Server:
     capture raises at the next step. ``captured`` is the decode
     step's graph on the card (its ``warmup_s``, ``capture_s`` and
     ``pool_bytes``), ``captures`` how many times it was captured, and
-    ``logits`` the last step's [B, V] logits (overwritten by the next)."""
+    ``logits`` the last step's [B, V] logits (overwritten by the next).
+
+    On ``mesh`` the given ``params`` are whole and the server keeps this
+    rank's (``sharding.shard_params``; without them ``init_params(mesh=)``
+    makes this rank's directly), and ``cache`` is this rank's
+    (``sharding.shard_cache``, or ``lm.prefill(mesh=)``'s). The step is
+    never captured there."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
-                 seed: int = 0, device=None, params=None):
+                 seed: int = 0, device=None, params=None, mesh=None):
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.params = (params if params is not None
-                       else lm.init_params(cfg, seed, device=self.device))
-        self.decode_fn = lm.make_decode_step(cfg)
-        self.cache = lm.init_cache(cfg, batch, max_len, device=self.device)
+        self.params = (sharding.shard_params(params, cfg, mesh) if params is not None
+                       else lm.init_params(cfg, seed, device=self.device, mesh=mesh))
+        self.decode_fn = lm.make_decode_step(cfg, mesh)
+        self.cache = sharding.shard_cache(
+            lm.init_cache(cfg, batch, max_len, device=self.device), cfg, mesh)
         self.captured: Optional[CapturedGraph] = None
         self.captures = 0
         self.logits: Optional[torch.Tensor] = None
@@ -72,18 +90,26 @@ class Server:
         self.tokens = np.zeros((batch,), np.int32)
         self.free_slots = batch
 
+    def _decide(self, value):
+        """Rank 0's ``value`` on every rank of the mesh (broadcast over
+        ``data``, then over ``model`` from the ranks that now hold it)."""
+        if self.mesh is None:
+            return value
+        for axis in self.mesh.mesh_dim_names:
+            value = mesh_util.broadcast_from_first(value, self.mesh, axis)
+        return value
+
     def admit(self, req: Request) -> bool:
-        if self.free_slots == 0:
+        free = [i for i, slot in enumerate(self.active) if slot is None]
+        i = self._decide(free[0] if free else None)
+        if i is None:
             return False
-        for i, slot in enumerate(self.active):
-            if slot is None:
-                self.active[i] = req
-                # the prompt is processed token by token (one cache len
-                # shared by all slots, as in the JAX package)
-                self.tokens[i] = int(req.prompt[0])
-                self.free_slots -= 1
-                return True
-        return False
+        self.active[i] = req
+        # the prompt is processed token by token (one cache len shared by
+        # all slots, as in the JAX package)
+        self.tokens[i] = int(req.prompt[0])
+        self.free_slots -= 1
+        return True
 
     def _step_body(self, tokens: torch.Tensor):
         """One decode step that advances the cache's own ``len`` in place
@@ -111,9 +137,10 @@ class Server:
         """One decode step of the whole batch on ``tokens`` [B]: writes their
         K/V rows, advances ``len`` by one and returns the next greedy tokens
         [B] int32 on the server's device. On the card this is one replay of
-        the captured step (captured at the first call)."""
+        the captured step (captured at the first call); on a mesh an eager
+        step."""
         tokens = torch.as_tensor(tokens, dtype=torch.int32)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             nxt, self.logits = self._step_body(tokens.to(self.device))
             return nxt
         if self.captured is None:
@@ -125,7 +152,7 @@ class Server:
         return nxt
 
     def step(self) -> int:
-        nxt = self.decode(torch.from_numpy(self.tokens)).cpu().numpy()
+        nxt = self._decide(self.decode(torch.from_numpy(self.tokens)).cpu().numpy())
         done = 0
         for i, req in enumerate(self.active):
             if req is None:

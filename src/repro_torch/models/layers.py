@@ -12,11 +12,22 @@ them for the model:
   ``_decode_partials_jnp``, the flash_decode kernel's math with
   ``valid_len`` masking.
 
-The MoE is the reference's sort-based capacity dispatch on one device
-(``moe_block`` with ``mesh=None``); the expert-parallel path and the
-S-sharded decode wait for the LM's mesh (ROADMAP queue 1 item 14.7).
+The MoE is the reference's sort-based capacity dispatch. On a (data,
+model) mesh of ``torch.distributed`` ranks (``core.mesh.make_host_mesh``)
+two functions take the reference's ``shard_map`` paths, each rank running
+the body on its own block and the collectives joining them:
+
+* ``sharded_decode_attention``: one token's attention over a cache whose
+  slots are split over ``model`` (and rows over ``data``), each rank's
+  partials from the flash_decode kernel on its own slice, merged by
+  log-sum-exp (``lse_merge``);
+* ``moe_block(mesh=)``: expert parallelism, each rank's experts over its
+  tokens, the combine one all-reduce over ``model``.
+
 Every function here keeps its shapes fixed and reads nothing back to the
-host, so a decode step built from them can be captured into a CUDA graph.
+host, so a one-device decode step built from them can be captured into a
+CUDA graph (a step on a mesh runs eagerly: gloo's collectives cannot be
+captured).
 """
 from __future__ import annotations
 
@@ -25,9 +36,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import mesh as mesh_util
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG, flash_attention_plain)
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import decode_partials_plain  # noqa: F401
+from repro_torch.models.sharding import axis_size, batch_rows, sharded_experts
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +116,60 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     x1, x2 = x[..., ::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention: decode over an S-sharded cache (partials + log-sum-exp merge)
+# ---------------------------------------------------------------------------
+
+def lse_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh,
+              axis: str = "model") -> torch.Tensor:
+    """The exact softmax output from every rank's unnormalized partials
+    (acc [..., D], m and l [...], float32) over ``axis``, as the reference
+    merges them: the max of the m's, then the sums of ``acc * w`` and
+    ``l * w`` with ``w = exp(m - max)`` (one all-reduce of both), then
+    ``num / max(den, 1e-30)``. A rank whose slice held no valid slot has
+    ``m = -1e30`` and weighs zero."""
+    m_all = mesh_util.all_reduce_max(m, mesh, axis)
+    w = torch.exp(m - m_all)
+    both = mesh_util.all_reduce_sum(torch.cat([acc * w[..., None], (l * w)[..., None]], -1),
+                                    mesh, axis)
+    return both[..., :-1] / torch.clamp(both[..., -1], min=1e-30)[..., None]
+
+
+def gather_batch(x: torch.Tensor, rows: Optional[slice], mesh) -> torch.Tensor:
+    """A batch-sharded result back to the whole batch on every rank."""
+    return x if rows is None else mesh_util.all_gather_rows(x, mesh, "data")
+
+
+def sharded_decode_attention(q: torch.Tensor, k_local: torch.Tensor,
+                             v_local: torch.Tensor, cache_len, mesh,
+                             seq_axis: str = "model") -> torch.Tensor:
+    """One-token attention with the cache's S axis split over ``seq_axis``
+    (``repro.models.layers.sharded_decode_attention``).
+
+    q: [B, H, hd], whole on every rank; k_local, v_local: this rank's
+    [B_loc, S_loc, Hkv, hd] block of the cache (``sharding.shard_cache``):
+    its rows of the batch when B divides over ``data`` (else all B), its
+    slots ``[rank * S_loc, (rank + 1) * S_loc)``. ``cache_len``: the
+    filled slots of the whole cache (an int32 tensor on q's device). Each
+    rank counts its own on the device, ``clamp(cache_len - rank * S_loc,
+    0, S_loc)``, takes its partials from the flash_decode kernel (its plain
+    version on the CPU) and merges them over ``seq_axis``; a batch-sharded
+    output is all-gathered over ``data``. Returns [B, H, hd] in q's type."""
+    b, h, hd = q.shape
+    s_loc = k_local.shape[1]
+    rows = batch_rows(mesh, b)
+    ql = q if rows is None else q[rows]
+    if k_local.shape[0] != ql.shape[0]:
+        raise ValueError(f"sharded_decode_attention: a cache block of {k_local.shape[0]} "
+                         f"rows for {ql.shape[0]} of the batch's {b}")
+    clen = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
+    start = mesh_util.rank_of(mesh, seq_axis) * s_loc
+    valid = torch.clamp(clen - start, 0, s_loc)
+    acc, m, l = fd_ops.gqa_decode_partials(ql, k_local, v_local, valid)
+    out = gather_batch(lse_merge(acc, m, l, mesh, seq_axis), rows, mesh)
+    return out.reshape(b, h, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +297,26 @@ def _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg,
 
 
 def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None) -> torch.Tensor:
-    """x: [T, D]. Sort-based capacity dispatch over all experts on one
-    device (the reference's ``mesh=None`` path)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_block: expert parallelism over a mesh is not ported "
-            "(ROADMAP queue 1 item 14.7)")
-    return _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg, 0,
-                                 cfg.moe.n_experts)
+    """x: [T, D]. Sort-based capacity dispatch (GShard-style).
+
+    ``mesh=None``, a mesh without a ``model`` axis, or an expert count that
+    does not divide over it: every expert on this device (the reference's
+    single-device path). Otherwise expert parallelism, as the reference's
+    ``shard_map``: the expert leaves are this rank's block of ``E / model``
+    experts (``sharding.shard_params``), the tokens this rank's rows when T
+    divides over ``data`` (capacity counts the local tokens), and the
+    combine is one all-reduce sum of the [T_loc, D] output over ``model``,
+    in x's type as the reference's psum; a batch-sharded output is then
+    all-gathered over ``data``."""
+    e = cfg.moe.n_experts
+    if not sharded_experts(cfg, mesh):
+        return _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg, 0, e)
+    e_loc = e // axis_size(mesh, "model")
+    if e_in.shape[0] != e_loc:
+        raise ValueError(f"moe_block: {e_in.shape[0]} experts on this rank, its block "
+                         f"is {e_loc} of {e} (sharding.shard_params)")
+    rows = batch_rows(mesh, x.shape[0])
+    xl = x if rows is None else x[rows]
+    out = _moe_dispatch_compute(xl, router_w, e_gate, e_in, e_out, cfg,
+                                mesh_util.rank_of(mesh, "model") * e_loc, e_loc)
+    return gather_batch(mesh_util.all_reduce_sum(out, mesh, "model"), rows, mesh)

@@ -30,6 +30,18 @@ rows, the hybrid's conv and SSM states, xLSTM's memories. A copy of a
 1.3 GB cache per step would cost more than the step. The step reads
 nothing back to the host, so ``launch.serve.Server`` captures it into one
 CUDA graph, as the reference's server jits it.
+
+``mesh=`` (a (data, model) mesh of ``core.mesh.make_host_mesh``) runs the
+reference's sharded paths on ranks that all run the same program: the MoE
+splits its experts over ``model`` (``layers.moe_block``) in ``forward``,
+``prefill`` and the decode step; the decode step attends over a cache whose
+slots are split over ``model`` and rows over ``data``
+(``layers.sharded_decode_attention`` for GQA and the hybrid's shared block,
+``mla_latent_attention`` for MLA). On a mesh, params and the cache are each
+rank's (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
+``prefill(mesh=)`` returns the rank's cache); all else is whole and
+computed on every rank. The encoder-decoder and xLSTM decode on one device,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -38,11 +50,12 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import mesh as mesh_util
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models import layers as L
-from repro_torch.models import ssm
+from repro_torch.models import sharding, ssm
 from repro_torch.models.config import ModelConfig
 
 # leaves the reference's init sets to constants: norms to one, and the
@@ -174,35 +187,45 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict[str, Any]:
     """Random params with the JAX package's scheme: normal / sqrt(fan_in),
     norms and 1-D leaves at one, ``dt_bias`` -2, ``A_log`` 0, ``D_skip`` 1.
     The numbers come from a ``torch.Generator`` seeded with ``seed`` on the
     target device, so they differ from ``jax.random``'s; tests carry JAX
     params across with ``convert.lm_params_from_numpy``. A stacked leaf is
     drawn one layer at a time in float32 and stored in the model's type, so
-    the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``)."""
+    the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``).
+    With ``mesh=`` the experts are this rank's block over ``model``
+    (``sharding.shard_params``'s cut of the whole leaf): each layer is drawn
+    whole, as without a mesh, and only the block is kept."""
     dev = resolve_device(device)
     dt = _dt(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = param_shapes(cfg)
+    cut = sharding.sharded_experts(cfg, mesh)
+    specs = sharding.param_pspecs(cfg, shapes, mesh) if cut else None
 
-    def mk(name, shape):
+    def mk(name, shape, spec):
         if name in NORMS or len(shape) == 1:
             return torch.ones(shape, dtype=dt, device=dev)
         if name in CONSTANTS:
             return torch.full(shape, CONSTANTS[name], dtype=dt, device=dev)
-        out = torch.empty(shape, dtype=dt, device=dev)
+        keep = ((lambda w: sharding.block_view(w, spec[1:], mesh, ("model",)))
+                if cut and name in sharding.EXPERTS else (lambda w: w))
+        out = torch.empty((shape[0],) + keep(torch.empty(shape[1:], device="meta")).shape
+                          if len(shape) >= 3 else shape, dtype=dt, device=dev)
         fan_in = np.sqrt(max(shape[-2], 1))
         for part in (out if len(shape) >= 3 else [out]):  # a layer at a time
-            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
-                                   device=dev).div_(fan_in))
+            whole = shape[1:] if len(shape) >= 3 else shape
+            part.copy_(keep(torch.randn(whole, generator=gen, dtype=torch.float32,
+                                        device=dev).div_(fan_in)))
         return out
 
-    def build(tree):  # leaves in the JAX tree's flattening order (sorted keys)
-        return {n: build(v) if isinstance(v, dict) else mk(n, v)
-                for n, v in sorted(tree.items())}
+    def build(tree, spec):  # leaves in the JAX tree's flattening order (sorted keys)
+        return {n: build(v, spec and spec[n]) if isinstance(v, dict)
+                else mk(n, v, spec and spec[n]) for n, v in sorted(tree.items())}
 
-    return build(param_shapes(cfg))
+    return build(shapes, specs)
 
 
 def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -304,12 +327,44 @@ def _cross_attn(x, xblk, cfg: ModelConfig, enc_h):
     return _attend(q, k, v, causal=False) @ xblk["xo"]
 
 
-def _ffn(x, blk, cfg: ModelConfig):
+# unshard-at-use layouts of FSDP weights: gathered over ``data``, still
+# ``model``-sharded (``repro.models.lm._FSDP_GATHER_SPECS``)
+_FSDP_GATHER_SPECS = {
+    "wq": ("model",), "wk": (None,), "wv": (None,), "wo": ("model", None),
+    "w_gate": ("model",), "w_in": ("model",), "w_out": ("model", None),
+    "wq_a": (None,), "wq_b": ("model",), "wkv_a": (None,),
+    "wkv_b": ("model",), "xq": ("model",), "xk": (None,), "xv": (None,),
+    "xo": ("model", None),
+}
+
+
+def _gather_fsdp(blk, cfg: ModelConfig, mesh):
+    """FSDP unshard-at-use (``repro.models.lm._gather_fsdp``) on ranks: each
+    2-D weight of ``_FSDP_GATHER_SPECS`` in one layer's ``blk`` is this
+    rank's block of its d_model dim (the dim ``param_pspecs`` shards over
+    ``data``, which it divides), and is all-gathered over ``data`` to its
+    gathered layout; over ``model`` that is the whole weight, as the port
+    keeps every weight but the experts whole there. The reference never
+    applies it (its ``_decoder_block`` records it refuted for training), and
+    neither does ``forward``."""
+    if mesh is None or not cfg.fsdp:
+        return blk
+    out = dict(blk)
+    for name in _FSDP_GATHER_SPECS:
+        w = out.get(name)
+        if w is None or w.ndim != 2:
+            continue
+        dim = sharding._leaf_spec(name, w.shape, cfg, False).index(("data",))
+        out[name] = mesh_util.all_gather_rows(w.movedim(dim, 0), mesh, "data").movedim(0, dim)
+    return out
+
+
+def _ffn(x, blk, cfg: ModelConfig, mesh=None):
     if cfg.moe is None:
         return L.mlp(x, blk.get("w_gate"), blk["w_in"], blk["w_out"], cfg.act)
     flat = x.reshape(-1, x.shape[-1])
     y = L.moe_block(flat, blk["router"], blk.get("e_gate"), blk["e_in"],
-                    blk["e_out"], cfg)
+                    blk["e_out"], cfg, mesh=mesh)
     if cfg.moe.n_shared:
         y = y + L.mlp(flat, blk.get("sh_gate"), blk["sh_in"], blk["sh_out"], cfg.act)
     return y.reshape(x.shape)
@@ -322,10 +377,11 @@ def _cache_rows(cfg: ModelConfig) -> Tuple[str, str]:
 
 
 def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
-           cross=None, enc_h=None, cache=None):
+           cross=None, enc_h=None, cache=None, mesh=None):
     """The stacked layers of ``blocks`` over x: self-attention (GQA or
     MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
-    FFN. With ``cache`` each layer's rows go to its first S slots."""
+    FFN (expert-parallel on ``mesh``). With ``cache`` each layer's rows go
+    to its first S slots."""
     s = x.shape[1]
     for i in range(_n_layers(blocks)):
         blk = _layer(blocks, i)
@@ -339,7 +395,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
             a = _cross_attn(h, xblk, cfg, enc_h)
         x, h = L.add_rms_norm(x, a, blk["ln2"])
-        x = x + _ffn(h, blk, cfg)
+        x = x + _ffn(h, blk, cfg, mesh)
         if cache is not None:
             for name, row in zip(_cache_rows(cfg), rows):
                 cache[name][i, :, :s] = row
@@ -426,7 +482,7 @@ def encode(params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     return L.rms_norm(e, params["enc_norm"])
 
 
-def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None):
+def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=None):
     """The layers of any family over the embedded tokens x; returns (x,
     the last residual term or None) for ``_final_norm``."""
     if cfg.kind == "hybrid":
@@ -434,22 +490,23 @@ def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None):
     if cfg.kind == "xlstm":
         return _xlstm(x, params, cfg, cache)
     x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
-               cross=params.get("cross"), enc_h=enc_h, cache=cache)
+               cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh)
     return x, None
 
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
-            enc_embeds=None) -> torch.Tensor:
+            enc_embeds=None, mesh=None) -> torch.Tensor:
     """Returns final hidden states [B, S, D]. tokens: [B, S] int (the
     decoder's input); enc_embeds: [B, S_src, D] for the encoder-decoder;
-    pos3: [3, B, S] for M-RoPE."""
+    pos3: [3, B, S] for M-RoPE; ``mesh``: the MoE's experts split over its
+    ``model`` axis (``params`` are this rank's)."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
     enc_h = encode(params, cfg, enc_embeds) if cfg.kind == "encdec" else None
-    return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h))
+    return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h, mesh=mesh))
 
 
 # ===========================================================================
@@ -497,11 +554,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     return cache
 
 
-def _decode_attn(q, k_cache, v_cache, valid_len):
+def _decode_attn(q, k_cache, v_cache, valid_len, mesh=None):
     """q: [B,H,hd]; caches [B,S,kv,hd]; valid_len: filled slots. A cache of
     no slots (an empty encoder memory) attends to nothing: the reference's
-    softmax over zero keys gives zeros, and so does this, with no launch."""
+    softmax over zero keys gives zeros, and so does this, with no launch.
+    On ``mesh`` the caches are this rank's block of slots (and rows), and
+    ``valid_len`` counts the whole cache's."""
     b, h, hd = q.shape
+    if mesh is not None:
+        return L.sharded_decode_attention(q, k_cache, v_cache, valid_len, mesh)
     if k_cache.shape[1] == 0:
         return torch.zeros_like(q)
     acc, _, l = fd_ops.gqa_decode_partials(q, k_cache, v_cache, valid_len)
@@ -509,24 +570,64 @@ def _decode_attn(q, k_cache, v_cache, valid_len):
     return o.reshape(b, h, hd).to(q.dtype)
 
 
-def mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid_len, scale: float):
-    """MLA's decode attention in the latent space, the reference's
-    ``_mla_latent_attention`` without a mesh, in float32: q_c [B,H,kv_lora]
-    (float32), q_pe [B,H,rope], caches ckv_c [B,S,kv_lora] and kpe_c
-    [B,S,rope] of which the first ``valid_len`` slots count. Returns the
-    attention-weighted latent [B,H,kv_lora]."""
+def _latent_partials(q_c, q_pe, ckv_c, kpe_c, valid_len, offset, scale: float):
+    """Unnormalized (acc, m, l) of MLA's latent attention over cache slots
+    ``offset + [0, S)``, of which those below ``valid_len`` count."""
     sc = (torch.einsum("bhk,bsk->bhs", q_c, ckv_c.float())
           + torch.einsum("bhr,bsr->bhs", q_pe.float(), kpe_c.float())) * scale
-    cols = torch.arange(ckv_c.shape[1], device=sc.device)
+    cols = torch.arange(ckv_c.shape[1], device=sc.device) + offset
     sc = torch.where(cols[None, None, :] < valid_len, sc, L.NEG)
     m = sc.amax(-1)
     p = torch.exp(sc - m[..., None])
-    acc = torch.einsum("bhs,bsk->bhk", p, ckv_c.float())
-    return acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+    return torch.einsum("bhs,bsk->bhk", p, ckv_c.float()), m, p.sum(-1)
+
+
+def mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid_len, scale: float, mesh=None):
+    """MLA's decode attention in the latent space, the reference's
+    ``_mla_latent_attention``, in float32: q_c [B,H,kv_lora] (float32),
+    q_pe [B,H,rope], caches ckv_c [B,S,kv_lora] and kpe_c [B,S,rope] of
+    which the first ``valid_len`` slots count. Returns the
+    attention-weighted latent [B,H,kv_lora]. On ``mesh`` the caches are
+    this rank's block of slots over ``model`` (columns offset by ``rank *
+    S_loc``) and of rows over ``data`` when B divides it; the partials
+    merge by log-sum-exp, as the reference's ``shard_map`` does."""
+    if mesh is None:
+        acc, _, l = _latent_partials(q_c, q_pe, ckv_c, kpe_c, valid_len, 0, scale)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+    rows = sharding.batch_rows(mesh, q_c.shape[0])
+    if rows is not None:
+        q_c, q_pe = q_c[rows], q_pe[rows]
+    offset = mesh_util.rank_of(mesh, "model") * ckv_c.shape[1]
+    acc, m, l = _latent_partials(q_c, q_pe, ckv_c, kpe_c, valid_len, offset, scale)
+    return L.gather_batch(L.lse_merge(acc, m, l, mesh), rows, mesh)
+
+
+def _mesh_slot(clen, s_loc: int, batch: int, mesh):
+    """Where a decode step on ``mesh`` writes its cache row: the reference
+    writes slot ``min(len, S - 1)`` of the whole cache of S = ``s_loc *
+    model`` slots, which exactly one rank over ``model`` holds. Returns
+    (this rank's slot index [1], whether it holds that slot (a bool on the
+    device), its rows of the batch or None)."""
+    start = mesh_util.rank_of(mesh, "model") * s_loc
+    g = torch.clamp(clen, max=s_loc * sharding.axis_size(mesh, "model") - 1)
+    own = (g >= start) & (g < start + s_loc)
+    return (torch.clamp(g - start, 0, s_loc - 1).reshape(1).long(), own,
+            sharding.batch_rows(mesh, batch))
+
+
+def _write_row(cache_row, row, slot) -> None:
+    """``cache_row`` [B,S,...] takes ``row`` [B,1,...] at ``slot``, a [1]
+    index; on a mesh (``_mesh_slot``) the rank's rows of it, and only where
+    the rank holds the slot (elsewhere the slot is written back as it is)."""
+    if isinstance(slot, tuple):
+        slot, own, rows = slot
+        row = row if rows is None else row[rows]
+        row = torch.where(own, row, cache_row.index_select(1, slot))
+    cache_row.index_copy_(1, slot, row)
 
 
 def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
-                     positions):
+                     positions, mesh=None):
     """One token's self-attention (its K/V row written at ``slot`` in
     place), through the output projection."""
     b, hd = h.shape[0], cfg.hd
@@ -534,13 +635,14 @@ def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
     k = (h @ blk["wk"]).view(b, 1, cfg.n_kv_heads, hd)
     v = (h @ blk["wv"]).view(b, 1, cfg.n_kv_heads, hd)
     q, k = _rotate(q, k, cfg, positions, _pos3(cfg, positions, None))
-    k_cache.index_copy_(1, slot, k)
-    v_cache.index_copy_(1, slot, v)
-    o = _decode_attn(q[:, 0], k_cache, v_cache, valid)
+    _write_row(k_cache, k, slot)
+    _write_row(v_cache, v, slot)
+    o = _decode_attn(q[:, 0], k_cache, v_cache, valid, mesh)
     return o.reshape(b, cfg.n_heads * hd) @ blk["wo"]
 
 
-def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions):
+def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions,
+                     mesh=None):
     """One token's MLA (``repro.models.lm._mla_decode``): its latent and
     rotary key rows written at ``slot`` in place, then the absorbed
     attention: q_nope through ``w_uk`` into the latent space, attention over
@@ -555,18 +657,18 @@ def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positi
     ckv = L.rms_norm(kv[..., :m.kv_lora], blk["kv_ln"])
     kpe = L.apply_rope(kv[..., m.kv_lora:][:, None, None, :], positions,
                        cfg.rope_theta)[:, 0, 0]
-    ckv_c.index_copy_(1, slot, ckv[:, None])
-    kpe_c.index_copy_(1, slot, kpe[:, None])
+    _write_row(ckv_c, ckv[:, None], slot)
+    _write_row(kpe_c, kpe[:, None], slot)
     wkv_b = blk["wkv_b"].view(m.kv_lora, H, m.nope_dim + m.v_dim)
     w_uk, w_uv = wkv_b[..., :m.nope_dim], wkv_b[..., m.nope_dim:]
     q_c = torch.einsum("bhn,khn->bhk", q_nope.float(), w_uk.float())
     ctx = mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid,
-                               (m.nope_dim + m.rope_dim) ** -0.5)
+                               (m.nope_dim + m.rope_dim) ** -0.5, mesh)
     o = torch.einsum("bhk,khv->bhv", ctx, w_uv.float())
     return o.reshape(b, H * m.v_dim).to(h.dtype) @ blk["wo"]
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """Returns decode_step(params, cache, token [B], enc_h=None) -> (logits
     [B,V], cache).
 
@@ -577,9 +679,16 @@ def make_decode_step(cfg: ModelConfig):
     (the hybrid's conv and SSM states, xLSTM's memories) are overwritten in
     place with the step's. The encoder-decoder's cross-attention reads
     ``enc_h``, by default the cache's, and recomputes its K and V every
-    step, as the reference does."""
+    step, as the reference does.
+
+    On ``mesh`` (GQA and MLA decoders, the hybrid) ``params`` and ``cache``
+    are this rank's (``models.sharding``): the row goes to the rank that
+    holds the slot, attention runs over each rank's slots and merges, and
+    the MoE splits its experts. The encoder-decoder and xLSTM ignore
+    ``mesh``, as the reference's do."""
     check_supported(cfg)
     hd = cfg.hd
+    mesh = mesh if sharding.sharded_cache(cfg) else None
 
     def decoder(x, params, cache, slot, valid, positions, enc_h):
         blocks, cross = params["blocks"], params.get("cross")
@@ -588,7 +697,7 @@ def make_decode_step(cfg: ModelConfig):
             blk = _layer(blocks, i)
             h = L.rms_norm(x, blk["ln1"])
             attn = _mla_decode_attn if cfg.attn == "mla" else _gqa_decode_attn
-            a = attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid, positions)
+            a = attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid, positions, mesh)
             if cross is not None:
                 xblk = _layer(cross, i)
                 x, h = L.add_rms_norm(x, a, xblk["ln_x"])
@@ -599,7 +708,7 @@ def make_decode_step(cfg: ModelConfig):
                 o = _decode_attn(q, ke, ve, ke.shape[1])
                 a = o.reshape(b, cfg.n_heads * hd) @ xblk["xo"]
             x, h = L.add_rms_norm(x, a, blk["ln2"])
-            x = x + _ffn(h, blk, cfg)
+            x = x + _ffn(h, blk, cfg, mesh)
         return x, None
 
     def hybrid(x, params, cache, slot, valid, positions):
@@ -619,7 +728,7 @@ def make_decode_step(cfg: ModelConfig):
                 ai = i // cfg.attn_every
                 x = x + last
                 a = _gqa_decode_attn(L.rms_norm(x, sh["ln1"]), sh, cfg, cache["k"][ai],
-                                     cache["v"][ai], slot, valid, positions)
+                                     cache["v"][ai], slot, valid, positions, mesh)
                 x, h = L.add_rms_norm(x, a, sh["ln2"])
                 last = L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu")
         return x, last
@@ -659,7 +768,8 @@ def make_decode_step(cfg: ModelConfig):
             x, last = xlstm(x, params, cache)
         else:
             rows = cache["k"] if cfg.kind == "hybrid" else cache[_cache_rows(cfg)[0]]
-            slot = torch.clamp(clen, max=rows.shape[2] - 1).reshape(1).long()
+            slot = (torch.clamp(clen, max=rows.shape[2] - 1).reshape(1).long()
+                    if mesh is None else _mesh_slot(clen, rows.shape[2], x.shape[0], mesh))
             if cfg.kind == "hybrid":
                 x, last = hybrid(x, params, cache, slot, valid, positions)
             else:
@@ -678,11 +788,13 @@ def make_decode_step(cfg: ModelConfig):
 # ===========================================================================
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
-            pos3=None):
+            pos3=None, mesh=None):
     """Logits of the last token (no vocab mask, as in the JAX package) and
     a cache of ``max_len`` slots holding the prompt's rows (K/V, MLA's
     latent rows, the hybrid's K/V and states, xLSTM's memories; for the
-    encoder-decoder also the encoder's memory of ``enc_embeds``)."""
+    encoder-decoder also the encoder's memory of ``enc_embeds``). On
+    ``mesh`` the MoE splits its experts (``params`` are this rank's) and
+    the cache returned is this rank's (``sharding.shard_cache``)."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
@@ -693,8 +805,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
     enc_h = None
     if cfg.kind == "encdec":
         enc_h = cache["enc_h"] = encode(params, cfg, enc_embeds)
-    x, last = _body(params, cfg, x, positions, pos3, enc_h, cache)
+    x, last = _body(params, cfg, x, positions, pos3, enc_h, cache, mesh)
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    cache = sharding.shard_cache(cache, cfg, mesh)
     if last is not None:  # the last token's slice keeps XLA from fusing the add
         x = x + last
     return _logits(params, _final_norm(params, x[:, -1])), cache

@@ -634,7 +634,275 @@ def fault_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
     print(f"rank {rank}: drain returned, {srv.failed} requests failed", flush=True)
 
 
-SUITES = {"partitioned": partitioned_suite, "sharded": sharded_suite, "fault": fault_suite}
+# ---------------------------------------------------------------------------
+# the LM on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH_SHAPES = ((2, 4), (1, 8))  # (data, model) meshes of the 8 ranks
+LM_MESH_ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-1.2b")
+LM_MESH_DTYPE = {(2, 4): "bfloat16", (1, 8): "float32"}  # of each mesh's LM runs
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_MAX_LEN, LM_MESH_STEPS = 4, 14, 64, 3
+LM_F32_TOL, LM_BF16_TOL = 2e-4, 3e-2  # the port's LM bars (tests/test_torch_lm_families.py)
+ATTN_SHAPE = (8, 2, 16)  # query heads, KV heads, head dim of the attention cases
+
+
+def lm_tol(dtype: str) -> float:
+    return LM_F32_TOL if dtype == "float32" else LM_BF16_TOL
+
+
+def lm_mesh_cases(shape: tuple) -> list:
+    """The cases of the ``lm-mesh`` suite on a (data, model) mesh of
+    ``shape``, in the order the ranks run them. Each is a dict with a
+    unique ``label``; ``lm_mesh_inputs`` makes its inputs."""
+    tag = f"{shape[0]}x{shape[1]}"
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        # len 1: every rank but the first holds no valid slot; b 1: the
+        # batch does not divide over data and is replicated
+        for b, n in ((4, 1), (4, 37), (4, LM_MESH_MAX_LEN), (1, 37)):
+            cases.append(dict(label=f"{tag}/attn/{dtype}/b{b}/len{n}", kind="attn",
+                              dtype=dtype, b=b, len=n))
+        # 600 tokens: 300 a data rank on (2, 4), past the dropless 256;
+        # 4 experts do not divide over 8 model ranks, 8 do
+        for t, e in ((8, 4), (600, 4), (8, 8)):
+            cases.append(dict(label=f"{tag}/moe/{dtype}/t{t}/e{e}", kind="moe",
+                              dtype=dtype, t=t, experts=e))
+        for n in (1, 37):
+            cases.append(dict(label=f"{tag}/mla/{dtype}/len{n}", kind="mla", dtype=dtype,
+                              b=LM_MESH_BATCH, len=n))
+    dtype = LM_MESH_DTYPE[shape]
+    for arch in LM_MESH_ARCHS:
+        cases.append(dict(label=f"{tag}/lm/{dtype}/{arch}", kind="lm", arch=arch,
+                          dtype=dtype, prompt=LM_MESH_PROMPT))
+    if shape == (2, 4):
+        # the last two steps write the last slot (len clamped to max_len - 1)
+        cases.append(dict(label=f"{tag}/lm/{dtype}/granite-3-2b/clamped", kind="lm",
+                          arch="granite-3-2b", dtype=dtype, prompt=LM_MESH_MAX_LEN - 2))
+        cases.append(dict(label=f"{tag}/serve/float32/granite-moe-1b-a400m", kind="serve",
+                          arch="granite-moe-1b-a400m", dtype="float32"))
+    return cases
+
+
+def lm_mesh_config(case: dict, smoke_config: Callable):
+    """The case's model config from ``smoke_config`` (either package's
+    ``get_smoke_config``), in the case's type."""
+    import dataclasses
+    arch = case.get("arch", "deepseek-v2-236b" if case["kind"] == "mla"
+                    else "granite-moe-1b-a400m")
+    cfg = dataclasses.replace(smoke_config(arch), dtype=case["dtype"])
+    if case["kind"] == "moe":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               n_experts=case["experts"]))
+    return cfg
+
+
+def seeded_lm_params(shapes: dict, seed: int) -> dict:
+    """float32 numpy params of the shape tree ``shapes`` (``lm.param_shapes``)
+    by ``lm.init_params``'s scheme (norms and 1-D leaves one, ``dt_bias``
+    -2, ``A_log`` 0, ``D_skip`` 1, the rest normal / sqrt(fan_in)), from a
+    numpy seed, in sorted key order; each package casts them to its type."""
+    from repro_torch.models.lm import CONSTANTS, NORMS
+    rng = np.random.default_rng(seed)
+
+    def mk(name, shape):
+        if name in NORMS or len(shape) == 1:
+            return np.ones(shape, np.float32)
+        if name in CONSTANTS:
+            return np.full(shape, CONSTANTS[name], np.float32)
+        return (rng.standard_normal(shape) / np.sqrt(max(shape[-2], 1))).astype(np.float32)
+
+    def build(tree):
+        return {n: build(v) if isinstance(v, dict) else mk(n, tuple(v))
+                for n, v in sorted(tree.items())}
+
+    return build(shapes)
+
+
+def lm_mesh_inputs(case: dict, cfg) -> dict:
+    """The case's inputs as float32 / int32 numpy arrays (each package
+    casts them to the case's type), from a seed of its label."""
+    import zlib
+    rng = np.random.default_rng(zlib.crc32(case["label"].encode()))
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    kind = case["kind"]
+    if kind == "attn":
+        hq, hkv, hd = ATTN_SHAPE
+        b, s = case["b"], LM_MESH_MAX_LEN
+        return {"q": normal(b, hq, hd), "k": normal(b, s, hkv, hd), "v": normal(b, s, hkv, hd)}
+    if kind == "moe":
+        d, mo = cfg.d_model, cfg.moe
+        return {"x": normal(case["t"], d), "router": normal(d, mo.n_experts, scale=d ** -0.5),
+                "e_gate": normal(mo.n_experts, d, mo.d_expert, scale=d ** -0.5),
+                "e_in": normal(mo.n_experts, d, mo.d_expert, scale=d ** -0.5),
+                "e_out": normal(mo.n_experts, mo.d_expert, d, scale=mo.d_expert ** -0.5)}
+    if kind == "mla":
+        m, b, h, s = cfg.mla, case["b"], cfg.n_heads, LM_MESH_MAX_LEN
+        return {"q_c": normal(b, h, m.kv_lora), "q_pe": normal(b, h, m.rope_dim),
+                "ckv": normal(b, s, m.kv_lora), "kpe": normal(b, s, m.rope_dim)}
+    from repro_torch.models import lm
+    out = {"params": seeded_lm_params(lm.param_shapes(cfg), zlib.crc32(case["arch"].encode()))}
+    if kind == "lm":
+        out["prompt"] = rng.integers(0, cfg.vocab, (LM_MESH_BATCH, case["prompt"])).astype(np.int32)
+        out["steps"] = rng.integers(0, cfg.vocab, (LM_MESH_STEPS, LM_MESH_BATCH)).astype(np.int32)
+    else:  # serve: 6 prompts of 4-11 tokens, 4 new tokens each
+        out["prompts"] = [rng.integers(0, cfg.vocab, rng.integers(4, 12)).astype(np.int32)
+                          for _ in range(6)]
+        out["max_new"] = 4
+    return out
+
+
+def mla_scale(cfg) -> float:
+    return (cfg.mla.nope_dim + cfg.mla.rope_dim) ** -0.5
+
+
+def _lm_mesh_case(case: dict, mesh, say_line: Callable) -> np.ndarray:
+    """Runs one case on this rank of ``mesh`` and on one device (this
+    process, no collective); holds the first to the second at the case's
+    bar (``lm_tol``) and returns the first as float32 numpy."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L, lm, sharding
+    cfg = lm_mesh_config(case, get_smoke_config)
+    inp = lm_mesh_inputs(case, cfg)
+    dt = getattr(torch, case["dtype"])
+    kind = case["kind"]
+    t = {k: torch.from_numpy(v) for k, v in inp.items() if isinstance(v, np.ndarray)}
+    note = ""
+
+    def cut(x, spec):
+        return sharding.local_block(x, spec, mesh, ("data", "model"))
+
+    if kind in ("attn", "mla"):
+        names = ("q", "k", "v") if kind == "attn" else ("q_c", "q_pe", "ckv", "kpe")
+        args = [t[n] if n == "q_c" else t[n].to(dt) for n in names]
+        b = args[0].shape[0]
+        b_ax = sharding.batch_spec(mesh, b)[0]
+        spec = (b_ax, ("model",)) + (None,) * (args[-1].ndim - 2)
+        local = [cut(a, spec) for a in args[len(names) - 2:]]
+        clen = torch.tensor(case["len"], dtype=torch.int32)
+        if kind == "attn":
+            got = L.sharded_decode_attention(args[0], *local, clen, mesh)
+            want = lm._decode_attn(*args, clen)
+        else:
+            got = lm.mla_latent_attention(*args[:2], *local, clen, mla_scale(cfg), mesh)
+            want = lm.mla_latent_attention(*args, clen, mla_scale(cfg))
+        ways = sharding.axis_size(mesh, "model")
+        empty = sum(case["len"] <= r * (LM_MESH_MAX_LEN // ways) for r in range(ways))
+        note = (f"rows {'split over data' if b_ax else 'replicated'}, ranks over model "
+                f"holding no valid slot: {empty}")
+    elif kind == "moe":
+        w = {k: t[k].to(dt) for k in ("router", "e_gate", "e_in", "e_out")}
+        split = sharding.sharded_experts(cfg, mesh)
+        loc = {k: (cut(v, (("model",), None, None)) if split and k != "router" else v)
+               for k, v in w.items()}
+        x = t["x"].to(dt)
+        got = L.moe_block(x, loc["router"], loc["e_gate"], loc["e_in"], loc["e_out"], cfg, mesh)
+        want = L.moe_block(x, w["router"], w["e_gate"], w["e_in"], w["e_out"], cfg)
+        rows = sharding.batch_rows(mesh, x.shape[0])
+        t_loc = x.shape[0] if rows is None else rows.stop - rows.start
+        note = (f"experts {'split over model' if split else 'whole: E % model != 0'}, "
+                f"{t_loc} tokens a rank, capacity {L.capacity(cfg, t_loc)}")
+        if x.shape[0] > L.DROPLESS_TOKENS and L.capacity(cfg, t_loc) != L.capacity(
+                cfg, x.shape[0]):
+            # capacity counts the rank's tokens, as in the reference: one
+            # device drops other assignments, so only JAX's shard_map compares
+            say_line(f"{case['label']}: {note}; capacity differs from one device's "
+                     f"{L.capacity(cfg, x.shape[0])}: held to JAX only")
+            return got.float().numpy()
+    else:
+        whole = convert.lm_params_from_numpy(inp["params"], device="cpu", dtype=dt)
+        if kind == "serve":
+            def run(m):
+                srv = serve.Server(cfg, LM_MESH_BATCH, LM_MESH_MAX_LEN, device="cpu",
+                                   params=whole, mesh=m)
+                reqs = [serve.Request(rid=i, prompt=p, max_new=inp["max_new"])
+                        for i, p in enumerate(inp["prompts"])]
+                steps = serve.serve(srv, reqs)
+                out = np.full((len(reqs), LM_MESH_MAX_LEN), -1, np.int32)
+                for i, r in enumerate(reqs):
+                    out[i, :len(r.out)] = r.out
+                return out, steps
+            (got, steps), (want, _) = run(mesh), run(None)
+            np.testing.assert_array_equal(got, want, err_msg=case["label"])
+            say_line(f"{case['label']}: {len(inp['prompts'])} requests in {steps} steps, "
+                     "tokens == one device: OK")
+            return got.astype(np.float32)
+        params = sharding.shard_params(whole, cfg, mesh)
+        srv = serve.Server(cfg, LM_MESH_BATCH, LM_MESH_MAX_LEN, device="cpu", params=whole,
+                           mesh=mesh)
+        logits, srv.cache = lm.prefill(params, cfg, t["prompt"], LM_MESH_MAX_LEN, mesh=mesh)
+        step1 = lm.make_decode_step(cfg)
+        want_l, cache1 = lm.prefill(whole, cfg, t["prompt"], LM_MESH_MAX_LEN)
+        got, want = [logits], [want_l]
+        for tok in t["steps"]:
+            srv.decode(tok)
+            got.append(srv.logits)
+            lg, cache1 = step1(whole, cache1, tok)
+            want.append(lg)
+        got, want = torch.stack(got), torch.stack(want)
+        note = (f"MoE experts {'split over model' if sharding.sharded_experts(cfg, mesh) else 'whole'}"
+                if cfg.moe else "no MoE")
+    tol = lm_tol(case["dtype"])
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=lambda m: f"{case['label']}: {m}")
+    say_line(f"{case['label']}: {note}; == one device, max|err|={err:.3g} (bar {tol:g}): OK")
+    return got.float().numpy()
+
+
+def _check_gather_fsdp(mesh, say_line: Callable) -> None:
+    """``lm._gather_fsdp`` of one layer's FSDP weights, each cut to this
+    rank's block over ``data``, gives the whole weights back."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm, sharding
+    cfg = dataclasses.replace(get_smoke_config("deepseek-67b"), fsdp=True, dtype="float32")
+    whole = lm.init_params(cfg, seed=3, device="cpu")
+    blk = {k: w[0] for k, w in whole["blocks"].items()}
+    local = {k: (sharding.local_block(w, sharding._fit(sharding._leaf_spec(k, w.shape, cfg, False),
+                                                       w.shape, mesh), mesh, ("data",))
+                 if k in lm._FSDP_GATHER_SPECS else w) for k, w in blk.items()}
+    assert any(local[k].shape != blk[k].shape for k in lm._FSDP_GATHER_SPECS if k in blk)
+    got = lm._gather_fsdp(local, cfg, mesh)
+    for k, w in blk.items():
+        assert torch.equal(got[k], w), k
+    say_line(f"_gather_fsdp over data={sharding.axis_size(mesh, 'data')}: "
+             f"{sorted(k for k in lm._FSDP_GATHER_SPECS if k in blk)} whole again: OK")
+
+
+def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the LM's mesh proof on 8 ranks: every case of
+    ``lm_mesh_cases`` on the (2, 4) and (1, 8) meshes, each held to this
+    rank's one-device run of the same inputs; FSDP's gather. Every rank
+    writes what it computed to ``out_dir/rank{rank}.npz`` (one array a
+    case label), which the tests hold to JAX's ``shard_map`` results."""
+    from repro_torch.core import mesh as mesh_util
+    if ways != 8:
+        raise ValueError(f"lm-mesh runs on 8 ranks, not {ways}")
+    results = {}
+
+    def line(text):
+        say(rank, text)
+
+    for shape in LM_MESH_SHAPES:
+        mesh = mesh_util.make_host_mesh(*shape, device="cpu")
+        for case in lm_mesh_cases(shape):
+            results[case["label"]] = _lm_mesh_case(case, mesh, line)
+        if shape[0] > 1:
+            _check_gather_fsdp(mesh, line)
+    if out_dir is not None:
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
+    say(rank, "lm-mesh suite: OK")
+
+
+SUITES = {"partitioned": partitioned_suite, "sharded": sharded_suite, "fault": fault_suite,
+          "lm-mesh": lm_mesh_suite}
 
 
 def main(argv=None) -> int:
@@ -645,6 +913,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=GROUP_TIMEOUT_S,
                     help="the group's timeout in seconds")
     a = ap.parse_args(argv)
+    if a.out is not None:
+        Path(a.out).mkdir(parents=True, exist_ok=True)
     spawn_ranks(SUITES[a.suite], a.ways, args=(a.out,), timeout_s=a.timeout)
     return 0
 

@@ -354,13 +354,6 @@ def test_router_on_tied_gates_matches_jax(dtype):
     _close(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
 
 
-def test_moe_block_on_a_mesh_raises():
-    _, tcfg = _cfgs("granite-moe-1b-a400m", "float32")
-    ws = [torch.from_numpy(w) for w in _moe_weights(tcfg, np.random.default_rng(0))]
-    with pytest.raises(NotImplementedError, match="14.7"):
-        tL.moe_block(torch.zeros((4, tcfg.d_model)), *ws, tcfg, mesh=object())
-
-
 # ---------------------------------------------------------------------------
 # M-RoPE
 # ---------------------------------------------------------------------------
