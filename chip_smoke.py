@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and cuDNN.
-2. build: compiles the five CUDA kernels from src/repro_torch/kernels/csrc,
+2. build: compiles the six CUDA kernel libraries (the five ported kernels
+   and flash_attention's backward) from src/repro_torch/kernels/csrc,
    one nvcc per source, all started together; prints ptxas's registers,
    shared memory and spills per decision_forest instance (and fails on a
    spill); checks in their SASS (cuobjdump) that every instance of the two
@@ -212,6 +213,36 @@ Phases, each printing its own lines; any failure exits non-zero:
       embeddings, if that is larger;
       1 mLSTM + 1 sLSTM layer card vs CPU; the main path, which launches no
       kernel (prefill's sLSTM scans its 2,048 tokens eagerly).
+10. LM training (``lm.loss_fn``, ``lm.make_train_step``, ``train.*``):
+   a. [parity] flash_attention backward (after phase 3): the kernels of
+      csrc/flash_attention_bwd.cu against ``flash_attention_bwd_plain`` on
+      the plain forward's o and lse, every instantiated (D, Dv) pair at
+      three test shapes (G 1/2/4, ragged S and Skv), causal and not, f32
+      at 2e-4 and bf16 at 3e-2; then bf16 at granite-3-2b's training shape
+      (B 4, S 2048, 32 / 8 heads, D 64, causal), MLA's (192, 128) at B 1
+      with 128 heads and seamless's non-causal cross attention at Skv
+      1000; two calls bit-equal; the forward with lse bit-equal to the
+      forward without it, its lse against the plain version's;
+   b. [lm-train]: one train step's loss and gradients in f32 on the card
+      (the kernels, forward and backward) against the CPU (the plain
+      versions): granite-3-2b at full width cut to 2 layers, B 2 x 128,
+      deepseek-v2's smoke config at the kernel's (64, 32) pair and
+      zamba2's smoke config, B 2 x 64; the loss at 1e-4, every gradient
+      leaf at 2e-4 of its largest |g|, and one ``make_train_step`` each
+      whose losses agree at 1e-4. Then granite-3-2b at full width and
+      depth in bf16 (remat on, as its config says), AdamW with f32
+      moments, ``TokenPipeline`` batches of B 4 x 2048 in 2 microbatches,
+      8 steps: the losses (finite), ms a step, tokens/s, peak memory and
+      the launches a step (flash_attention's forward 160, twice a layer
+      and microbatch under remat; its backward 80), then one profiled
+      step. On the smoke config (bf16): the loss falls over 12 steps
+      (``tests/test_train_infra.py``'s run) and 3 steps + checkpoint +
+      restore + 3 steps equal 6 straight steps (rtol 1e-5);
+   c. [time] flash_attention backward at granite-3-2b's training shape:
+      the kernels' ms beside the plain version's and SDPA's backward
+      (``autograd.grad`` of ``scaled_dot_product_attention`` on a kept
+      graph, its forward not rerun), the bound from 2.5x the forward's
+      operations, and the launches a train step.
    Each phase's wall seconds follow it on a ``[phase]`` line.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -268,6 +299,10 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                         "src/repro/kernels/flash_attention/kernel.py:71"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:70"),
+    # no TPU kernel: the reference trains through the autodiff of the
+    # Pallas kernel's jnp twin
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:72"),
 }
 ENGINE_KERNELS = ("block_matmul", "decision_forest", "fused_dense")  # phase 4
 LM_KERNELS = ("flash_attention", "flash_decode")  # phase 6d
@@ -283,13 +318,22 @@ def _kernel_modules():
             "flash_attention": fa, "flash_decode": fdec}
 
 
+def _counters() -> dict:
+    """name -> (module, attribute) of each kernel's launch count; the
+    backward of flash_attention counts beside its forward."""
+    mods = _kernel_modules()
+    out = {name: (mod, "launches") for name, mod in mods.items()}
+    out["flash_attention_bwd"] = (mods["flash_attention"], "bwd_launches")
+    return out
+
+
 def reset_launches() -> None:
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def card_peaks(name: str):
@@ -480,7 +524,9 @@ TENSOR_CORE_KERNELS = (
     ("fused_dense", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
     ("fused_dense", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
     ("flash_attention", "bf16 (D, Dv)", r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", 7, "HGMMA"),
-    ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA"))
+    ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA"),
+    ("flash_attention_bwd", "dK/dV bf16 (D, Dv)", r"tc8bwd_dkdvILi(\d+)ELi(\d+)E", 5, "HMMA"),
+    ("flash_attention_bwd", "dQ bf16 (D, Dv)", r"tc6bwd_dqILi(\d+)ELi(\d+)E", 5, "HMMA"))
 _READABLE = {"1": "16-byte", "0": "element"}
 
 
@@ -488,7 +534,8 @@ def phase_sass(build) -> None:
     """Tensor-core instructions in the SASS (cuobjdump of the built
     libraries): HGMMA (wgmma) in every f32 instance of the two GEMMs and
     every bf16 flash_attention instance, HMMA (mma.sync) in every bf16
-    instance of the GEMMs and of flash_decode's sweep."""
+    instance of the GEMMs, of flash_decode's sweep and of flash_attention's
+    backward up to D 128."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -3033,6 +3080,283 @@ def phase_kernel_times(shapes: dict, launches: dict, errs: dict,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 10. LM training
+# ---------------------------------------------------------------------------
+
+BWD_TEST_SHAPES = [(2, 4, 2, 37, 37), (1, 4, 1, 130, 130), (1, 2, 2, 70, 45)]  # B Hq Hkv S Skv
+BWD_MAIN_SHAPES = {  # label -> (B, Hq, Hkv, S, Skv, D, Dv, causal)
+    "granite-3-2b": (4, 32, 8, 2048, 2048, 64, 64, True),
+    "deepseek-v2 MLA": (1, 128, 128, 2048, 2048, 192, 128, True),
+    "seamless cross": (4, 16, 16, 2048, 1000, 64, 64, False),
+}
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 4, 2048, 2
+TRAIN_GRAD_TOL = 2e-4  # card vs CPU: each gradient leaf against its largest |g|
+TRAIN_LOSS_TOL = 1e-4
+RESUME_RTOL = 1e-5  # tests/test_train_infra.py::test_train_resume_bit_identical
+
+
+def _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, dtype):
+    """q, k, v and an output cotangent do as [B,H,S,D] views of [B,S,H,D]
+    tensors, as the model hands them in."""
+    return [_normal(gen, sh, dtype=dtype).transpose(1, 2)
+            for sh in ((b, s, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv), (b, s, hq, dv))]
+
+
+def _plain_bwd(q, k, v, do, causal):
+    """The plain forward's o and lse and the plain backward's gradients,
+    in the wrapper's [B,H,S,*] layout."""
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
+                                                        flash_attention_plain)
+    t = lambda x: x.transpose(1, 2)
+    o, lse = flash_attention_plain(t(q), t(k), t(v), causal=causal, return_lse=True)
+    grads = flash_attention_bwd_plain(t(q), t(k), t(v), o, lse, t(do), causal)
+    return t(o), t(lse), [t(g) for g in grads]
+
+
+def bwd_vs_plain(inputs, causal: bool, tol: float, label: str) -> tuple:
+    """The backward kernels against the plain backward on the plain
+    forward's o and lse; returns the largest |err| of dq, dk and dv and
+    the largest |err| over the bar."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v, do = inputs
+    o, lse, want = _plain_bwd(q, k, v, do, causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    layout = lambda t: [st for st, n in zip(t.stride(), t.shape) if n > 1]
+    for name, g, x in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        if g.shape != x.shape or layout(g) != layout(x) or g.dtype != x.dtype:
+            raise AssertionError(f"{label} {name}: {tuple(g.shape)} {g.stride()} {g.dtype} "
+                                 f"for {tuple(x.shape)} {x.stride()} {x.dtype}")
+    return (max(kernel_vs_plain(g, w, tol, f"{label} {name}")
+                for g, w, name in zip(got, want, ("dq", "dk", "dv"))),
+            max(bar_ratio(g, w, tol) for g, w in zip(got, want)))
+
+
+def phase_attention_bwd_parity() -> dict:
+    """10a: flash_attention's backward kernels against the plain backward."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = 0
+    for d, dv in sorted(fa.HEAD_DIMS):
+        for b, hq, hkv, s, skv in BWD_TEST_SHAPES:
+            for causal in (True, False):
+                for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, BF16_TOL)):
+                    bwd_vs_plain(_bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, dtype), causal,
+                                 tol, f"flash_attention backward {(b, hq, hkv, s, skv, d, dv)} "
+                                 f"causal={causal} {dtype}")
+                    n += 1
+    print(f"[parity] flash_attention backward ok: {n} cases, every instantiated (D, Dv) "
+          f"pair {sorted(fa.HEAD_DIMS)} x {len(BWD_TEST_SHAPES)} test shapes x causal and "
+          f"not x f32 (bar {ATTN_TOL:g}) and bf16 (bar {BF16_TOL:g})")
+    errs = {}
+    for label, (b, hq, hkv, s, skv, d, dv, causal) in BWD_MAIN_SHAPES.items():
+        inputs = _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, torch.bfloat16)
+        err, ratio = bwd_vs_plain(inputs, causal, BF16_TOL, f"flash_attention backward {label}")
+        note = ""
+        if label == "granite-3-2b":
+            errs["flash_attention_bwd"] = err
+            q, k, v, do = inputs
+            o, lse = fa._forward(q, k, v, True, with_lse=True)
+            if not torch.equal(o, fa.flash_attention(q, k, v, True)):
+                raise AssertionError("flash_attention: the forward with lse differs from "
+                                     "the forward without it")
+            _, lse_plain, _ = _plain_bwd(q, k, v, do, True)
+            lse_err = kernel_vs_plain(lse, lse_plain, ATTN_TOL, "flash_attention lse")
+            first = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+            second = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError("flash_attention backward: two calls differ")
+            note = (f"; two calls bit-equal; the forward with lse bit-equal to the forward "
+                    f"without it, lse max|err|={lse_err:.3g} against the plain version's "
+                    f"(bar {ATTN_TOL:g})")
+            del first, second, o, lse
+        print(f"[parity] flash_attention backward {label} B{b} Hq{hq} Hkv{hkv} S{s} Skv{skv} "
+              f"D{d} Dv{dv} causal={causal} bf16: max|err|={err:.3g} (bar rtol=atol="
+              f"{BF16_TOL:g}; largest |err| / (atol + rtol |want|) = {ratio:.3f}){note}")
+        del inputs
+        _free()
+    return errs
+
+
+def _tree_to(tree, device):
+    from repro_torch.train.optim import tree_map
+    return tree_map(lambda w: w.to(device), tree)
+
+
+def train_card_vs_cpu(label: str, cfg, b: int, s: int, seed: int = 0) -> None:
+    """One step's loss and gradients in f32 through the kernels on the card
+    against the plain versions on the CPU, from the same weights and
+    batch; then one ``make_train_step`` on each, whose parameters after
+    the AdamW update are held leaf by leaf at ``TRAIN_GRAD_TOL`` of the
+    leaf's largest |w|. AdamW's eps is 1e-3 there (as in the CPU tests): a
+    first step moves a weight by about lr * sign(g), so with a tiny eps a
+    gradient element within rounding of zero would flip a whole step."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train.optim import AdamW, tree_leaves
+    p_cpu = lm.init_params(cfg, seed, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    b_cpu = {k: torch.from_numpy(v) for k, v in
+             TokenPipeline(vocab=cfg.vocab, batch=b, seq=s, seed=seed).next_batch().items()}
+    b_gpu = _tree_to(b_cpu, "cuda")
+    reset_launches()
+    loss_g, grads_g = lm.value_and_grad(p_gpu, cfg, b_gpu)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    loss_c, grads_c = lm.value_and_grad(p_cpu, cfg, b_cpu)
+    kernel_vs_plain(loss_g.cpu(), loss_c, TRAIN_LOSS_TOL, f"[lm-train] {label} loss")
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(tree_leaves(grads_g), tree_leaves(grads_c))):
+        scale = float(c.abs().max())
+        torch.testing.assert_close(g.cpu(), c, rtol=TRAIN_GRAD_TOL,
+                                   atol=TRAIN_GRAD_TOL * max(scale, 1e-30),
+                                   msg=lambda m: f"[lm-train] {label} gradient leaf {i}: {m}")
+        worst = max(worst, float((g.cpu() - c).abs().max()) / max(scale, 1e-30))
+    if launched["flash_attention_bwd"] <= 0:
+        raise AssertionError(f"[lm-train] {label}: no backward launch {launched}")
+    del grads_g, grads_c
+    opt = AdamW(lr=1e-2, eps=1e-3)
+    step = lm.make_train_step(cfg, opt)
+    n_leaves = len(tree_leaves(p_cpu))
+    p_gpu, _, m_g = step(p_gpu, opt.init(p_gpu), b_gpu)
+    p_cpu, _, m_c = step(p_cpu, opt.init(p_cpu), b_cpu)
+    worst_w = 0.0
+    for i, (w, c) in enumerate(zip(tree_leaves(p_gpu), tree_leaves(p_cpu))):
+        scale = float(c.abs().max())
+        torch.testing.assert_close(w.cpu(), c, rtol=TRAIN_GRAD_TOL,
+                                   atol=TRAIN_GRAD_TOL * max(scale, 1e-30),
+                                   msg=lambda m: f"[lm-train] {label} updated leaf {i}: {m}")
+        worst_w = max(worst_w, float((w.cpu() - c).abs().max()) / max(scale, 1e-30))
+    print(f"[lm-train] {label} f32 B{b} x S{s}: card loss {float(loss_g):.6f} vs CPU "
+          f"{float(loss_c):.6f} (bar {TRAIN_LOSS_TOL:g}); gradients, worst leaf "
+          f"max|err| / max|g| = {worst:.3g} (bar {TRAIN_GRAD_TOL:g}, "
+          f"{n_leaves} leaves); make_train_step (AdamW lr 1e-2, eps 1e-3) loss card "
+          f"{float(m_g['loss']):.6f} vs CPU {float(m_c['loss']):.6f}, parameters "
+          f"after the update, worst leaf max|err| / max|w| = {worst_w:.3g} (bar "
+          f"{TRAIN_GRAD_TOL:g}); launches of one loss and gradient "
+          f"{json.dumps({k: v for k, v in launched.items() if v})}")
+    del p_gpu, p_cpu
+    _free()
+
+
+def phase_lm_train(card: str) -> dict:
+    """10b. Returns the full-depth run's launch counts (8 steps)."""
+    import tempfile
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.train.loop import train
+    from repro_torch.train.optim import AdamW
+    cfg = get_config(LM_ARCH)
+    train_card_vs_cpu(f"{LM_ARCH} full width, 2 layers",
+                      dataclasses.replace(cfg, dtype="float32", n_layers=2), 2, 128)
+    mla = get_smoke_config("deepseek-v2-236b")
+    mla = dataclasses.replace(mla, dtype="float32", remat=True, mla=dataclasses.replace(
+        mla.mla, nope_dim=48, rope_dim=16, v_dim=32))  # the kernel's (64, 32) pair
+    train_card_vs_cpu("deepseek-v2-236b smoke, (D, Dv) = (64, 32), remat", mla, 2, 64)
+    train_card_vs_cpu("zamba2-1.2b smoke, remat", dataclasses.replace(
+        get_smoke_config("zamba2-1.2b"), dtype="float32", remat=True), 2, 64)
+
+    # granite-3-2b at full width and depth
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{LM_ARCH}: remat {cfg.remat}, dtype {cfg.dtype}")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    opt = AdamW(lr=3e-4)
+    state = opt.init(params)
+    step = lm.make_train_step(cfg, opt, microbatches=LM_TRAIN_MICRO)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ms = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[lm-train] {LM_ARCH}: losses {losses}")
+    want = {"flash_attention": LM_TRAIN_STEPS * LM_TRAIN_MICRO * cfg.n_layers * 2,
+            "flash_attention_bwd": LM_TRAIN_STEPS * LM_TRAIN_MICRO * cfg.n_layers}
+    check_launches("lm-train", launches, want)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = statistics.median(ms[1:])
+    print(f"[lm-train] {LM_ARCH} bf16 full width and depth ({cfg.n_layers} layers, remat), "
+          f"AdamW f32 moments, B{LM_TRAIN_BATCH} x S{LM_TRAIN_SEQ} in {LM_TRAIN_MICRO} "
+          f"microbatches, "
+          f"{LM_TRAIN_STEPS} steps on {card}: losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(x, 1) for x in ms]} (first {ms[0]:.1f}, median of the rest {steady:.1f}, "
+          f"host clock to the loss), {tokens / steady * 1e3:.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; a step launches flash_attention "
+          f"{launches['flash_attention'] // LM_TRAIN_STEPS} times and its backward "
+          f"{launches['flash_attention_bwd'] // LM_TRAIN_STEPS}; power limit "
+          f"{_smi('power.limit')}")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
+    profile_breakdown(f"{LM_ARCH} train step B{LM_TRAIN_BATCH}xS{LM_TRAIN_SEQ}",
+                      lambda: step(params, state, batch)[2]["loss"].item(), top=8,
+                      also=("fab::",))
+    del params, state, batch, step
+    _free()
+
+    # the smoke config: the reference's loss-descent and resume checks
+    smoke = get_smoke_config(LM_ARCH)
+    res = train(smoke, steps=12, batch=4, seq=32, lr=3e-3, seed=0, device="cuda")
+    if not np.mean(res.losses[-3:]) < np.mean(res.losses[:3]):
+        raise AssertionError(f"[lm-train] smoke loss did not fall: {res.losses}")
+    full = train(smoke, steps=6, batch=2, seq=16, seed=3, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        train(smoke, steps=3, batch=2, seq=16, seed=3, ckpt_dir=d, ckpt_every=3, device="cuda")
+        part2 = train(smoke, steps=6, batch=2, seq=16, seed=3, ckpt_dir=d, ckpt_every=3,
+                      device="cuda")
+    if part2.resumed_from != 3:
+        raise AssertionError(f"[lm-train] resumed from {part2.resumed_from}")
+    np.testing.assert_allclose(full.losses[3:], part2.losses, rtol=RESUME_RTOL)
+    print(f"[lm-train] {LM_ARCH} smoke bf16: loss over 12 steps "
+          f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f} (mean of the last 3 below the "
+          f"first 3); 3 steps + checkpoint + restore + 3 == 6 straight steps "
+          f"(losses {[round(x, 5) for x in part2.losses]} vs "
+          f"{[round(x, 5) for x in full.losses[3:]]}, rtol {RESUME_RTOL:g})")
+    return launches
+
+
+def phase_attention_bwd_times(train_launches: dict, errs: dict, card: str) -> dict:
+    """10c: the backward kernels at granite-3-2b's training shape beside
+    the plain backward and SDPA's backward on a kept graph."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, hq, hkv, s, skv, d, dv, causal = BWD_MAIN_SHAPES[LM_ARCH]
+    q, k, v, do = _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, torch.bfloat16)
+    o, lse = fa._forward(q, k, v, causal, with_lse=True)
+    t = lambda x: x.transpose(1, 2)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+    pairs = s * (s + 1) // 2
+    fwd_flops = 4.0 * b * hq * d * pairs
+    steps = LM_TRAIN_STEPS
+    row = kernel_row(
+        "flash_attention_bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
+        lambda: flash_attention_bwd_plain(t(q), t(k), t(v), t(o), t(lse), t(do), causal),
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        2.5 * fwd_flops,
+        # q, k, v, o, do read and dq, dk, dv written (bf16), lse read (f32)
+        2.0 * (2 * b * s * hq * d + 2 * b * s * hq * dv + 2 * b * skv * hkv * (d + dv))
+        + 4.0 * b * hq * s,
+        (b, hq, hkv, s, d, "causal bf16, B 4: the loss's batch"), train_launches, errs, card,
+        bf16=True,
+        note=lambda ms: (f"; {train_launches['flash_attention_bwd'] // steps} calls a train "
+                         f"step ({LM_TRAIN_MICRO} microbatches of B "
+                         f"{LM_TRAIN_BATCH // LM_TRAIN_MICRO} x 40 layers)"))
+    del q, k, v, do, o, lse, leaves, out
+    _free()
+    return row
+
+
 def timed(phase):
     """``phase`` with its wall seconds printed after it (``[phase]`` line)."""
     def run(*a, **kw):
@@ -3048,6 +3372,7 @@ def main() -> int:
     timed(phase_build)()
     timed(phase_parity)()
     errs = timed(phase_attention_parity)(lm_shapes())
+    errs.update(timed(phase_attention_bwd_parity)())
     launches, refs = timed(phase_main_path)()
     profile = timed(phase_lower)()
     timed(phase_plan)(profile, refs)
@@ -3077,6 +3402,8 @@ def main() -> int:
     timed(phase_lm_mla)()
     timed(phase_lm_hybrid)()
     timed(phase_lm_xlstm)()
+    train_launches = timed(phase_lm_train)(card)
+    rows.append(timed(phase_attention_bwd_times)(train_launches, errs, card))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

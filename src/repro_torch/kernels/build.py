@@ -32,15 +32,17 @@ SIGNATURES = {
     "block_matmul": ("block_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "fused_dense": ("fused_dense", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "forest_predict": ("decision_forest", [_P] * 5 + [_I] * 12 + [_P]),
-    "flash_attention": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                             _I, _I, _I, _I, _F, _STRIDES, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 9
+                            + [_F, _STRIDES, _P]),
     "flash_decode": ("flash_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                       _STRIDES, _P]),
     "flash_decode_chunk": ("flash_decode", [_I, _I]),
 }
 LIBRARIES = ("block_matmul", "decision_forest", "fused_dense", "flash_attention",
-             "flash_decode")
+             "flash_attention_bwd", "flash_decode")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # library -> loaded shared object

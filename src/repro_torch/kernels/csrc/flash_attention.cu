@@ -51,6 +51,12 @@
 // accumulators sized by DV (148 KB of shared memory at (192, 128)). Its
 // ceiling is the 67 TFLOP/s f32 rate; the LM's timed path is bf16.
 //
+// lse: given a non-null pointer (training's forward), both instances also
+// write each row's log-sum-exp of its scaled scores, m + log(l) in natural
+// log, float32 [B*Hq, Sq], from the row max and sum they already hold: what
+// the backward (flash_attention_bwd.cu) recomputes P from. With a null
+// pointer nothing else changes.
+//
 // Both: the KV head h / G is read in place (no repeat copy), strides over
 // B, H and S are arguments (unit stride on D), ragged S is masked on load
 // and on store (no padding copies), the grid's x is b*Hq + h (no 65535
@@ -74,6 +80,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B*Hq, Sq] or null
   Strides qs, ks, vs, os;
   int hq, group, sq, skv, causal;
   float scale;
@@ -86,7 +93,7 @@ struct Params {
 namespace tc {
 
 constexpr int WGS = 2, BQ = 64 * WGS, BKV = 64, THREADS = 128 * WGS, STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Geo {
@@ -277,6 +284,9 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) flash_fwd_bf16(Param
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = ra + 8 * r;
     if (row >= p.sq) continue;
+    // m is in log2 units (the scale folded with log2(e))
+    if (p.lse != nullptr && quad == 0)
+      p.lse[(long long)bh * p.sq + row] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = o + row * p.os.s + 2 * quad;
 #pragma unroll
@@ -434,6 +444,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0) p.lse[(long long)bh * p.sq + row] = m[i] + logf(den);
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) o[row * p.os.s + tx + 16 * cc] = acc[i][cc] / den;
   }
@@ -484,9 +495,10 @@ cudaError_t dispatch(const Params& p, int n_bh, int d, int dv, cudaStream_t s) {
 // dtype: 0 = float32 (CUDA-core instance), 1 = bfloat16 (tensor-core
 // instance; q, k and v 16-byte aligned with strides a multiple of 8).
 // strides: (b, h, s) for q, k, v and o in elements, 12 values; the head dim
-// has unit stride. D is q's and k's head dim, Dv v's and o's.
+// has unit stride. D is q's and k's head dim, Dv v's and o's. lse: null, or
+// float32 [B*Hq, Sq] for the rows' log-sum-exp.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                               void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                                int D, int Dv, int causal, int dtype, float scale,
                                const long long* strides, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0)
@@ -496,6 +508,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.qs = {strides[0], strides[1], strides[2]};
   p.ks = {strides[3], strides[4], strides[5]};
   p.vs = {strides[6], strides[7], strides[8]};

@@ -31,6 +31,15 @@ rows, the hybrid's conv and SSM states, xLSTM's memories. A copy of a
 nothing back to the host, so ``launch.serve.Server`` captures it into one
 CUDA graph, as the reference's server jits it.
 
+Training (``loss_fn``, ``value_and_grad``, ``make_train_step``) runs on
+autograd: the flash_attention kernel takes part through its
+``FlashAttentionFn``, whose backward is a kernel too, and ``cfg.remat``
+rematerializes the reference's ``jax.checkpoint`` sites (a decoder's
+layers, the Mamba-2 and mLSTM layers, the CE chunks) with
+``torch.utils.checkpoint`` when a tensor requires grad. The stacked
+weights are unbound once a forward (``_layers``), so the backward stacks
+each leaf's gradient once.
+
 ``mesh=`` (a (data, model) mesh of ``core.mesh.make_host_mesh``) runs the
 reference's sharded paths on ranks that all run the same program: the MoE
 splits its experts over ``model`` (``layers.moe_block``) in ``forward``,
@@ -49,6 +58,9 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mesh as mesh_util
 from repro_torch.kernels.common import resolve_device
@@ -228,12 +240,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
     return build(shapes, specs)
 
 
-def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {k: w[i] for k, w in blocks.items()}
+def _layers(blocks: Dict[str, torch.Tensor]) -> list:
+    """The stacked leaves of ``blocks`` as one dict of views per layer, each
+    leaf unbound once: under autograd an unbind's backward stacks the
+    layers' gradients into one tensor, where a select per layer would write
+    a zero tensor of the whole stack for each layer (40 x 4.9 GB a step at
+    granite-3-2b's width)."""
+    names = list(blocks)
+    return [dict(zip(names, ws)) for ws in zip(*(torch.unbind(blocks[n]) for n in names))]
 
 
-def _n_layers(blocks) -> int:
-    return next(iter(blocks.values())).shape[0]
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, rematerialized in the backward (``torch.utils.checkpoint``)
+    when training: ``cfg.remat``, grad mode on and a tensor among ``args``
+    (dicts of tensors included) that requires grad. The reference applies
+    ``jax.checkpoint`` at the same sites; prefill and decode run ``fn``."""
+    def needs_grad(a):
+        if isinstance(a, dict):
+            return any(needs_grad(v) for v in a.values())
+        return isinstance(a, torch.Tensor) and a.requires_grad
+    if cfg.remat and torch.is_grad_enabled() and any(needs_grad(a) for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -381,21 +409,26 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
     """The stacked layers of ``blocks`` over x: self-attention (GQA or
     MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
     FFN (expert-parallel on ``mesh``). With ``cache`` each layer's rows go
-    to its first S slots."""
+    to its first S slots. In training each layer is rematerialized
+    (``_remat``), as the reference's scan body."""
     s = x.shape[1]
-    for i in range(_n_layers(blocks)):
-        blk = _layer(blocks, i)
+
+    def layer(x, blk, xblk):
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
             a, rows = _mla_prefill(h, blk, cfg, positions)
         else:
             a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal)
-        if cross is not None:
-            xblk = _layer(cross, i)
+        if xblk is not None:
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
             a = _cross_attn(h, xblk, cfg, enc_h)
         x, h = L.add_rms_norm(x, a, blk["ln2"])
-        x = x + _ffn(h, blk, cfg, mesh)
+        return x + _ffn(h, blk, cfg, mesh), rows
+
+    layers = _layers(blocks)
+    xlayers = _layers(cross) if cross is not None else [None] * len(layers)
+    for i, (blk, xblk) in enumerate(zip(layers, xlayers)):
+        x, rows = _remat(cfg, layer, x, blk, xblk)
         if cache is not None:
             for name, row in zip(_cache_rows(cfg), rows):
                 cache[name][i, :, :s] = row
@@ -414,14 +447,20 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
     """Mamba-2 layers, the shared block after every ``attn_every`` of them
     and after the last; returns (x, the last residual term) for the final
     norm. With ``cache``: each layer's conv and SSM states, each shared
-    application's K and V in its first S slots."""
+    application's K and V in its first S slots. In training each Mamba-2
+    layer is rematerialized, as the reference's scan body; the shared block
+    is not (the reference's sits outside the scan)."""
     mp, sh = params["mamba"], params["shared_attn"]
-    n, s = _n_layers(mp), x.shape[1]
+    layers, s = _layers(mp), x.shape[1]
+    n = len(layers)
     last = torch.zeros_like(x)
-    for i in range(n):
+
+    def mamba(x, blk):
+        return ssm.mamba2_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+
+    for i, blk in enumerate(layers):
         x = x + last
-        blk = _layer(mp, i)
-        last, (conv_s, ssm_s) = ssm.mamba2_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+        last, (conv_s, ssm_s) = _remat(cfg, mamba, x, blk)
         if cache is not None:
             cache["conv"][i] = conv_s
             cache["ssm"][i] = ssm_s
@@ -436,18 +475,23 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
 def _xlstm(x, params, cfg: ModelConfig, cache=None):
     """Each segment's mLSTM layers, then its sLSTM layer; returns (x, the
     last residual term) for the final norm. With ``cache``: the memories
-    each layer ends with."""
+    each layer ends with. In training the mLSTM layers are rematerialized,
+    as the reference's scan body; the sLSTM layers are not."""
     n_seg, per = _xlstm_layout(cfg)
+    mlstm, slstm = _layers(params["mlstm"]), _layers(params["slstm"])
     last = torch.zeros_like(x)
+
+    def m_body(x, blk):
+        return ssm.mlstm_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+
     for si in range(n_seg):
         for li in range(si * per, (si + 1) * per):
             x = x + last
-            blk = _layer(params["mlstm"], li)
-            last, (S,) = ssm.mlstm_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+            last, (S,) = _remat(cfg, m_body, x, mlstm[li])
             if cache is not None:
                 cache["mS"][li] = S
         x = x + last
-        sl = _layer(params["slstm"], si)
+        sl = slstm[si]
         last, state = ssm.slstm_forward(L.rms_norm(x, sl["ln"]), sl, cfg)
         if cache is not None:
             for name, t in zip(("sh", "sc", "sn"), state):
@@ -507,6 +551,105 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
         positions = _positions(b, s, x.device)
     enc_h = encode(params, cfg, enc_embeds) if cfg.kind == "encdec" else None
     return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h, mesh=mesh))
+
+
+# ===========================================================================
+# loss (chunked CE) and train step
+# ===========================================================================
+
+def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` [B,S] and
+    ``labels`` [B,S], -1 masked; ``enc_embeds`` and ``pos3`` when the family
+    takes them), the reference's ``loss_fn``: the final hidden states in
+    chunks of ``cfg.loss_chunk`` positions (the tail padded with masked
+    rows), float32 logits against ``embed.T`` with -1e30 past ``cfg.vocab``,
+    the chunks' sums added in the reference's scan order, ``tot / max(cnt,
+    1)``. Each chunk is rematerialized in training, as the reference's."""
+    h = forward(params, cfg, batch["tokens"], enc_embeds=batch.get("enc_embeds"),
+                pos3=batch.get("pos3"), mesh=mesh)
+    b, s, _ = h.shape
+    labels = torch.as_tensor(batch["labels"], device=h.device).long()
+    chunk = min(cfg.loss_chunk, s)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    emb = params["embed"].float()
+    in_vocab = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab
+
+    def ce(hh, ll, emb):
+        logits = torch.where(in_vocab, hh.float() @ emb.T, L.NEG)
+        gold = logits.gather(-1, ll.clamp(min=0)[..., None])[..., 0]
+        mask = (ll >= 0).float()
+        return ((torch.logsumexp(logits, -1) - gold) * mask).sum(), mask.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, nc * chunk, chunk):
+        t, n = _remat(cfg, ce, h[:, c:c + chunk], labels[:, c:c + chunk], emb)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def value_and_grad(params, cfg: ModelConfig, batch, mesh=None):
+    """(loss, grads) of ``loss_fn`` at ``params``: the gradient tree has the
+    params' structure and types (zero for a leaf the loss does not reach,
+    as JAX's). ``params`` are left as they are: the gradients flow to
+    detached views of them."""
+    leaves, spec = tree_flatten(params)
+    leaves = [w.detach().requires_grad_() for w in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh=mesh)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree_unflatten(
+        [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)], spec)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
+                    accum_dtype=torch.float32, mesh=None):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss": ...})``, the reference's: the gradient of ``loss_fn`` by
+    autograd (through the flash_attention kernels' backward on the card);
+    with ``microbatches`` > 1 the batch split into that many equal parts
+    (``pos3`` on its axis 1), their gradients accumulated in
+    ``accum_dtype`` and the loss and gradients divided by ``microbatches``;
+    then ``optimizer.update`` (``train.optim.AdamW``). ``mesh=`` (training
+    on a (data, model) mesh: FSDP gathers, sharded state) is not ported
+    yet and raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError("make_train_step(mesh=): training on a mesh is "
+                                  "not ported yet; train on one device")
+    m = microbatches
+
+    def part(k: str, x, i: int):
+        x = torch.as_tensor(x)
+        axis = 1 if k == "pos3" else 0  # pos3 is [3, B, S]
+        n = x.shape[axis] // m
+        return x.narrow(axis, i * n, n)
+
+    def grads_of(params, batch):
+        if m == 1:
+            return value_and_grad(params, cfg, batch)
+        loss = 0.0
+        leaves, spec = tree_flatten(params)
+        acc = [torch.zeros(w.shape, dtype=accum_dtype, device=w.device) for w in leaves]
+        for i in range(m):
+            l, g = value_and_grad(params, cfg, {k: part(k, v, i) for k, v in batch.items()})
+            loss = loss + l
+            for a, gi in zip(acc, tree_flatten(g)[0]):
+                a.add_(gi.to(accum_dtype))
+        return loss / m, tree_unflatten([a.div_(m) for a in acc], spec)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        # the update gets the only reference to the gradients, so that it
+        # frees them as soon as it has scaled them
+        held = [grads]
+        del grads
+        params, opt_state = optimizer.update(held.pop(), opt_state, params)
+        return params, opt_state, {"loss": loss}
+
+    return train_step
 
 
 # ===========================================================================
@@ -693,13 +836,14 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     def decoder(x, params, cache, slot, valid, positions, enc_h):
         blocks, cross = params["blocks"], params.get("cross")
         rows = [cache[n] for n in _cache_rows(cfg)]
-        for i in range(_n_layers(blocks)):
-            blk = _layer(blocks, i)
+        layers = _layers(blocks)
+        xlayers = _layers(cross) if cross is not None else None
+        for i, blk in enumerate(layers):
             h = L.rms_norm(x, blk["ln1"])
             attn = _mla_decode_attn if cfg.attn == "mla" else _gqa_decode_attn
             a = attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid, positions, mesh)
             if cross is not None:
-                xblk = _layer(cross, i)
+                xblk = xlayers[i]
                 x, h = L.add_rms_norm(x, a, xblk["ln_x"])
                 b = x.shape[0]
                 q = (h @ xblk["xq"]).view(b, cfg.n_heads, hd)
@@ -713,11 +857,11 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
 
     def hybrid(x, params, cache, slot, valid, positions):
         mp, sh = params["mamba"], params["shared_attn"]
-        n = _n_layers(mp)
+        layers = _layers(mp)
+        n = len(layers)
         last = torch.zeros_like(x)
-        for i in range(n):
+        for i, blk in enumerate(layers):
             x = x + last
-            blk = _layer(mp, i)
             out, (conv_s, ssm_s) = ssm.mamba2_forward(
                 L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
                 state=(cache["conv"][i], cache["ssm"][i]), decode=True)
@@ -735,17 +879,18 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
 
     def xlstm(x, params, cache):
         n_seg, per = _xlstm_layout(cfg)
+        mlstm, slstm = _layers(params["mlstm"]), _layers(params["slstm"])
         last = torch.zeros_like(x)
         for si in range(n_seg):
             for li in range(si * per, (si + 1) * per):
                 x = x + last
-                blk = _layer(params["mlstm"], li)
+                blk = mlstm[li]
                 out, (S,) = ssm.mlstm_forward(L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
                                               state=(cache["mS"][li],), decode=True)
                 cache["mS"][li].copy_(S)
                 last = out[:, 0]
             x = x + last
-            sl = _layer(params["slstm"], si)
+            sl = slstm[si]
             names = ("sh", "sc", "sn")
             # the reference casts the norm's output to float32 for the gates;
             # XLA computes its last op, the product with ``ln``, in float32

@@ -22,13 +22,13 @@ import torch
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts and lists (and of trees of
-    the same structure, leaf by leaf)."""
+    """``fn`` over the leaves of nested dicts, lists, tuples and
+    NamedTuples (and of trees of the same structure, leaf by leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     return fn(tree, *rest)
 
 

@@ -17,7 +17,10 @@ held at the workload forests' shapes, at row and tree counts off its tiles,
 at d = 4096 (rows read from global memory), at ties and out-of-range
 features, and to bit-equal repeat calls. flash_attention is also held
 at value head dims unlike the key's, (192, 128) and (64, 32), with ragged S
-and Skv and the strided views MLA's prefill hands in. flash_decode is also held to its
+and Skv and the strided views MLA's prefill hands in; its backward
+(``flash_attention_bwd``) at every pair against the plain backward, two
+calls bit-equal, through autograd against the CPU, and in the smoke
+models' training gradients. flash_decode is also held to its
 merge's tickets being private to each call: calls in flight on two streams,
 and a graph replay beside an eager call, each merge their own partials.
 """
@@ -360,6 +363,144 @@ def test_flash_attention_kernel_refuses_other_pairs(cuda_device, d, dv):
     with pytest.raises(ValueError, match="not instantiated"):
         fa.flash_attention(q, q, v)
     assert fa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's backward (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_PAIRS = [(16, 16), (32, 32), (64, 64), (128, 128), (160, 160), (192, 128), (64, 32)]
+
+
+def _bwd_inputs(rng, b, hq, hkv, s, skv, d, dv, dtype, dev):
+    """q, k, v, do as [B,H,S,D] views of [B,S,H,D] tensors (the model's
+    layout), and the plain forward's o and lse for them."""
+    td = getattr(torch, dtype)
+    q, k, v, do = (_normal(rng, sh, dev).to(td).transpose(1, 2)
+                   for sh in ((b, s, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                              (b, s, hq, dv)))
+    return q, k, v, do
+
+
+def _plain_bwd(q, k, v, do, causal):
+    t = lambda x: x.transpose(1, 2)
+    o, lse = fa_ref.flash_attention_plain(t(q), t(k), t(v), causal=causal, return_lse=True)
+    grads = fa_ref.flash_attention_bwd_plain(t(q), t(k), t(v), o, lse, t(do), causal)
+    return t(o), t(lse), [t(g) for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", BWD_PAIRS)
+@pytest.mark.parametrize("shape", [(2, 4, 2, 37, 37), (1, 4, 1, 130, 130), (1, 2, 2, 70, 45)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel(cuda_device, d, dv, shape, causal, dtype):
+    """Every instantiated pair, G 1/2/4, ragged S and Skv off the 64-row
+    tiles, against the plain backward on the same o and lse."""
+    b, hq, hkv, s, skv = shape
+    rng = np.random.default_rng(d + dv + s)
+    q, k, v, do = _bwd_inputs(rng, b, hq, hkv, s, skv, d, dv, dtype, cuda_device)
+    o, lse, want = _plain_bwd(q, k, v, do, causal)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert fa.bwd_launches == before + 1
+    tol = _attn_tol(dtype)
+    layout = lambda t: [st for st, n in zip(t.stride(), t.shape) if n > 1]
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype and layout(g) == layout(x), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_deterministic_and_lse_leaves_forward_unchanged(cuda_device, dtype):
+    """Two backward calls give the same bits (no atomics); the forward
+    with lse gives the bits of the forward without it, and its lse is the
+    plain version's."""
+    rng = np.random.default_rng(3)
+    q, k, v, do = _bwd_inputs(rng, 2, 8, 2, 300, 300, 64, 64, dtype, cuda_device)
+    o_plain, lse_plain, _ = _plain_bwd(q, k, v, do, True)
+    o, lse = fa._forward(q, k, v, True, with_lse=True)
+    assert torch.equal(o, fa.flash_attention(q, k, v, True))
+    torch.testing.assert_close(lse, lse_plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_fn_on_card(cuda_device, dtype):
+    """Autograd through ``flash_attention``: one forward and one backward
+    launch; the gradients reach [B,S,H,D] leaves, k given in another
+    layout than q ([B,H,S,D] contiguous) and do with stride 0 (the backward
+    of a sum), against the CPU's plain path."""
+    rng = np.random.default_rng(4)
+    td = getattr(torch, dtype)
+    qn, kn, vn = (rng.standard_normal(sh).astype(np.float32)
+                  for sh in ((2, 40, 4, 32), (2, 2, 40, 32), (2, 40, 2, 32)))
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        q, k, v = (torch.from_numpy(x).to(dev, td).requires_grad_() for x in (qn, kn, vn))
+        before = (fa.launches, fa.bwd_launches)
+        o = fa.flash_attention(q.transpose(1, 2), k, v.transpose(1, 2), True)
+        (o.float().sum() * 0.5).backward()
+        launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        assert k.grad.stride() == k.stride()
+        results.append([t.float().cpu() for t in (o, q.grad, k.grad, v.grad)])
+    tol = _attn_tol(dtype)
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_other_pairs(cuda_device):
+    x = torch.zeros((1, 2, 8, 24), device=cuda_device)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    before = fa.bwd_launches
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa.flash_attention_bwd(x, x, x, x, lse, x)
+    assert fa.bwd_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v2-236b", "seamless-m4t-medium",
+                                  "zamba2-1.2b"])
+def test_lm_train_step_on_card_matches_cpu(cuda_device, arch):
+    """The smoke config's loss and gradients in float32 through the kernels
+    (forward and backward) on the card against the plain versions on the
+    CPU, every leaf at 2e-4 of its largest |g|; one forward launch a layer
+    and attention (twice under remat) and one backward launch each."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat=True)
+    if cfg.attn == "mla":  # the kernel's (64, 32) pair
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, nope_dim=48, rope_dim=16, v_dim=32))
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                            for k, v in tree.items()}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))),
+             "labels": torch.from_numpy(rng.integers(-1, cfg.vocab, (2, 40)))}
+    if cfg.kind == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32))
+    before = (fa.launches, fa.bwd_launches)
+    loss_g, grads_g = lm.value_and_grad(to(p_cpu, cuda_device), cfg, to(batch, cuda_device))
+    fwd, bwd = fa.launches - before[0], fa.bwd_launches - before[1]
+    # every forward again under remat, but the hybrid's shared block
+    assert bwd > 0 and fwd == (1 if cfg.kind == "hybrid" else 2) * bwd
+    loss_c, grads_c = lm.value_and_grad(p_cpu, cfg, batch)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=1e-4)
+    from repro_torch.train.optim import tree_leaves
+    for g, c in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        scale = float(c.abs().max())
+        torch.testing.assert_close(g.cpu(), c, rtol=ATTN_TOL, atol=ATTN_TOL * scale)
 
 
 @pytest.mark.cuda

@@ -33,11 +33,12 @@ from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.rules import ALL_RULES as T_RULES, kernel_plan
 from repro_torch.data import workloads as twl
 from repro_torch.kernels import common
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train as launch_train
 from repro_torch.models import lm
 from repro_torch.relational.table import Table
 from repro_torch.serving import QueryServer
 from repro_torch.testing import assert_canonical_close
+from repro_torch.train import loop as train_loop
 
 SCALE = 0.3
 NAMES = sorted(jwl.ALL_WORKLOADS)
@@ -220,7 +221,11 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.train.optim', 'repro_torch.models.layers',\n"
         "        'repro_torch.launch.serve', 'repro_torch.core.mesh',\n"
         "        'repro_torch.launch.mesh', 'repro_torch.models.sharding',\n"
-        "        'repro_torch.testing'} <= set(sys.modules)\n"
+        "        'repro_torch.testing', 'repro_torch.data.tokens',\n"
+        "        'repro_torch.train.checkpoint', 'repro_torch.train.loop',\n"
+        "        'repro_torch.train.compress', 'repro_torch.train.elastic',\n"
+        "        'repro_torch.train.stragglers', 'repro_torch.launch.train'\n"
+        "        } <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -257,6 +262,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: serve.Server(cfg, batch=1, max_len=8),
                   lambda: convert.lm_params_from_numpy({"w": np.ones(2, np.float32)}),
                   lambda: init_embedder(),
+                  lambda: train_loop.train(cfg, steps=1, batch=1, seq=4),
+                  lambda: launch_train.main(["--arch", "granite-3-2b", "--smoke",
+                                             "--steps", "1"]),
                   lambda: convert.embedder_from_numpy(
                       dict({p: {} for p in convert.EMBEDDER_PARTS}, one_model=False))):
         with pytest.raises(RuntimeError, match="CUDA"):
