@@ -10,10 +10,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: compiles the six CUDA kernel libraries (the five ported kernels
    and flash_attention's backward) from src/repro_torch/kernels/csrc,
    one nvcc per source, all started together; prints ptxas's registers,
-   shared memory and spills per decision_forest instance (and fails on a
-   spill); checks in their SASS (cuobjdump) that every instance of the two
-   GEMMs (block_matmul and fused_dense: f32 and bf16, 16-byte and element
-   copies) and the bf16 attention instances run on tensor cores.
+   shared memory and spills per decision_forest instance and per kernel of
+   flash_attention's backward (and fails on a spill in either); checks in
+   their SASS (cuobjdump) that every instance of the two GEMMs
+   (block_matmul and fused_dense: f32 and bf16, 16-byte and element
+   copies) and the bf16 attention instances, the backward's included, run
+   on tensor cores.
 3. kernel parity: each kernel's wrapper against its plain PyTorch version on
    the card, at the JAX package's kernel-test shapes and, for the attention
    kernels, at the LM path's shapes (bars: 1e-4 in float32, 2e-4 for
@@ -238,11 +240,15 @@ Phases, each printing its own lines; any failure exits non-zero:
       step. On the smoke config (bf16): the loss falls over 12 steps
       (``tests/test_train_infra.py``'s run) and 3 steps + checkpoint +
       restore + 3 steps equal 6 straight steps (rtol 1e-5);
-   c. [time] flash_attention backward at granite-3-2b's training shape:
-      the kernels' ms beside the plain version's and SDPA's backward
-      (``autograd.grad`` of ``scaled_dot_product_attention`` on a kept
-      graph, its forward not rerun), the bound from 2.5x the forward's
-      operations, and the launches a train step.
+   c. [time] flash_attention backward at the training shapes of
+      granite-3-2b (the JSON row), qwen2-vl (D 128, 64 / 8 heads), MLA
+      ((192, 128), B 1 x 128 heads) and seamless's cross attention (non-
+      causal, Skv 1000): the kernels' ms beside the plain version's and
+      SDPA's backward (``autograd.grad`` of ``scaled_dot_product_attention``
+      on a kept graph, its forward not rerun; each backend's time beside
+      it), the bound from ``ops.bwd_flops`` (2 (3 D + 2 Dv) operations a
+      kept (row, key) pair), Dr's, dK/dV's and dQ's ms one by one from the
+      profiler in a child process, and the launches a train step.
    Each phase's wall seconds follow it on a ``[phase]`` line.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -483,10 +489,36 @@ def phase_build() -> None:
         if lib == "decision_forest":
             forest_ptxas(log)
             continue
+        if lib == "flash_attention_bwd":
+            bwd_ptxas(log)
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib}: {line.strip()}")
     phase_sass(build)
+
+
+def ptxas_report(lib: str, log: str, label, dynamic: str) -> dict:
+    """ptxas's registers, shared memory and spills for each entry of
+    ``lib`` that ``label(mangled name)`` names (None skips it), printed a
+    line each; returns name -> [spill store bytes, spill load bytes]."""
+    import re
+    name, spills = None, {}
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = label(entry.group(1))
+        elif name and "spill" in line:
+            props = line.split(":")[-1].strip()
+            spills[name] = [int(v) for v in re.findall(r"(\d+) bytes spill", props)]
+        elif name and "registers" in line:
+            static = re.search(r"(\d+) bytes smem", line)
+            print(f"[build] {lib} {name}: {line.split(':')[-1].strip()}; "
+                  f"{spills.get(name)} bytes spill stores / loads; shared memory "
+                  f"{static.group(1) if static else 0} bytes static, the rest dynamic "
+                  f"{dynamic}")
+            name = None
+    return spills
 
 
 def forest_ptxas(log: str) -> None:
@@ -494,53 +526,79 @@ def forest_ptxas(log: str) -> None:
     instance (ROWS rows x TREES trees a thread, rows staged or read from
     global memory); fails on a spill."""
     import re
-    name, spills = None, {}
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\S*forest_kernelILi(\d)ELi(\d)ELb([01])E", line)
-        if entry:
-            rows, trees, staged = entry.groups()
-            name = (f"forest_kernel<{rows} rows, {trees} trees, "
-                    f"{'rows staged' if staged == '1' else 'rows from global'}>")
-        elif name and "spill" in line:
-            props = line.split(":")[-1].strip()
-            spills[name] = [int(v) for v in re.findall(r"(\d+) bytes spill", props)]
-        elif name and "registers" in line:
-            static = re.search(r"(\d+) bytes smem", line)
-            print(f"[build] decision_forest {name}: {line.split(':')[-1].strip()}; "
-                  f"{spills.get(name)} bytes spill stores / loads; shared memory "
-                  f"{static.group(1) if static else 0} bytes static, the rest dynamic "
-                  f"from ops.forest_tiling")
-            name = None
+
+    def label(mangled):
+        entry = re.search(r"forest_kernelILi(\d)ELi(\d)ELb([01])E", mangled)
+        if not entry:
+            return None
+        rows, trees, staged = entry.groups()
+        return (f"forest_kernel<{rows} rows, {trees} trees, "
+                f"{'rows staged' if staged == '1' else 'rows from global'}>")
+    spills = ptxas_report("decision_forest", log, label, "from ops.forest_tiling")
     if len(spills) != 10 or any(sum(v) for v in spills.values()):
         raise AssertionError(f"decision_forest: want 10 instances, none spilling: {spills}")
 
 
+BWD_PASSES = {"0": "dK+dV", "1": "dV", "2": "dK"}  # tc::dkdv's MODE
+
+
+def bwd_ptxas(log: str) -> None:
+    """ptxas's registers and spills for every flash_attention_bwd kernel:
+    the bf16 wgmma instances (tc::dkdv<D, Dv, pass>: 5 pairs in one pass, D
+    160 and (192, 128) in two; tc::dq<D, Dv>: 7), the f32 CUDA-core ones
+    and Dr's; fails on a spill in any of them, and prints ptxas's warnings
+    (a serialized wgmma among them)."""
+    import re
+
+    def label(mangled):
+        if not mangled.startswith("_ZN3fab"):
+            return None
+        kernel = re.search(r"(bwd_preprocess|bwd_dkdv|bwd_dq|dkdv|dq)I", mangled).group(1)
+        args = re.findall(r"Li(\d+)E", mangled)
+        if kernel == "dkdv":
+            return f"tc::dkdv<{args[0]}, {args[1]}, {BWD_PASSES[args[2]]}>"
+        if kernel == "dq":
+            return f"tc::dq<{args[0]}, {args[1]}>"
+        typ = "bf16" if "bfloat16" in mangled else "f32"
+        ns = "simt::" if kernel != "bwd_preprocess" else ""
+        return f"{ns}{kernel}<{typ}, {', '.join(args)}>"
+    for line in log.splitlines():
+        if "warning" in line.lower():
+            print(f"[build] flash_attention_bwd: {line.strip()}")
+    spills = ptxas_report("flash_attention_bwd", log, label, "at launch")
+    tc = [n for n in spills if n.startswith("tc::")]
+    if len(tc) != 16 or any(sum(v) for v in spills.values()):
+        raise AssertionError(f"flash_attention_bwd: want 16 wgmma instances (9 dK/dV, 7 dQ), "
+                             f"none of {len(spills)} kernels spilling: {spills}")
+
+
 # kernel instances that must run on tensor cores: (library, what an instance
 # is named by, mangled-name pattern, instances, the instruction their SASS
-# must hold)
+# must hold, readable names of the pattern's values)
+_COPIES = {"1": "16-byte", "0": "element"}
 TENSOR_CORE_KERNELS = (
-    ("block_matmul", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
-    ("block_matmul", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
-    ("fused_dense", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA"),
-    ("fused_dense", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA"),
-    ("flash_attention", "bf16 (D, Dv)", r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", 7, "HGMMA"),
-    ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA"),
-    ("flash_attention_bwd", "dK/dV bf16 (D, Dv)", r"tc8bwd_dkdvILi(\d+)ELi(\d+)E", 5, "HMMA"),
-    ("flash_attention_bwd", "dQ bf16 (D, Dv)", r"tc6bwd_dqILi(\d+)ELi(\d+)E", 5, "HMMA"))
-_READABLE = {"1": "16-byte", "0": "element"}
+    ("block_matmul", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA", _COPIES),
+    ("block_matmul", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA", _COPIES),
+    ("fused_dense", "f32 copies", r"gemm_tf32x3ILb([01])E", 2, "HGMMA", _COPIES),
+    ("fused_dense", "bf16 copies", r"gemm_bf16ILb([01])E", 2, "HMMA", _COPIES),
+    ("flash_attention", "bf16 (D, Dv)", r"flash_fwd_bf16ILi(\d+)ELi(\d+)E", 7, "HGMMA", {}),
+    ("flash_decode", "bf16 head dim", r"decode_tcILi(\d+)E", 5, "HMMA", {}),
+    ("flash_attention_bwd", "dK/dV bf16 (D, Dv, pass)", r"2tc4dkdvILi(\d+)ELi(\d+)ELi(\d)E",
+     9, "HGMMA", BWD_PASSES),
+    ("flash_attention_bwd", "dQ bf16 (D, Dv)", r"2tc2dqILi(\d+)ELi(\d+)E", 7, "HGMMA", {}))
 
 
 def phase_sass(build) -> None:
     """Tensor-core instructions in the SASS (cuobjdump of the built
     libraries): HGMMA (wgmma) in every f32 instance of the two GEMMs and
-    every bf16 flash_attention instance, HMMA (mma.sync) in every bf16
-    instance of the GEMMs, of flash_decode's sweep and of flash_attention's
-    backward up to D 128."""
+    every bf16 flash_attention instance and every bf16 instance of its
+    backward (dK/dV and dQ at all seven pairs), HMMA (mma.sync) in every
+    bf16 instance of the GEMMs and of flash_decode's sweep."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     dumps = {}
-    for lib, named_by, pattern, instances, want in TENSOR_CORE_KERNELS:
+    for lib, named_by, pattern, instances, want, readable in TENSOR_CORE_KERNELS:
         if lib not in dumps:
             dumps[lib] = subprocess.run([tool, "--dump-sass", str(build._lib_path(lib))],
                                         capture_output=True, text=True, check=True,
@@ -549,7 +607,7 @@ def phase_sass(build) -> None:
         for line in dumps[lib].splitlines():
             if "Function :" in line:
                 found = re.search(pattern, line)
-                name = ("/".join(_READABLE.get(g, g) for g in found.groups())
+                name = ("/".join(readable.get(g, g) for g in found.groups())
                         if found else None)
                 if name:
                     counts[name] = 0
@@ -3323,37 +3381,118 @@ def phase_lm_train(card: str) -> dict:
     return launches
 
 
+BWD_TIME_SHAPES = {  # label -> (B, Hq, Hkv, S, Skv, D, Dv, causal)
+    LM_ARCH: BWD_MAIN_SHAPES[LM_ARCH],
+    "qwen2-vl-72b": (4, 64, 8, 2048, 2048, 128, 128, True),
+    "deepseek-v2 MLA": BWD_MAIN_SHAPES["deepseek-v2 MLA"],
+    "seamless cross": BWD_MAIN_SHAPES["seamless cross"],
+}
+BWD_PARTS = {"Dr": "bwd_preprocess", "dK/dV": "dkdv<", "dQ": "::dq<"}  # profiler names
+
+
+def device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device ms a call of ``fn`` takes in each kernel, by the profiler's
+    kernel names, over ``calls`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def bwd_split_child() -> None:
+    """Prints one JSON line: label -> {part: device ms a call} for the
+    backward's kernels (``BWD_PARTS``) at each ``BWD_TIME_SHAPES`` shape."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for label, (b, hq, hkv, s, skv, d, dv, causal) in BWD_TIME_SHAPES.items():
+        q, k, v, do = _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, torch.bfloat16)
+        o, lse = fa._forward(q, k, v, causal, with_lse=True)
+        by_kernel = device_ms_by_kernel(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                       causal))
+        out[label] = {part: sum(ms for n, ms in by_kernel.items() if pat in n)
+                      for part, pat in BWD_PARTS.items()}
+        del q, k, v, do, o, lse
+        _free()
+    print(json.dumps(out))
+
+
+def bwd_split_ms() -> dict:
+    """``bwd_split_child``'s result, from a child process: late in a whole
+    run the profiler has reported no device time for these calls, while a
+    fresh process reports them."""
+    done = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.bwd_split_child()"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise RuntimeError(f"bwd_split_child failed:\n{done.stderr[-4000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def _sdpa_bwd(leaves, do, causal):
+    """SDPA's backward on a kept graph (its forward not rerun)."""
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                           enable_gqa=True)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
 def phase_attention_bwd_times(train_launches: dict, errs: dict, card: str) -> dict:
-    """10c: the backward kernels at granite-3-2b's training shape beside
-    the plain backward and SDPA's backward on a kept graph."""
+    """10c: the backward at the training shapes of granite-3-2b (the JSON
+    row), qwen2-vl (D 128, 64 / 8 heads), MLA ((192, 128) at B 1 x 128
+    heads) and seamless's non-causal cross attention (Skv 1000), each
+    beside the plain backward and SDPA's backward on a kept graph (the
+    default's time, then each backend's where it takes the inputs), with
+    the bound from ``ops.bwd_flops`` and the kernels' ms one by one
+    (``bwd_split_ms``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
-    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(9)
-    b, hq, hkv, s, skv, d, dv, causal = BWD_MAIN_SHAPES[LM_ARCH]
-    q, k, v, do = _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, torch.bfloat16)
-    o, lse = fa._forward(q, k, v, causal, with_lse=True)
     t = lambda x: x.transpose(1, 2)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
-    pairs = s * (s + 1) // 2
-    fwd_flops = 4.0 * b * hq * d * pairs
     steps = LM_TRAIN_STEPS
-    row = kernel_row(
-        "flash_attention_bwd", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
-        lambda: flash_attention_bwd_plain(t(q), t(k), t(v), t(o), t(lse), t(do), causal),
-        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-        2.5 * fwd_flops,
-        # q, k, v, o, do read and dq, dk, dv written (bf16), lse read (f32)
-        2.0 * (2 * b * s * hq * d + 2 * b * s * hq * dv + 2 * b * skv * hkv * (d + dv))
-        + 4.0 * b * hq * s,
-        (b, hq, hkv, s, d, "causal bf16, B 4: the loss's batch"), train_launches, errs, card,
-        bf16=True,
-        note=lambda ms: (f"; {train_launches['flash_attention_bwd'] // steps} calls a train "
-                         f"step ({LM_TRAIN_MICRO} microbatches of B "
-                         f"{LM_TRAIN_BATCH // LM_TRAIN_MICRO} x 40 layers)"))
-    del q, k, v, do, o, lse, leaves, out
-    _free()
+    split = bwd_split_ms()
+    row = None
+    for label, (b, hq, hkv, s, skv, d, dv, causal) in BWD_TIME_SHAPES.items():
+        q, k, v, do = _bwd_inputs(gen, b, hq, hkv, s, skv, d, dv, torch.bfloat16)
+        o, lse = fa._forward(q, k, v, causal, with_lse=True)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        backends = []
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+            short = name.split("_")[0].lower()
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    one = _sdpa_bwd(leaves, do, causal)
+                backends.append(f"{short} {cuda_ms(one):.4f} ms")
+                del one
+            except RuntimeError:
+                backends.append(f"{short} refuses")
+        kernel = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        parts = ", ".join(f"{part} {ms:.4f} ms" if ms > 0 else f"{part} not measured"
+                          for part, ms in split[label].items())
+        calls = (f"; {train_launches['flash_attention_bwd'] // steps} calls a train step "
+                 f"({LM_TRAIN_MICRO} microbatches of B {LM_TRAIN_BATCH // LM_TRAIN_MICRO} x "
+                 f"40 layers)" if label == LM_ARCH else "")
+        got = kernel_row(
+            "flash_attention_bwd", kernel,
+            lambda: flash_attention_bwd_plain(t(q), t(k), t(v), t(o), t(lse), t(do), causal),
+            _sdpa_bwd(leaves, do, causal), fa.bwd_flops(b, hq, s, skv, d, dv, causal),
+            # q, k, v, o, do read and dq, dk, dv written (bf16), lse read (f32)
+            2.0 * (2 * b * s * hq * d + 2 * b * s * hq * dv + 2 * b * skv * hkv * (d + dv))
+            + 4.0 * b * hq * s,
+            (label, b, hq, hkv, s, skv, d, dv, "causal" if causal else "non-causal", "bf16"),
+            train_launches, errs, card, bf16=True,
+            note=lambda ms: (f"; by kernel (profiler in a child process, a call): {parts}; "
+                             f"SDPA backward by "
+                             f"backend: {', '.join(backends)}{calls}"))
+        if label == LM_ARCH:
+            row = got
+        del q, k, v, do, o, lse, leaves, kernel
+        _free()
     return row
 
 

@@ -34,7 +34,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (160, 160),
                        (192, 128), (64, 32)})
 launches = 0  # forward kernel launches since the last reset
-bwd_launches = 0  # backward calls (three kernels each) since the last reset
+bwd_launches = 0  # backward calls (three or four kernels each) since the last reset
+
+
+def bwd_flops(b: int, hq: int, sq: int, skv: int, d: int, dv: int, causal: bool) -> float:
+    """Operations of the backward's five products over the (row, key) pairs
+    the mask keeps: S = q k^T, dQ and dK over D, dP and dV over Dv, two
+    operations a product term, so 2 (3 D + 2 Dv) a pair and head."""
+    if causal:  # row i keeps keys j <= i below Skv
+        n = min(sq, skv)
+        pairs = n * (n + 1) // 2 + max(sq - skv, 0) * skv
+    else:
+        pairs = sq * skv
+    return 2.0 * b * hq * pairs * (3 * d + 2 * dv)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -124,9 +136,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention`` at the output cotangent ``do``:
     q [B,Hq,S,D], k [B,Hkv,Skv,D], v [B,Hkv,Skv,Dv], o and do [B,Hq,S,Dv],
     lse float32 [B,Hq,S] (the forward's). Each gradient has its input's
-    type and order of dimensions in memory. On CUDA tensors the three
-    kernels of ``csrc/flash_attention_bwd.cu``; a ``do`` off the kernel's
-    layout is copied contiguous first."""
+    type and order of dimensions in memory. On CUDA tensors the kernels of
+    ``csrc/flash_attention_bwd.cu`` (Dr, then dK/dV in one pass or, at a
+    head dim over 128, two, then dQ); a ``do`` off the kernel's layout is
+    copied contiguous first."""
     global bwd_launches
     _check(q, k, v)
     if q.device.type == "cpu":

@@ -18,9 +18,10 @@ at d = 4096 (rows read from global memory), at ties and out-of-range
 features, and to bit-equal repeat calls. flash_attention is also held
 at value head dims unlike the key's, (192, 128) and (64, 32), with ragged S
 and Skv and the strided views MLA's prefill hands in; its backward
-(``flash_attention_bwd``) at every pair against the plain backward, two
-calls bit-equal, through autograd against the CPU, and in the smoke
-models' training gradients. flash_decode is also held to its
+(``flash_attention_bwd``) at every pair against the plain backward, also
+at S and Skv off its 128-row blocks and tiles and at G 8, two calls
+bit-equal, through autograd against the CPU, and in the smoke models'
+training gradients. flash_decode is also held to its
 merge's tickets being private to each call: calls in flight on two streams,
 and a graph replay beside an eager call, each merge their own partials.
 """
@@ -408,6 +409,35 @@ def test_flash_attention_bwd_kernel(cuda_device, d, dv, shape, causal, dtype):
     layout = lambda t: [st for st, n in zip(t.stride(), t.shape) if n > 1]
     for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
         assert g.shape == x.shape and g.dtype == x.dtype and layout(g) == layout(x), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+# (B, Hq, Hkv, S, Skv) at the edges of the tensor-core instances' tiles (128
+# keys a dK/dV block, 128 rows a dQ block, streamed tiles of 64 or 128
+# rows): S and Skv one off 128 and 256 on either side, unequal; G 8
+# (qwen2-vl's 64 / 8); and causal diagonals crossing a 128-key block that S
+# and Skv both cut short
+BWD_EDGE_SHAPES = [(1, 8, 1, 127, 129), (1, 8, 1, 129, 127), (2, 16, 2, 257, 129),
+                   (1, 8, 1, 257, 257), (1, 4, 2, 192, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", BWD_PAIRS)
+@pytest.mark.parametrize("shape", BWD_EDGE_SHAPES, ids=lambda s: "b{}h{}-{}s{}kv{}".format(*s))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_at_tile_edges(cuda_device, d, dv, shape, causal, dtype):
+    """Every pair at S and Skv off the 128-row blocks and the 64- or
+    128-row streamed tiles, against the plain backward on the same o and
+    lse."""
+    b, hq, hkv, s, skv = shape
+    rng = np.random.default_rng(d + dv + s + skv)
+    q, k, v, do = _bwd_inputs(rng, b, hq, hkv, s, skv, d, dv, dtype, cuda_device)
+    o, lse, want = _plain_bwd(q, k, v, do, causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    tol = _attn_tol(dtype)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"{name}: {m}")
 

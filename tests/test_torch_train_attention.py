@@ -133,3 +133,23 @@ def test_cpu_path_takes_any_head_dim():
     o = t_fa.flash_attention(*leaves)
     o.backward(torch.from_numpy(do).transpose(1, 2))
     assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in leaves)
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,skv", [(40, 29), (21, 45)], ids=["skv<s", "skv>s"])
+def test_bwd_flops_counts_the_plain_backwards_products(d, dv, causal, s, skv):
+    """``ops.bwd_flops`` against the plain backward's matrix products, as
+    ``FlopCounterMode`` counts them over every (row, key) pair, scaled to
+    the pairs the mask keeps (counted from the same rows and keys)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    b, hq, hkv = 2, 4, 2
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(5, b, s, skv, hq, hkv, d, dv))
+    o, lse = t_fa_ref.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    with FlopCounterMode(display=False) as counter:
+        t_fa_ref.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    rows, keys = torch.arange(s)[:, None], torch.arange(skv)[None, :]
+    kept = int((rows >= keys).sum()) if causal else s * skv
+    assert counter.get_total_flops() == 2 * b * hq * s * skv * (3 * d + 2 * dv)
+    assert t_fa.bwd_flops(b, hq, s, skv, d, dv, causal) * s * skv == \
+        counter.get_total_flops() * kept
