@@ -259,6 +259,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -271,7 +272,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.testing import assert_canonical_close  # noqa: E402
+from repro_torch.testing import assert_canonical_close, flat_tree  # noqa: E402
 
 F32_TOL, BF16_TOL, ATTN_TOL = 1e-4, 3e-2, 2e-4
 # flash_attention's main shape in bf16: its outputs average ~i/e keys, so a
@@ -3496,6 +3497,283 @@ def phase_attention_bwd_times(train_launches: dict, errs: dict, card: str) -> di
     return row
 
 
+# [lm-train-mesh]: training on a (data, model) mesh of gloo ranks sharing cuda:0
+TRAIN_MESH_F32 = (  # arch, layers kept, (data, model), B, S: one f32 step each
+    ("stablelm-12b", 1, (MESH_RANKS, 1), 4, 128),
+    ("granite-moe-1b-a400m", 2, (2, MESH_RANKS // 2), 2, 128),  # 256 tokens: none drops
+)
+TRAIN_MESH_BF16 = (  # arch, layers kept, (data, model), B, S, microbatches, steps
+    ("stablelm-12b", 4, (MESH_RANKS, 1), 4, 2048, 1, 4),
+    ("granite-moe-1b-a400m", 12, (2, MESH_RANKS // 2), 4, 2048, 2, 3),
+)
+TRAIN_MESH_BF16_TOL = 3e-2  # a bf16 rank's first loss against one device's
+
+
+def _train_mesh_params(cfg, mesh, rank: int, ways: int) -> tuple:
+    """(this rank's placement of ``init_params(cfg, 0)``, the specs): each
+    rank draws the whole params and keeps its blocks, one rank at a time."""
+    import torch.distributed as dist
+    from repro_torch.models import lm, sharding
+    specs = sharding.train_specs(cfg, lm.param_shapes(cfg), mesh)
+    for r in range(ways):
+        if r == rank:
+            whole = lm.init_params(cfg, seed=0, device="cuda")
+            params = sharding.place(whole, specs, mesh)
+            del whole
+            _free()
+        dist.barrier()
+    return params, specs
+
+
+def _train_batch(cfg, b: int, s: int, steps: int = 1) -> list:
+    from repro_torch.data.tokens import TokenPipeline
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=b, seq=s, seed=0)
+    return [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
+            for _ in range(steps)]
+
+
+def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float) -> float:
+    """flash_attention's backward at this rank's shape of the layer's
+    attention (its rows, all heads), seeded by the rank, against the plain
+    backward; outside the counted window."""
+    gen = torch.Generator(device="cuda").manual_seed(40 + rank)
+    inputs = _bwd_inputs(gen, b_loc, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.hd, cfg.hd, dtype)
+    err, _ = bwd_vs_plain(inputs, True, tol,
+                          f"[lm-train-mesh] rank {rank} {cfg.name} flash_attention backward")
+    del inputs
+    return err
+
+
+def _want_launches(cfg, micro: int) -> dict:
+    """flash_attention's forward and backward launches of one train step:
+    a layer's attention once a microbatch, its forward again under remat."""
+    per = cfg.n_layers * micro
+    return {"flash_attention": per * (2 if cfg.remat else 1), "flash_attention_bwd": per}
+
+
+def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
+    """(a): one f32 step (AdamW lr 1e-2, eps 1e-3) on the mesh against the
+    same step on one device, run on rank 0: each rank's loss at
+    ``TRAIN_LOSS_TOL``; the updated params, gathered a leaf at a time, at
+    ``TRAIN_GRAD_TOL`` of the leaf's largest |update|, and AdamW's moments
+    (which hold the gradient itself: mu = 0.1 g, nu = 0.001 g^2) at
+    ``TRAIN_GRAD_TOL`` of the leaf's largest |value|; the MoE's drops; this
+    rank's launches; the backward kernel at the rank's shape."""
+    import torch.distributed as dist
+    from repro_torch.models import layers as L, lm, sharding
+    from repro_torch.train.optim import AdamW
+    cfg = _family_cfg(arch, "float32", n_layers=layers)
+    params, specs = _train_mesh_params(cfg, mesh, rank, ways)
+    (batch,) = _train_batch(cfg, b, s)
+    opt = AdamW(lr=1e-2, eps=1e-3)
+    step = lm.make_train_step(cfg, opt, mesh=mesh)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    reset_launches()
+    with L.count_drops() as drops:
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+    launched = read_launches()
+    n_drops = int(sum(int(d) for d in drops))
+    report = {"arch": arch, "mesh": list(shape), "rank": rank, "loss": float(m["loss"]),
+              "launches": launched, "want": _want_launches(cfg, 1), "drops": n_drops}
+    ref = None
+    if rank == 0:
+        p0 = lm.init_params(cfg, seed=0, device="cuda")
+        p1, s1, m1 = lm.make_train_step(cfg, opt)(p0, opt.init(p0), batch)
+        ref = {"params": (flat_tree(p1), flat_tree(p0)), "mu": (flat_tree(s1.mu), None),
+               "nu": (flat_tree(s1.nu), None)}
+        del p0, p1, s1
+    flat_specs = flat_tree(specs)
+    worst = {}
+    for tree, mine in (("params", params), ("mu", state.mu), ("nu", state.nu)):
+        worst[tree] = (0.0, "")
+        for name, w in flat_tree(mine).items():
+            # every rank gathers the leaf; rank 0 holds it to one device's
+            whole = sharding.whole_leaf(w, flat_specs[name], mesh)
+            if ref is not None:
+                want, base = ref[tree][0][name], ref[tree][1]
+                scale = float(((want - base[name]) if base is not None else want).abs().max())
+                ratio = float((whole - want).abs().max()) / max(scale, 1e-30)
+                ratio = ratio if np.isfinite(ratio) else float("inf")
+                worst[tree] = max(worst[tree], (ratio, name))
+            del whole
+    del params, state, ref
+    _free()
+    box = [{"loss": float(m1["loss"]), "worst": worst} if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    report.update(one_device=box[0])
+    for tree, (ratio, name) in box[0]["worst"].items():
+        if not ratio <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"[lm-train-mesh] {arch} {shape}: {tree} leaf {name} max|err| "
+                                 f"is {ratio:.3g} of its largest "
+                                 f"{'update' if tree == 'params' else '|value|'}")
+    kernel_vs_plain(torch.tensor(report["loss"]), torch.tensor(box[0]["loss"]),
+                    TRAIN_LOSS_TOL, f"[lm-train-mesh] rank {rank} {arch} f32 loss")
+    rows = sharding.batch_rows(mesh, b)
+    b_loc = b if rows is None else rows.stop - rows.start
+    report["bwd"] = {"shape": [b_loc, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd],
+                     "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL)}
+    return report
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flat_tree(tree).values())
+
+
+def _train_mesh_bf16(arch, layers, shape, b, s, micro, steps, mesh, rank, ways) -> dict:
+    """(b), (c): ``steps`` bf16 steps (AdamW lr 3e-4, f32 moments) on the
+    mesh: losses, host ms a step to the loss, this rank's peak memory and
+    state bytes beside the whole state's, its launches."""
+    from repro_torch.models import lm
+    from repro_torch.train.optim import AdamW
+    cfg = _family_cfg(arch, "bfloat16", n_layers=layers)
+    params, _ = _train_mesh_params(cfg, mesh, rank, ways)
+    opt = AdamW(lr=3e-4)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    local = _tree_bytes(params) + _tree_bytes(state.mu) + _tree_bytes(state.nu)
+    whole = sum(int(np.prod(sh)) for sh in flat_tree(lm.param_shapes(cfg)).values())
+    step = lm.make_train_step(cfg, opt, microbatches=micro, mesh=mesh)
+    batches = _train_batch(cfg, b, s, steps)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = read_launches()
+    report = {"arch": arch, "layers": layers, "mesh": list(shape), "rank": rank,
+              "losses": losses, "ms": ms, "launches": launched,
+              "want": {k: v * steps for k, v in _want_launches(cfg, micro).items()},
+              "state_bytes": local, "whole_state_bytes": whole * (2 + 4 + 4),
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    rows = b // micro // shape[0] if (b // micro) % shape[0] == 0 else b // micro
+    report["bwd"] = {"shape": [rows, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd],
+                     "err": _rank_attention_bwd(cfg, rows, s, rank, torch.bfloat16,
+                                                BF16_TOL)}
+    del params, state, step, batches
+    _free()
+    return report
+
+
+def train_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
+    """One rank of [lm-train-mesh]: the f32 checks, then the bf16 runs;
+    writes its reports to ``out_dir/train-rank{rank}.json``."""
+    from repro_torch.core import mesh as mesh_util
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = mesh_util.make_host_mesh(*shape, device="cuda")
+        return meshes[shape]
+
+    reports = [_train_mesh_f32(*c, mesh_of(c[2]), rank, ways) for c in TRAIN_MESH_F32]
+    reports += [_train_mesh_bf16(*c, mesh_of(c[2]), rank, ways) for c in TRAIN_MESH_BF16]
+    Path(out_dir, f"train-rank{rank}.json").write_text(json.dumps(reports))
+
+
+def phase_lm_train_mesh(card: str) -> None:
+    """[lm-train-mesh]: ``make_train_step(mesh=)`` on ``MESH_RANKS`` gloo ranks
+    time-slicing cuda:0 (``train_mesh_rank``). (a) f32 at full width, cut
+    in depth: stablelm-12b (FSDP over data 4; head dim 160, the backward's
+    (160, 160) pair in two passes) and granite-moe (experts over model 2,
+    no token dropped), each rank against one device. (b) stablelm-12b in
+    bf16 at full width, FSDP over 4 data ranks, B 4 x 2048; (c) granite-moe
+    in bf16 on 2 x 2. Each rank's flash_attention forward and backward
+    launches must match its layers and microbatches; each rank holds the
+    backward kernel at its own shape against the plain backward. The
+    one-device loss of (b)'s first batch comes from this process. Times
+    are of ranks sharing one card and its host: no multi-card speed."""
+    import tempfile
+    from repro_torch.models import lm
+    from repro_torch.testing import spawn_ranks
+    _free()
+    arch, layers, shape, b, s, micro, steps = TRAIN_MESH_BF16[0]
+    cfg = _family_cfg(arch, n_layers=layers)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        want = float(lm.loss_fn(params, cfg, _train_batch(cfg, b, s)[0]))
+    del params
+    _free()
+    # the ranks share the card's 80 GB: segments that grow, so that the
+    # step's changing sizes do not strand memory between them
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            spawn_ranks(train_mesh_rank, MESH_RANKS, args=(out,), device="cuda:0",
+                        timeout_s=MESH_TIMEOUT_S)
+            secs = time.perf_counter() - t0
+            reports = [json.loads(Path(out, f"train-rank{r}.json").read_text())
+                       for r in range(MESH_RANKS)]
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    limit = _smi("power.limit")
+    for i, (arch, layers, shape, b, s) in enumerate(TRAIN_MESH_F32):
+        for r in range(MESH_RANKS):
+            rep = reports[r][i]
+            got = {k: rep["launches"][k] for k in rep["want"]}
+            if got != rep["want"] or rep["drops"]:
+                raise AssertionError(f"[lm-train-mesh] {arch} rank {r}: launches {got}, want "
+                                     f"{rep['want']}; {rep['drops']} tokens dropped")
+            one = rep["one_device"]
+            print(f"[lm-train-mesh] {arch} f32 full width, {layers} layer(s), mesh "
+                  f"{shape[0]}x{shape[1]} rank {r}, B{b} x S{s}, one step (AdamW lr 1e-2, eps "
+                  f"1e-3): loss {rep['loss']:.6f} vs one device {one['loss']:.6f} (bar "
+                  f"{TRAIN_LOSS_TOL:g}); gathered leaves, worst max|err| / the leaf's largest "
+                  f"update (params) or |value| (moments): params "
+                  f"{one['worst']['params'][0]:.3g}, mu {one['worst']['mu'][0]:.3g}, nu "
+                  f"{one['worst']['nu'][0]:.3g} (bar {TRAIN_GRAD_TOL:g}); "
+                  f"{rep['drops']} tokens dropped; launches {json.dumps(got)}; flash_attention "
+                  f"backward at the rank's shape (B, Hq, Hkv, S, D) = {rep['bwd']['shape']} == "
+                  f"plain, max|err|={rep['bwd']['err']:.3g} (bar {ATTN_TOL:g}); {card}, {limit}")
+    n_f32 = len(TRAIN_MESH_F32)
+    for i, (arch, layers, shape, b, s, micro, steps) in enumerate(TRAIN_MESH_BF16):
+        reps = [reports[r][n_f32 + i] for r in range(MESH_RANKS)]
+        losses = reps[0]["losses"]
+        if not all(np.isfinite(losses)) or any(rep["losses"] != losses for rep in reps):
+            raise AssertionError(f"[lm-train-mesh] {arch} bf16 losses "
+                                 f"{[rep['losses'] for rep in reps]}")
+        first = ""
+        if i == 0:
+            kernel_vs_plain(torch.tensor(losses[0]), torch.tensor(want), TRAIN_MESH_BF16_TOL,
+                            f"[lm-train-mesh] {arch} bf16 first loss")
+            first = (f"; the first loss {losses[0]:.6f} vs one device {want:.6f} (bar "
+                     f"{TRAIN_MESH_BF16_TOL:g})")
+        full = _family_cfg(arch)
+        for r, rep in enumerate(reps):
+            got = {k: rep["launches"][k] for k in rep["want"]}
+            if got != rep["want"]:
+                raise AssertionError(f"[lm-train-mesh] {arch} bf16 rank {r}: launches {got}, "
+                                     f"want {rep['want']}")
+            ms = rep["ms"]
+            print(f"[lm-train-mesh] {arch} bf16 full width, {layers} of {full.n_layers} layers "
+                  f"(remat {full.remat}, FSDP {full.fsdp}), mesh {shape[0]}x{shape[1]} rank {r}, "
+                  f"B{b} x S{s} in {micro} microbatch(es), {steps} steps (AdamW lr 3e-4, f32 "
+                  f"moments): losses {[round(x, 5) for x in rep['losses']]} (equal on all "
+                  f"ranks){first}; step ms {[round(x, 1) for x in ms]} (host clock to the "
+                  f"loss; median of the last {steps - 1}: {statistics.median(ms[1:]):.1f}); "
+                  f"peak {rep['peak_bytes'] / 1e9:.2f} GB; state a rank {rep['state_bytes'] / 1e9:.2f}"
+                  f" GB of the whole {rep['whole_state_bytes'] / 1e9:.2f} GB (bf16 params, f32 "
+                  f"moments); a step launches flash_attention "
+                  f"{got['flash_attention'] // steps} and its backward "
+                  f"{got['flash_attention_bwd'] // steps}; backward at the rank's shape "
+                  f"{rep['bwd']['shape']} == plain, max|err|={rep['bwd']['err']:.3g} (bar "
+                  f"{BF16_TOL:g}); {card}, {limit}")
+    print(f"[lm-train-mesh] {MESH_RANKS} gloo ranks time-slicing cuda:0 (not a multi-card "
+          f"speed): {secs:.1f} s, spawn included")
+
+
 def timed(phase):
     """``phase`` with its wall seconds printed after it (``[phase]`` line)."""
     def run(*a, **kw):
@@ -3543,6 +3821,7 @@ def main() -> int:
     timed(phase_lm_xlstm)()
     train_launches = timed(phase_lm_train)(card)
     rows.append(timed(phase_attention_bwd_times)(train_launches, errs, card))
+    timed(phase_lm_train_mesh)(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

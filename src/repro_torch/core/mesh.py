@@ -25,7 +25,10 @@ hosts), and the collectives are explicit calls on the mesh's group:
 ``jax.lax.axis_index`` becomes the rank in the mesh's group,
 ``all_gather(..., tiled=True)`` an all-gather into one tensor on dim 0,
 ``psum`` an all-reduce with SUM (in the tensor's own type, bfloat16
-included) and ``pmax`` one with MAX. Masks cross a collective as ``uint8`` (an
+included), ``psum_scatter`` a reduce-scatter and ``pmax`` an all-reduce
+with MAX. Training differentiates through the collectives: ``sum_over``,
+``copy_to``, ``gather_rows`` and ``split_rows`` are autograd functions
+whose backward is the collective's transpose. Masks cross a collective as ``uint8`` (an
 all-gather) or ``int32`` (a sum), never ``bool``. gloo takes CUDA tensors
 as they are (it copies them through the host itself), so several ranks can
 share one card over gloo; NCCL refuses two ranks on one GPU.
@@ -189,6 +192,109 @@ def all_reduce_max(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor
     w = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group)
     return w
+
+
+def reduce_scatter_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """This rank's block of rows of the sum of every rank's ``x`` over
+    ``axis`` (``jax.lax.psum_scatter(x, axis, tiled=True)``): dim 0 must
+    divide over the axis. gloo takes float32 and bfloat16, CUDA tensors
+    included (torch 2.11 on the H100)."""
+    group = _group(mesh, axis)
+    w = x.contiguous()
+    out = w.new_empty((w.shape[0] // axis_size(mesh, axis),) + tuple(w.shape[1:]))
+    dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (training on a mesh)
+# ---------------------------------------------------------------------------
+#
+# The in-place collectives above carry no gradient. Training runs the
+# reference's sharded program under autograd, where each collective's
+# backward is its transpose (what JAX differentiates ``psum``,
+# ``all_gather`` and a ``shard_map`` boundary into). Not
+# ``torch.distributed.nn.functional``: its all-reduce's backward sums the
+# upstream gradient over the ranks, so a loss computed alike on every rank
+# would get n times its gradient.
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce_sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, sum_grads):
+        ctx.mesh, ctx.axis, ctx.sum_grads = mesh, axis, sum_grads
+        return all_gather_rows(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            return reduce_scatter_rows(g, ctx.mesh, ctx.axis), None, None, None
+        return _block_rows(g, ctx.mesh, ctx.axis).clone(), None, None, None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _block_rows(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g, ctx.mesh, ctx.axis), None, None
+
+
+def _block_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    blk = x.shape[0] // axis_size(mesh, axis)
+    return x.narrow(0, rank_of(mesh, axis) * blk, blk)
+
+
+def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axis``; the gradient passes
+    through as it is (``psum`` of partial results into a replicated
+    output, as the MoE's combine over ``model``)."""
+    return _SumOver.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``axis``. For a replicated
+    input that each rank of ``axis`` uses only in part (its experts, its
+    tokens): each rank's gradient is then a partial sum."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS,
+                sum_grads: bool = True) -> torch.Tensor:
+    """``all_gather_rows`` with a gradient: the rank's block of the
+    gradient, summed over ``axis`` first (a reduce-scatter) when each rank
+    computed a partial gradient (``sum_grads``, the data-parallel case),
+    else taken as it is (every rank holds the whole gradient)."""
+    return _GatherRows.apply(x, mesh, axis, sum_grads)
+
+
+def split_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """This rank's block of ``x``'s rows over ``axis``, a whole tensor on
+    every rank; the gradient is all-gathered back to the whole rows."""
+    return _SplitRows.apply(x, mesh, axis)
 
 
 def agree(value, mesh, axis: str = DATA_AXIS, what: str = "plan") -> None:

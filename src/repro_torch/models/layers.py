@@ -31,6 +31,7 @@ captured).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -216,6 +217,20 @@ def mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_in: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 DROPLESS_TOKENS = 256  # up to this many tokens every assignment is kept
+_DROPS: Optional[list] = None  # while ``count_drops`` runs: a count a dispatch
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Yields a list that holds, for each expert dispatch inside the block,
+    the number of this rank's (token, expert) assignments past capacity (a
+    0-d tensor on the tokens' device; nothing is read back here)."""
+    global _DROPS
+    outer, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = outer
 
 
 def capacity(cfg, t: int) -> int:
@@ -273,6 +288,8 @@ def _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg,
     seg_start = torch.searchsorted(se, torch.arange(e_count, device=dev))
     pos_in_e = torch.arange(n, device=dev) - seg_start[torch.clamp(se, max=e_count - 1)]
     keep = (pos_in_e < cap) & (se < e_count)
+    if _DROPS is not None:
+        _DROPS.append(((se < e_count) & ~keep).sum())
     drop = e_count * cap
     slot = torch.where(keep, se * cap + pos_in_e, drop)
     buf = torch.zeros((drop + 1, d), dtype=x.dtype, device=dev)
@@ -296,7 +313,8 @@ def _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg,
     return out
 
 
-def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None) -> torch.Tensor:
+def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None,
+              local_rows: bool = False) -> torch.Tensor:
     """x: [T, D]. Sort-based capacity dispatch (GShard-style).
 
     ``mesh=None``, a mesh without a ``model`` axis, or an expert count that
@@ -307,7 +325,16 @@ def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None) -> torch.Tensor:
     divides over ``data`` (capacity counts the local tokens), and the
     combine is one all-reduce sum of the [T_loc, D] output over ``model``,
     in x's type as the reference's psum; a batch-sharded output is then
-    all-gathered over ``data``."""
+    all-gathered over ``data``. ``local_rows``: x is already this rank's
+    tokens over ``data`` (data-parallel training), split no further.
+
+    Under autograd the collectives carry the gradient
+    (``core.mesh.{sum_over,copy_to,split_rows,gather_rows}``): x and the
+    router enter the experts' split with their gradients summed over
+    ``model``, and where the tokens split here over ``data`` the router's
+    and experts' gradients are summed over ``data`` too, so that every
+    rank ends with the whole gradient of its leaves. The forward is the
+    same computation either way."""
     e = cfg.moe.n_experts
     if not sharded_experts(cfg, mesh):
         return _moe_dispatch_compute(x, router_w, e_gate, e_in, e_out, cfg, 0, e)
@@ -315,8 +342,12 @@ def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None) -> torch.Tensor:
     if e_in.shape[0] != e_loc:
         raise ValueError(f"moe_block: {e_in.shape[0]} experts on this rank, its block "
                          f"is {e_loc} of {e} (sharding.shard_params)")
-    rows = batch_rows(mesh, x.shape[0])
-    xl = x if rows is None else x[rows]
-    out = _moe_dispatch_compute(xl, router_w, e_gate, e_in, e_out, cfg,
-                                mesh_util.rank_of(mesh, "model") * e_loc, e_loc)
-    return gather_batch(mesh_util.all_reduce_sum(out, mesh, "model"), rows, mesh)
+    rows = None if local_rows else batch_rows(mesh, x.shape[0])
+    ws = [router_w, e_gate, e_in, e_out]
+    if rows is not None:
+        x = mesh_util.split_rows(x, mesh, "data")
+        ws = [w if w is None else mesh_util.copy_to(w, mesh, "data") for w in ws]
+    x, ws[0] = (mesh_util.copy_to(t, mesh, "model") for t in (x, ws[0]))
+    out = _moe_dispatch_compute(x, *ws, cfg, mesh_util.rank_of(mesh, "model") * e_loc, e_loc)
+    out = mesh_util.sum_over(out, mesh, "model")
+    return out if rows is None else mesh_util.gather_rows(out, mesh, "data", sum_grads=False)

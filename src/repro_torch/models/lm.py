@@ -51,15 +51,22 @@ rank's (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
 ``prefill(mesh=)`` returns the rank's cache); all else is whole and
 computed on every rank. The encoder-decoder and xLSTM decode on one device,
 as in the reference.
+
+Training on a mesh (``loss_fn``, ``value_and_grad`` and ``make_train_step``
+with ``mesh=``) runs data-parallel over ``data`` on each rank's rows of
+the batch, gathers FSDP weights at their use (``_gather_fsdp``) and splits
+the experts over ``model``; the collectives carry the gradients
+(``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``). Params and
+moments are the rank's training placement (``sharding.train_specs``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mesh as mesh_util
@@ -355,44 +362,61 @@ def _cross_attn(x, xblk, cfg: ModelConfig, enc_h):
     return _attend(q, k, v, causal=False) @ xblk["xo"]
 
 
-# unshard-at-use layouts of FSDP weights: gathered over ``data``, still
-# ``model``-sharded (``repro.models.lm._FSDP_GATHER_SPECS``)
-_FSDP_GATHER_SPECS = {
-    "wq": ("model",), "wk": (None,), "wv": (None,), "wo": ("model", None),
-    "w_gate": ("model",), "w_in": ("model",), "w_out": ("model", None),
-    "wq_a": (None,), "wq_b": ("model",), "wkv_a": (None,),
-    "wkv_b": ("model",), "xq": ("model",), "xk": (None,), "xv": (None,),
-    "xo": ("model", None),
-}
-
-
-def _gather_fsdp(blk, cfg: ModelConfig, mesh):
+def _gather_fsdp(blk, cfg: ModelConfig, mesh, specs, sum_grads: bool = True):
     """FSDP unshard-at-use (``repro.models.lm._gather_fsdp``) on ranks: each
-    2-D weight of ``_FSDP_GATHER_SPECS`` in one layer's ``blk`` is this
-    rank's block of its d_model dim (the dim ``param_pspecs`` shards over
-    ``data``, which it divides), and is all-gathered over ``data`` to its
-    gathered layout; over ``model`` that is the whole weight, as the port
-    keeps every weight but the experts whole there. The reference never
-    applies it (its ``_decoder_block`` records it refuted for training), and
-    neither does ``forward``."""
+    leaf of ``blk`` whose spec puts a dim on ``data`` holds this rank's
+    block of that dim and is all-gathered over ``data`` to the whole leaf
+    (``core.mesh.gather_rows``: under autograd its gradient is the rank's
+    block of the gradient, summed over ``data`` when ``sum_grads``, the
+    data-parallel case). ``specs``: each leaf's spec, one layer's
+    (``sharding.train_specs`` without the stacked axis). Over
+    ``model`` a gathered weight is whole, as the port keeps every weight
+    but the experts whole there. Training on a mesh applies it at each
+    layer's use, inside the layer's rematerialized body, and to ``embed``
+    (``_Train.use``); ``forward`` on a mesh (serving) takes whole weights."""
     if mesh is None or not cfg.fsdp:
         return blk
     out = dict(blk)
-    for name in _FSDP_GATHER_SPECS:
-        w = out.get(name)
-        if w is None or w.ndim != 2:
-            continue
-        dim = sharding._leaf_spec(name, w.shape, cfg, False).index(("data",))
-        out[name] = mesh_util.all_gather_rows(w.movedim(dim, 0), mesh, "data").movedim(0, dim)
+    for name, w in blk.items():
+        spec = specs[name]
+        if ("data",) in spec:
+            dim = spec.index(("data",))
+            out[name] = mesh_util.gather_rows(w.movedim(dim, 0), mesh, "data",
+                                              sum_grads).movedim(0, dim)
     return out
 
 
-def _ffn(x, blk, cfg: ModelConfig, mesh=None):
+class _Train(NamedTuple):
+    """A training pass on a (data, model) mesh: ``split`` when each data
+    rank runs its own rows of the batch (its gradients are then partial
+    sums over ``data``), else every data rank runs the whole batch (the
+    reference's ``batch_spec`` replicates a batch whose rows do not
+    divide); ``specs`` is the params' placement (``sharding.train_specs``)."""
+    mesh: Any
+    split: bool
+    specs: Dict[str, Any]
+
+    def use(self, tree, cfg: ModelConfig, group: str = ""):
+        """``tree`` (one layer of the stacked ``group``, or the top-level
+        leaves) with its FSDP leaves gathered whole (``_gather_fsdp``)."""
+        if not cfg.fsdp:
+            return tree
+        specs = self.specs[group] if group else self.specs
+        cut = 1 if group in sharding._STACKED_GROUPS else 0
+        return _gather_fsdp(tree, cfg, self.mesh, {k: specs[k][cut:] for k in tree},
+                            self.split)
+
+
+def _use(train, tree, cfg: ModelConfig, group: str = ""):
+    return tree if train is None else train.use(tree, cfg, group)
+
+
+def _ffn(x, blk, cfg: ModelConfig, mesh=None, local_rows: bool = False):
     if cfg.moe is None:
         return L.mlp(x, blk.get("w_gate"), blk["w_in"], blk["w_out"], cfg.act)
     flat = x.reshape(-1, x.shape[-1])
     y = L.moe_block(flat, blk["router"], blk.get("e_gate"), blk["e_in"],
-                    blk["e_out"], cfg, mesh=mesh)
+                    blk["e_out"], cfg, mesh=mesh, local_rows=local_rows)
     if cfg.moe.n_shared:
         y = y + L.mlp(flat, blk.get("sh_gate"), blk["sh_in"], blk["sh_out"], cfg.act)
     return y.reshape(x.shape)
@@ -405,15 +429,21 @@ def _cache_rows(cfg: ModelConfig) -> Tuple[str, str]:
 
 
 def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
-           cross=None, enc_h=None, cache=None, mesh=None):
+           cross=None, enc_h=None, cache=None, mesh=None, train=None, group="blocks"):
     """The stacked layers of ``blocks`` over x: self-attention (GQA or
     MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
     FFN (expert-parallel on ``mesh``). With ``cache`` each layer's rows go
     to its first S slots. In training each layer is rematerialized
-    (``_remat``), as the reference's scan body."""
+    (``_remat``), as the reference's scan body; on a mesh (``train``) the
+    layer gathers its FSDP weights inside that body, so that the backward
+    gathers them again instead of keeping them."""
     s = x.shape[1]
+    if train is not None:
+        mesh = train.mesh
 
     def layer(x, blk, xblk):
+        blk = _use(train, blk, cfg, group)
+        xblk = xblk if xblk is None else _use(train, xblk, cfg, "cross")
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
             a, rows = _mla_prefill(h, blk, cfg, positions)
@@ -423,7 +453,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
             a = _cross_attn(h, xblk, cfg, enc_h)
         x, h = L.add_rms_norm(x, a, blk["ln2"])
-        return x + _ffn(h, blk, cfg, mesh), rows
+        return x + _ffn(h, blk, cfg, mesh, train is not None and train.split), rows
 
     layers = _layers(blocks)
     xlayers = _layers(cross) if cross is not None else [None] * len(layers)
@@ -443,7 +473,7 @@ def _shared_block(x, sh, cfg: ModelConfig, positions):
     return x, L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu"), kv
 
 
-def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
+def _hybrid(x, params, cfg: ModelConfig, positions, cache=None, train=None):
     """Mamba-2 layers, the shared block after every ``attn_every`` of them
     and after the last; returns (x, the last residual term) for the final
     norm. With ``cache``: each layer's conv and SSM states, each shared
@@ -456,6 +486,7 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
     last = torch.zeros_like(x)
 
     def mamba(x, blk):
+        blk = _use(train, blk, cfg, "mamba")
         return ssm.mamba2_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
 
     for i, blk in enumerate(layers):
@@ -465,14 +496,15 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None):
             cache["conv"][i] = conv_s
             cache["ssm"][i] = ssm_s
         if (i + 1) % cfg.attn_every == 0 or i + 1 == n:
-            x, last, (k, v) = _shared_block(x + last, sh, cfg, positions)
+            x, last, (k, v) = _shared_block(x + last, _use(train, sh, cfg, "shared_attn"),
+                                            cfg, positions)
             if cache is not None:
                 cache["k"][i // cfg.attn_every, :, :s] = k
                 cache["v"][i // cfg.attn_every, :, :s] = v
     return x, last
 
 
-def _xlstm(x, params, cfg: ModelConfig, cache=None):
+def _xlstm(x, params, cfg: ModelConfig, cache=None, train=None):
     """Each segment's mLSTM layers, then its sLSTM layer; returns (x, the
     last residual term) for the final norm. With ``cache``: the memories
     each layer ends with. In training the mLSTM layers are rematerialized,
@@ -482,6 +514,7 @@ def _xlstm(x, params, cfg: ModelConfig, cache=None):
     last = torch.zeros_like(x)
 
     def m_body(x, blk):
+        blk = _use(train, blk, cfg, "mlstm")
         return ssm.mlstm_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
 
     for si in range(n_seg):
@@ -491,7 +524,7 @@ def _xlstm(x, params, cfg: ModelConfig, cache=None):
             if cache is not None:
                 cache["mS"][li] = S
         x = x + last
-        sl = slstm[si]
+        sl = _use(train, slstm[si], cfg, "slstm")
         last, state = ssm.slstm_forward(L.rms_norm(x, sl["ln"]), sl, cfg)
         if cache is not None:
             for name, t in zip(("sh", "sc", "sn"), state):
@@ -516,25 +549,30 @@ def _pos3(cfg: ModelConfig, positions, pos3):
 def encode(params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     """Encoder pass of the encoder-decoder: frame embeddings [B, S_src, D]
     (the stubbed modality frontend's output) -> memory [B, S_src, D]."""
+    return _encode(params, cfg, enc_embeds)
+
+
+def _encode(params, cfg: ModelConfig, enc_embeds, train=None) -> torch.Tensor:
     check_supported(cfg)
     if cfg.kind != "encdec" or enc_embeds is None:
         raise ValueError(f"{cfg.name}: encode needs an encoder-decoder and enc_embeds")
     e = torch.as_tensor(enc_embeds, device=params["embed"].device).to(_dt(cfg))
     b, s = e.shape[:2]
     e = _stack(e, params["enc_blocks"], cfg, _positions(b, s, e.device), None,
-               causal=False)
+               causal=False, train=train, group="enc_blocks")
     return L.rms_norm(e, params["enc_norm"])
 
 
-def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=None):
+def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=None,
+          train=None):
     """The layers of any family over the embedded tokens x; returns (x,
     the last residual term or None) for ``_final_norm``."""
     if cfg.kind == "hybrid":
-        return _hybrid(x, params, cfg, positions, cache)
+        return _hybrid(x, params, cfg, positions, cache, train)
     if cfg.kind == "xlstm":
-        return _xlstm(x, params, cfg, cache)
+        return _xlstm(x, params, cfg, cache, train)
     x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
-               cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh)
+               cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh, train=train)
     return x, None
 
 
@@ -544,13 +582,19 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
     decoder's input); enc_embeds: [B, S_src, D] for the encoder-decoder;
     pos3: [3, B, S] for M-RoPE; ``mesh``: the MoE's experts split over its
     ``model`` axis (``params`` are this rank's)."""
+    return _forward(params, cfg, tokens, positions, pos3, enc_embeds, mesh)
+
+
+def _forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
+             enc_embeds=None, mesh=None, train=None) -> torch.Tensor:
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
-    enc_h = encode(params, cfg, enc_embeds) if cfg.kind == "encdec" else None
-    return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h, mesh=mesh))
+    enc_h = _encode(params, cfg, enc_embeds, train) if cfg.kind == "encdec" else None
+    return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h, mesh=mesh,
+                                      train=train))
 
 
 # ===========================================================================
@@ -564,9 +608,23 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
     chunks of ``cfg.loss_chunk`` positions (the tail padded with masked
     rows), float32 logits against ``embed.T`` with -1e30 past ``cfg.vocab``,
     the chunks' sums added in the reference's scan order, ``tot / max(cnt,
-    1)``. Each chunk is rematerialized in training, as the reference's."""
-    h = forward(params, cfg, batch["tokens"], enc_embeds=batch.get("enc_embeds"),
-                pos3=batch.get("pos3"), mesh=mesh)
+    1)``. Each chunk is rematerialized in training, as the reference's.
+
+    On ``mesh`` (training on a (data, model) mesh) ``params`` are this
+    rank's placement (``sharding.train_specs``: FSDP blocks over ``data``,
+    experts over ``model``) and ``batch`` is the whole batch; every rank
+    returns the whole batch's loss (``_train_loss``)."""
+    if mesh is None:
+        tot, cnt = _ce_sums(params, cfg, batch)
+        return tot / torch.clamp(cnt, min=1.0)
+    return _train_loss(params, cfg, batch, _train_place(cfg, mesh, batch))
+
+
+def _ce_sums(params, cfg: ModelConfig, batch, train=None):
+    """(sum of the masked tokens' cross-entropies, their count) of
+    ``batch``, both float32 0-d tensors."""
+    h = _forward(params, cfg, batch["tokens"], enc_embeds=batch.get("enc_embeds"),
+                 pos3=batch.get("pos3"), train=train)
     b, s, _ = h.shape
     labels = torch.as_tensor(batch["labels"], device=h.device).long()
     chunk = min(cfg.loss_chunk, s)
@@ -588,21 +646,95 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
     for c in range(0, nc * chunk, chunk):
         t, n = _remat(cfg, ce, h[:, c:c + chunk], labels[:, c:c + chunk], emb)
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
+
+
+def _batch_axis(key: str) -> int:
+    return 1 if key == "pos3" else 0  # pos3 is [3, B, S]
+
+
+def _train_place(cfg: ModelConfig, mesh, batch, specs=None) -> _Train:
+    """How a training pass over ``batch`` runs on ``mesh``: split over
+    ``data`` when its rows divide there (``sharding.batch_rows``)."""
+    n = torch.as_tensor(batch["tokens"]).shape[0]
+    if specs is None:
+        specs = sharding.train_specs(cfg, param_shapes(cfg), mesh)
+    return _Train(mesh, sharding.batch_rows(mesh, n) is not None, specs)
+
+
+def _train_loss(params, cfg: ModelConfig, batch, train: _Train) -> torch.Tensor:
+    """The loss of a training pass on a mesh. Split over ``data``: the rank
+    runs its rows (``pos3`` on axis 1, ``enc_embeds`` by rows) and
+    computes ``tot_local / cnt`` with ``cnt`` the whole batch's count
+    (summed over ``data``, no gradient), and the ranks' terms are summed
+    with a gradient that passes through (``core.mesh.sum_over``): each
+    rank's gradient is its rows' part, counted once, and the leaves it
+    holds whole are summed over ``data`` after the backward
+    (``_sum_partial_grads``). Not split: every data rank runs the whole
+    batch, and its gradient is the whole gradient. ``embed`` is gathered
+    once and serves both the embedding and the CE."""
+    mesh = train.mesh
+    if train.split:
+        rows = sharding.batch_rows(mesh, torch.as_tensor(batch["tokens"]).shape[0])
+        batch = {k: torch.as_tensor(v).narrow(_batch_axis(k), rows.start,
+                                              rows.stop - rows.start)
+                 for k, v in batch.items()}
+    params = dict(params, **train.use({"embed": params["embed"]}, cfg))
+    tot, cnt = _ce_sums(params, cfg, batch, train)
+    if not train.split:
+        return tot / torch.clamp(cnt, min=1.0)
+    cnt = mesh_util.all_reduce_sum(cnt.detach(), mesh, "data")
+    return mesh_util.sum_over(tot / torch.clamp(cnt, min=1.0), mesh, "data")
+
+
+def _leaf_grads(params, loss_of):
+    """(loss, gradient tree) of ``loss_of(params)``; the gradients flow to
+    detached views of the leaves, in the params' types (zero for a leaf
+    the loss does not reach, as JAX's)."""
+    leaves, spec = tree_flatten(params)
+    leaves = [w.detach().requires_grad_() for w in leaves]
+    with torch.enable_grad():
+        loss = loss_of(tree_unflatten(leaves, spec))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree_unflatten(
+        [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)], spec)
+
+
+def _sum_partial_grads(grads, train: _Train):
+    """A split pass's gradients completed: every leaf that the rank holds
+    whole over ``data`` has its rows' part summed over ``data`` (one
+    all-reduce a dtype, the leaves packed flat); FSDP blocks are already
+    the sums (their gather's reduce-scatter). Not split: as they are."""
+    if not train.split:
+        return grads
+    leaves, spec = tree_flatten(grads)
+    specs = tree_flatten(sharding._zip_map(lambda g, sp: sp, grads, train.specs),
+                         is_leaf=lambda x: isinstance(x, tuple))[0]
+    out = list(leaves)
+    for dt in sorted({g.dtype for g in leaves}, key=str):
+        idx = [i for i, (g, sp) in enumerate(zip(leaves, specs))
+               if g.dtype == dt and "data" not in sharding.spec_axes(sp)]
+        if not idx:
+            continue
+        flat = mesh_util.all_reduce_sum(torch.cat([leaves[i].reshape(-1) for i in idx]),
+                                        train.mesh, "data")
+        for i, part in zip(idx, flat.split([leaves[i].numel() for i in idx])):
+            out[i] = part.view_as(leaves[i])
+    return tree_unflatten(out, spec)
 
 
 def value_and_grad(params, cfg: ModelConfig, batch, mesh=None):
     """(loss, grads) of ``loss_fn`` at ``params``: the gradient tree has the
     params' structure and types (zero for a leaf the loss does not reach,
     as JAX's). ``params`` are left as they are: the gradients flow to
-    detached views of them."""
-    leaves, spec = tree_flatten(params)
-    leaves = [w.detach().requires_grad_() for w in leaves]
-    with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(leaves, spec), cfg, batch, mesh=mesh)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), tree_unflatten(
-        [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)], spec)
+    detached views of them. On ``mesh`` the gradients are of this rank's
+    leaves (its placement) and whole: summed over every rank that took
+    part in them."""
+    if mesh is None:
+        return _leaf_grads(params, lambda p: loss_fn(p, cfg, batch))
+    train = _train_place(cfg, mesh, batch)
+    loss, grads = _leaf_grads(params, lambda p: _train_loss(p, cfg, batch, train))
+    return loss, _sum_partial_grads(grads, train)
 
 
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
@@ -613,40 +745,62 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
     with ``microbatches`` > 1 the batch split into that many equal parts
     (``pos3`` on its axis 1), their gradients accumulated in
     ``accum_dtype`` and the loss and gradients divided by ``microbatches``;
-    then ``optimizer.update`` (``train.optim.AdamW``). ``mesh=`` (training
-    on a (data, model) mesh: FSDP gathers, sharded state) is not ported
-    yet and raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError("make_train_step(mesh=): training on a mesh is "
-                                  "not ported yet; train on one device")
+    then ``optimizer.update`` (``train.optim.AdamW``).
+
+    ``mesh=`` (a (data, model) mesh of ``core.mesh.make_host_mesh``, every
+    rank calling the step alike): params and optimizer state are this
+    rank's placement (``sharding.train_specs`` and ``place``; AdamW's
+    moments take the params'), ``batch`` the whole batch. Each microbatch
+    is cut first, then each rank runs its rows of it over ``data`` where
+    they divide (else the whole microbatch, as the reference's
+    ``batch_spec`` replicates it); FSDP weights are gathered at their use
+    and their gradients reduce-scattered, the experts split over ``model``,
+    the partial gradients of the leaves held whole summed over ``data``
+    once a step, after the accumulation; the update is elementwise on each
+    rank's blocks with the whole tree's clip norm. The loss is the whole
+    batch's on every rank."""
     m = microbatches
+    specs = None if mesh is None else sharding.train_specs(cfg, param_shapes(cfg), mesh)
 
     def part(k: str, x, i: int):
         x = torch.as_tensor(x)
-        axis = 1 if k == "pos3" else 0  # pos3 is [3, B, S]
+        axis = _batch_axis(k)
         n = x.shape[axis] // m
         return x.narrow(axis, i * n, n)
 
+    def one(params, batch):
+        """(loss, gradients before the sum over data, the pass's _Train)."""
+        if mesh is None:
+            return (*_leaf_grads(params, lambda p: loss_fn(p, cfg, batch)), None)
+        train = _train_place(cfg, mesh, batch, specs)
+        return (*_leaf_grads(params, lambda p: _train_loss(p, cfg, batch, train)), train)
+
     def grads_of(params, batch):
         if m == 1:
-            return value_and_grad(params, cfg, batch)
+            loss, grads, train = one(params, batch)
+            return loss, grads if train is None else _sum_partial_grads(grads, train)
         loss = 0.0
         leaves, spec = tree_flatten(params)
         acc = [torch.zeros(w.shape, dtype=accum_dtype, device=w.device) for w in leaves]
         for i in range(m):
-            l, g = value_and_grad(params, cfg, {k: part(k, v, i) for k, v in batch.items()})
+            l, g, train = one(params, {k: part(k, v, i) for k, v in batch.items()})
             loss = loss + l
             for a, gi in zip(acc, tree_flatten(g)[0]):
                 a.add_(gi.to(accum_dtype))
-        return loss / m, tree_unflatten([a.div_(m) for a in acc], spec)
+        grads = tree_unflatten(acc, spec)
+        if train is not None:
+            grads = _sum_partial_grads(grads, train)
+        return loss / m, tree_map(lambda a: a.div_(m), grads)
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
         # the update gets the only reference to the gradients, so that it
-        # frees them as soon as it has scaled them
+        # frees them as soon as it has scaled them (a call that unpacks
+        # ``**kwargs`` would keep them in its argument tuple)
         held = [grads]
         del grads
-        params, opt_state = optimizer.update(held.pop(), opt_state, params)
+        params, opt_state = optimizer.update(held.pop(), opt_state, params,
+                                             mesh=mesh, specs=specs)
         return params, opt_state, {"loss": loss}
 
     return train_step

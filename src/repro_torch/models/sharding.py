@@ -19,6 +19,11 @@ cuts the experts (``e_gate``, ``e_in``, ``e_out``) to the rank's block over
 shards the batch) and slots over ``model``. Every other leaf and state
 (the hybrid's ``conv`` and ``ssm`` included) stays whole on every rank and
 is computed replicated.
+
+Training on a mesh keeps its own placement (``train_specs``): FSDP configs
+hold the rank's block of each leaf's ``data`` dim, the experts their block
+over ``model``; ``place`` cuts it from whole leaves and ``unplace`` gathers
+it back (checkpoints, ``train.elastic.reshard_state``, tests).
 """
 from __future__ import annotations
 
@@ -235,6 +240,72 @@ def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
     specs = cache_pspecs(cfg, {k: cache[k] for k in rows}, mesh, batch)
     return dict(cache, **{k: local_block(cache[k], specs[k], mesh, ("data", "model"))
                           for k in rows})
+
+
+# ---------------------------------------------------------------------------
+# the training placement
+# ---------------------------------------------------------------------------
+
+def train_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Where training on ``mesh`` keeps each leaf of the params (and of
+    the AdamW moments, which take the params' placement, as the
+    reference's ``AdamWState`` takes ``pspecs``): ``param_pspecs``'s
+    ``data`` entries (a ``cfg.fsdp`` leaf holds the rank's block of the
+    dim it puts on ``data``, ``embed`` and the stacked blocks included) on
+    every leaf but the experts, and its ``model`` entries on the experts
+    only, where ``moe_block`` splits them. Every other dim is whole: the
+    port computes attention and the dense FFNs whole over ``model``."""
+    split = sharded_experts(cfg, mesh)
+
+    def keep(name, spec):
+        want = ("model" if split else None) if name in EXPERTS else "data"
+        return tuple(ax if ax is not None and want in ax else None for ax in spec)
+
+    def walk(specs):
+        return {k: walk(v) if isinstance(v, dict) else keep(k, v) for k, v in specs.items()}
+
+    return walk(param_pspecs(cfg, shapes, mesh))
+
+
+def spec_axes(spec: tuple) -> tuple:
+    """The mesh axes a leaf's spec splits it over, in the spec's order."""
+    return tuple(a for ax in spec if ax for a in ax)
+
+
+def _zip_map(fn, tree: Dict[str, Any], specs: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _zip_map(fn, v, specs[k]) if isinstance(v, dict) else fn(v, specs[k])
+            for k, v in tree.items()}
+
+
+def place_leaf(w, spec: tuple, mesh):
+    """A whole leaf -> this rank's block under ``spec``, in storage of its
+    own; a leaf its spec leaves whole is the same tensor."""
+    axes = spec_axes(spec)
+    return local_block(w, spec, mesh, axes) if axes else w
+
+
+def whole_leaf(w, spec: tuple, mesh):
+    """This rank's block under ``spec`` -> the whole leaf, on every rank
+    (all-gathers over the axes ``spec`` names, in the same order on every
+    rank; no gradient)."""
+    if not spec_axes(spec):
+        return w
+    from repro_torch.core import mesh as mesh_util
+    for dim, ax in enumerate(spec):
+        for a in reversed(ax or ()):
+            w = mesh_util.all_gather_rows(w.movedim(dim, 0), mesh, a).movedim(0, dim)
+    return w.contiguous()
+
+
+def place(tree: Dict[str, Any], specs: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Whole leaves -> this rank's blocks under ``specs`` (``train_specs``)."""
+    return _zip_map(lambda w, sp: place_leaf(w, sp, mesh), tree, specs)
+
+
+def unplace(tree: Dict[str, Any], specs: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The inverse of ``place``: every rank's blocks gathered back to the
+    whole leaves, on every rank."""
+    return _zip_map(lambda w, sp: whole_leaf(w, sp, mesh), tree, specs)
 
 
 def batch_rows(mesh, n: int) -> Optional[slice]:

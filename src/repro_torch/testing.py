@@ -857,23 +857,25 @@ def _lm_mesh_case(case: dict, mesh, say_line: Callable) -> np.ndarray:
 
 def _check_gather_fsdp(mesh, say_line: Callable) -> None:
     """``lm._gather_fsdp`` of one layer's FSDP weights, each cut to this
-    rank's block over ``data``, gives the whole weights back."""
+    rank's block by the training placement (``sharding.train_specs``
+    without the stacked axis), gives the whole weights back."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm, sharding
     cfg = dataclasses.replace(get_smoke_config("deepseek-67b"), fsdp=True, dtype="float32")
     whole = lm.init_params(cfg, seed=3, device="cpu")
+    specs = {k: sp[1:] for k, sp in
+             sharding.train_specs(cfg, lm.param_shapes(cfg), mesh)["blocks"].items()}
     blk = {k: w[0] for k, w in whole["blocks"].items()}
-    local = {k: (sharding.local_block(w, sharding._fit(sharding._leaf_spec(k, w.shape, cfg, False),
-                                                       w.shape, mesh), mesh, ("data",))
-                 if k in lm._FSDP_GATHER_SPECS else w) for k, w in blk.items()}
-    assert any(local[k].shape != blk[k].shape for k in lm._FSDP_GATHER_SPECS if k in blk)
-    got = lm._gather_fsdp(local, cfg, mesh)
+    local = sharding.place(blk, specs, mesh)
+    cut = sorted(k for k in blk if local[k].shape != blk[k].shape)
+    assert cut
+    got = lm._gather_fsdp(local, cfg, mesh, specs)
     for k, w in blk.items():
         assert torch.equal(got[k], w), k
     say_line(f"_gather_fsdp over data={sharding.axis_size(mesh, 'data')}: "
-             f"{sorted(k for k in lm._FSDP_GATHER_SPECS if k in blk)} whole again: OK")
+             f"{cut} whole again: OK")
 
 
 def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
@@ -901,8 +903,362 @@ def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
     say(rank, "lm-mesh suite: OK")
 
 
+# ---------------------------------------------------------------------------
+# LM training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_MICRO = 16, 24, 2
+TRAIN_MESH_STEPS = 2  # steps of each case (and of each half of the reshard and restore)
+TRAIN_MESH_TOL = 2e-4  # the port's training bars (tests/test_torch_train_grads.py)
+TRAIN_MESH_LR, TRAIN_MESH_EPS = 1e-2, 1e-3  # AdamW: eps 1e-3, as test_train_step_matches_jax
+TRAIN_MESH_CLIP = 0.05  # the clip case's grad_clip, far below its gradient's norm
+RESHARD = ("stablelm-12b", (2, 4), (4, 2))  # arch, the mesh before and after
+RESTORE_SHAPE = (1, 4)  # the mesh of the new 4-rank group that restores
+
+
+def train_mesh_cases() -> list:
+    """The cases of the ``train-mesh`` suite, in the order the ranks run
+    them. Each is a dict: ``label``, ``arch``, the (data, model)
+    ``shape``, the global batch ``b``, the config's ``fsdp``, ``remat`` and
+    expert count (``experts``, None: the smoke config's), AdamW's ``clip``,
+    and ``ref``: ``"mesh"`` when the reference's jitted mesh step is the
+    target, ``"one"`` when its one-device step is (an MoE whose experts
+    split over more than one ``model`` rank, where the reference's mesh
+    gradient is not its loss's gradient: ROADMAP §3)."""
+    cases = []
+
+    def add(arch, shape, ref="mesh", b=TRAIN_MESH_BATCH, fsdp=False, remat=False,
+            experts=None, clip=1.0, tag=""):
+        label = f"{shape[0]}x{shape[1]}/{arch}" + "".join(
+            f"/{t}" for t, on in (("fsdp", fsdp), ("remat", remat),
+                                  (f"e{experts}", experts), (f"b{b}", b != TRAIN_MESH_BATCH),
+                                  (tag, tag)) if on)
+        cases.append(dict(label=label, arch=arch, shape=shape, ref=ref, b=b, fsdp=fsdp,
+                          remat=remat, experts=experts, clip=clip))
+
+    add("granite-3-2b", (8, 1))
+    add("granite-3-2b", (2, 4))
+    add("stablelm-12b", (2, 4), fsdp=True, remat=True)
+    add("stablelm-12b", (8, 1), fsdp=True)
+    add("qwen2-vl-72b", (2, 4), fsdp=True)
+    add("seamless-m4t-medium", (4, 2))
+    add("zamba2-1.2b", (4, 2))
+    # 4 experts do not divide over 8 model ranks: the one-device MoE on
+    # every rank, in the reference too; 8 do, and split
+    add("granite-moe-1b-a400m", (1, 8))
+    add("granite-moe-1b-a400m", (1, 8), ref="one", experts=8)
+    add("granite-moe-1b-a400m", (2, 4), ref="one")
+    add("deepseek-v2-236b", (2, 4), ref="one", fsdp=True)
+    # 2 rows a microbatch on data 4: replicated; the MoE still splits its
+    # 48 tokens over data (12 a rank)
+    add("stablelm-12b", (4, 2), b=4, fsdp=True)
+    add("granite-moe-1b-a400m", (4, 2), b=4, ref="one")
+    add("deepseek-v2-236b", (2, 4), ref="one", fsdp=True, clip=TRAIN_MESH_CLIP, tag="clip")
+    return cases
+
+
+def train_mesh_config(case: dict, smoke_config: Callable):
+    """The case's float32 config from ``smoke_config`` (either package's)."""
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config(case["arch"]), dtype="float32",
+                              fsdp=case["fsdp"], remat=case["remat"])
+    if case["experts"]:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               n_experts=case["experts"]))
+    return cfg
+
+
+def train_mesh_batches(cfg, b: int, seed: int, n: int = TRAIN_MESH_STEPS) -> list:
+    """``n`` batches of ``b`` x ``TRAIN_MESH_SEQ`` tokens and labels (a
+    fifth -1), with the family's ``enc_embeds`` [b, 7, D] or ``pos3``, as
+    numpy arrays, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        s = TRAIN_MESH_SEQ
+        bt = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+        labels = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        labels[rng.random((b, s)) < 0.2] = -1
+        bt["labels"] = labels
+        if cfg.kind == "encdec":
+            bt["enc_embeds"] = rng.standard_normal((b, 7, cfg.d_model)).astype(np.float32)
+        if cfg.attn == "mrope":
+            bt["pos3"] = rng.integers(0, 4 * s, (3, b, s)).astype(np.int32)
+        out.append(bt)
+    return out
+
+
+def train_mesh_inputs(case: dict, cfg) -> dict:
+    """The case's whole float32 params (``seeded_lm_params``) and batches."""
+    import zlib
+    from repro_torch.models import lm
+    seed = zlib.crc32(case["label"].encode())
+    return {"params": seeded_lm_params(lm.param_shapes(cfg), seed % 1000),
+            "batches": train_mesh_batches(cfg, case["b"], seed)}
+
+
+def compress_inputs(ways: int = 8) -> tuple:
+    """Each rank's gradient and error-feedback trees for ``compressed_psum``:
+    rank r's gradient is scaled by 1 + r, so the ranks' int8 scales differ."""
+    rng = np.random.default_rng(5)
+    g = {"w": np.stack([rng.standard_normal((6, 10)).astype(np.float32) * (1 + r)
+                        for r in range(ways)]),
+         "b": np.stack([rng.standard_normal((10,)).astype(np.float32) * (1 + r) / 4
+                        for r in range(ways)])}
+    err = {k: (rng.standard_normal(v.shape) * 0.01).astype(np.float32) for k, v in g.items()}
+    return g, err
+
+
+def flat_state(params, mu=None, nu=None) -> dict:
+    """``params`` (and the moments) flattened to ``params/blocks/wq``-style
+    keys, float32 numpy."""
+    return {f"{name}/{k}": v.detach().float().cpu().numpy()
+            for name, tree in (("params", params), ("mu", mu), ("nu", nu)) if tree is not None
+            for k, v in flat_tree(tree).items()}
+
+
+def _assert_trees_close(got: dict, want: dict, label: str, tol: float = TRAIN_MESH_TOL):
+    """Two ``flat_state`` dicts: every leaf within ``tol`` of its own largest
+    |value| (and relatively); returns the worst |err| / max|value|."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: leaves differ {sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(got[k], w, rtol=tol, atol=tol * scale,
+                                   err_msg=f"{label} {k}")
+        worst = max(worst, float(np.abs(got[k] - w).max()) / scale)
+    return worst
+
+
+def _train_steps(cfg, params, case, batches, mesh=None):
+    """``len(batches)`` steps of ``make_train_step`` (AdamW lr 1e-2, eps
+    1e-3, the case's clip; microbatches 2) from ``params`` (this rank's
+    placement on ``mesh``); returns (params, state, losses, drops)."""
+    import torch
+    from repro_torch.models import layers as L, lm
+    from repro_torch.train.optim import AdamW
+    opt = AdamW(lr=TRAIN_MESH_LR, eps=TRAIN_MESH_EPS, grad_clip=case["clip"])
+    state = opt.init(params)
+    step = lm.make_train_step(cfg, opt, microbatches=TRAIN_MESH_MICRO, mesh=mesh)
+    losses = []
+    with L.count_drops() as drops:
+        for b in batches:
+            params, state, m = step(params, state, {k: torch.from_numpy(v)
+                                                    for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    return params, state, losses, int(sum(int(d) for d in drops))
+
+
+def _train_mesh_case(case: dict, mesh, say_line: Callable) -> dict:
+    """One case on this rank: the steps on ``mesh`` from the placed params;
+    then rank 0 runs them on one device (whole params) and holds the
+    mesh's losses and gathered params and moments to its at
+    ``TRAIN_MESH_TOL`` (every rank's loss and gathered state are the same
+    all-reduced and all-gathered values). Returns this rank's losses, drop
+    count and blocks (``flat_state``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm, sharding
+    from repro_torch.train.optim import global_sq_norm, tree_leaves
+    cfg = train_mesh_config(case, get_smoke_config)
+    inp = train_mesh_inputs(case, cfg)
+    whole = convert.lm_params_from_numpy(inp["params"], device="cpu")
+    specs = sharding.train_specs(cfg, lm.param_shapes(cfg), mesh)
+    params, state, losses, drops = _train_steps(cfg, sharding.place(whole, specs, mesh),
+                                                case, inp["batches"], mesh)
+    got = flat_state(*(sharding.unplace(t, specs, mesh) for t in (params, state.mu, state.nu)))
+    worst = 0.0
+    if dist.get_rank() == 0:
+        one_p, one_s, one_losses, _ = _train_steps(cfg, whole, case, inp["batches"])
+        np.testing.assert_allclose(losses, one_losses, rtol=TRAIN_MESH_TOL,
+                                   atol=TRAIN_MESH_TOL, err_msg=f"{case['label']} losses")
+        worst = _assert_trees_close(got, flat_state(one_p, one_s.mu, one_s.nu), case["label"])
+    rows = sharding.batch_rows(mesh, case["b"] // TRAIN_MESH_MICRO)
+    note = ""
+    if case["clip"] != 1.0:
+        # the first microbatch: 192 tokens, dropless on one device too
+        half = case["b"] // TRAIN_MESH_MICRO
+        b0 = {k: torch.from_numpy(v).narrow(1 if k == "pos3" else 0, 0, half)
+              for k, v in inp["batches"][0].items()}
+        _, g = lm.value_and_grad(sharding.place(whole, specs, mesh), cfg, b0, mesh)
+        _, g1 = lm.value_and_grad(whole, cfg, b0)
+        norm = float(torch.sqrt(global_sq_norm(g, specs, mesh)))
+        norm1 = float(torch.sqrt(sum(torch.sum(torch.square(x)) for x in tree_leaves(g1))))
+        if not (abs(norm - norm1) <= 1e-5 * norm1 and norm1 > case["clip"]):
+            raise AssertionError(f"{case['label']}: the mesh's gradient norm {norm} "
+                                 f"against one device's {norm1}, clip {case['clip']}")
+        note = (f"; global gradient norm {norm:.6g} == one device's {norm1:.6g} "
+                f"(clip {case['clip']:g} binds)")
+    split = [k for k, sp in flat_tree(specs).items() if sharding.spec_axes(sp)]
+    say_line(f"{case['label']}: rows {'split over data' if rows else 'replicated'}, "
+             f"{len(split)} leaves split ({', '.join(split) or 'none'}), {drops} tokens "
+             f"dropped; losses {[round(x, 6) for x in losses]} == one device, params and "
+             f"moments worst |err| / max = {worst:.3g} (bar {TRAIN_MESH_TOL:g}){note}: OK")
+    out = {f"{case['label']}/{k}": v for k, v in
+           flat_state(params, state.mu, state.nu).items()}
+    out[f"{case['label']}/loss"] = np.asarray(losses, np.float64)
+    out[f"{case['label']}/drops"] = np.asarray(drops)
+    return out
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts flattened to ``blocks/wq``-style keys, in their order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _reshard_and_save(out_dir: str, say_line: Callable) -> dict:
+    """``RESHARD``'s arch: 2 steps on the first mesh, a checkpoint saved from
+    it (and, for the file's comparison, the same state saved whole from one
+    process), ``elastic.reshard_state`` onto the second mesh, 2 more steps
+    there. Returns this rank's blocks after each half."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.models import lm, sharding
+    from repro_torch.train import checkpoint, elastic
+    from repro_torch.train.optim import AdamW
+    arch, before, after = RESHARD
+    case = dict(arch=arch, b=TRAIN_MESH_BATCH, fsdp=True, remat=False, experts=None,
+                clip=1.0, label=f"reshard/{arch}")
+    cfg = train_mesh_config(case, get_smoke_config)
+    inp = train_mesh_inputs(case, cfg)
+    batches = train_mesh_batches(cfg, case["b"], 99, 2 * TRAIN_MESH_STEPS)
+    shapes = lm.param_shapes(cfg)
+    m1 = mesh_util.make_host_mesh(*before, device="cpu")
+    specs1 = sharding.train_specs(cfg, shapes, m1)
+    whole = convert.lm_params_from_numpy(inp["params"], device="cpu")
+    params, state, losses, _ = _train_steps(cfg, sharding.place(whole, specs1, m1), case,
+                                            batches[:TRAIN_MESH_STEPS], m1)
+    out = {f"reshard/before/{k}": v for k, v in flat_state(params, state.mu, state.nu).items()}
+    checkpoint.save(str(Path(out_dir, "ckpt_mesh")), TRAIN_MESH_STEPS, (params, state), cfg,
+                    mesh_descr="2x4", mesh=m1)
+    whole_state = (sharding.unplace(params, specs1, m1),
+                   state._replace(mu=sharding.unplace(state.mu, specs1, m1),
+                                  nu=sharding.unplace(state.nu, specs1, m1)))
+    if dist.get_rank() == 0:
+        checkpoint.save(str(Path(out_dir, "ckpt_one")), TRAIN_MESH_STEPS, whole_state, cfg,
+                        mesh_descr="2x4")
+    m2 = mesh_util.make_host_mesh(*after, device="cpu")
+    params, state = elastic.reshard_state((params, state), cfg, shapes, m2, mesh=m1)
+    specs2 = sharding.train_specs(cfg, shapes, m2)
+    again = sharding.place(whole_state[0], specs2, m2)
+    for k, w in flat_state(params).items():
+        if not np.array_equal(w, flat_state(again)[k]):
+            raise AssertionError(f"reshard_state: {k} is not the new mesh's block")
+    opt = AdamW(lr=TRAIN_MESH_LR, eps=TRAIN_MESH_EPS)
+    step = lm.make_train_step(cfg, opt, microbatches=TRAIN_MESH_MICRO, mesh=m2)
+    for b in batches[TRAIN_MESH_STEPS:]:
+        params, state, m = step(params, state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    out.update({f"reshard/after/{k}": v for k, v in flat_state(params, state.mu, state.nu).items()})
+    out["reshard/loss"] = np.asarray(losses, np.float64)
+    say_line(f"reshard/{arch}: {TRAIN_MESH_STEPS} steps on {before[0]}x{before[1]}, checkpoint "
+             f"saved from it, reshard_state onto {after[0]}x{after[1]} (each block == the new "
+             f"mesh's cut of the gathered state), {TRAIN_MESH_STEPS} steps there; losses "
+             f"{[round(x, 6) for x in losses]}: OK")
+    return out
+
+
+def _compressed_psum(mesh, rank: int) -> dict:
+    import torch
+    from repro_torch.models.sharding import axis_size
+    from repro_torch.train import compress
+    g, err = compress_inputs(axis_size(mesh, "data"))
+    mine = lambda t: {k: torch.from_numpy(v[rank]) for k, v in t.items()}
+    mean, new_err = compress.compressed_psum(mine(g), mine(err), mesh, "data")
+    return {f"compress/{name}/{k}": v.numpy() for name, tree in (("mean", mean),
+                                                                ("err", new_err))
+            for k, v in tree.items()}
+
+
+def train_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the mesh-training proof on 8 ranks: every case of
+    ``train_mesh_cases`` (each held to this rank's one-device run of the
+    same inputs, and the MoE's drop count), ``compressed_psum`` with
+    unequal scales, the reshard and the checkpoint saved from a mesh
+    (``_reshard_and_save``). Every rank writes its losses and blocks to
+    ``out_dir/rank{rank}.npz``, which the tests hold to JAX."""
+    from repro_torch.core import mesh as mesh_util
+    if ways != 8:
+        raise ValueError(f"train-mesh runs on 8 ranks, not {ways}")
+    if out_dir is None:
+        raise ValueError("train-mesh needs --out (the checkpoints go there)")
+    results = {}
+
+    def line(text):
+        say(rank, text)
+
+    meshes = {}
+    for case in train_mesh_cases():
+        if case["shape"] not in meshes:
+            meshes[case["shape"]] = mesh_util.make_host_mesh(*case["shape"], device="cpu")
+        results.update(_train_mesh_case(case, meshes[case["shape"]], line))
+    results.update(_compressed_psum(meshes[(8, 1)], rank))
+    line(f"compressed_psum over data=8, scales 1..8 apart: sum(q) * max(scale) / n: OK")
+    results.update(_reshard_and_save(out_dir, line))
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
+    say(rank, "train-mesh suite: OK")
+
+
+def train_restore_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """A new group of 4 ranks (the survivors of the 8 that saved): the
+    checkpoint saved from (2, 4) restored onto ``RESTORE_SHAPE``
+    (``checkpoint.restore(mesh=)``), which equals ``reshard_state`` of the
+    whole restored state bit for bit, then ``TRAIN_MESH_STEPS`` more
+    steps. Writes ``out_dir/restore{rank}.npz``."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.models import lm, sharding
+    from repro_torch.train import checkpoint, elastic
+    from repro_torch.train.optim import AdamW
+    arch = RESHARD[0]
+    case = dict(arch=arch, b=TRAIN_MESH_BATCH, fsdp=True, remat=False, experts=None,
+                clip=1.0, label=f"reshard/{arch}")
+    cfg = train_mesh_config(case, get_smoke_config)
+    batches = train_mesh_batches(cfg, case["b"], 99, 2 * TRAIN_MESH_STEPS)
+    shapes = lm.param_shapes(cfg)
+    opt = AdamW(lr=TRAIN_MESH_LR, eps=TRAIN_MESH_EPS)
+    tmpl_p = lm.init_params(cfg, 0, device="cpu")
+    template = (tmpl_p, opt.init(tmpl_p))
+    mesh = mesh_util.make_host_mesh(*RESTORE_SHAPE, device="cpu")
+    ckpt = str(Path(out_dir, "ckpt_mesh"))
+    (params, state), at = checkpoint.restore(ckpt, template, cfg=cfg, mesh=mesh)
+    whole, _ = checkpoint.restore(ckpt, template, cfg=cfg)
+    survivor = elastic.reshard_state(whole, cfg, shapes, mesh)
+    for k, w in flat_state(survivor[0], survivor[1].mu, survivor[1].nu).items():
+        if not np.array_equal(w, flat_state(params, state.mu, state.nu)[k]):
+            raise AssertionError(f"restore(mesh=) and reshard_state differ at {k}")
+    step = lm.make_train_step(cfg, opt, microbatches=TRAIN_MESH_MICRO, mesh=mesh)
+    losses = []
+    for b in batches[TRAIN_MESH_STEPS:]:
+        params, state, m = step(params, state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    out = {f"restore/{k}": v for k, v in flat_state(params, state.mu, state.nu).items()}
+    out["restore/loss"] = np.asarray(losses, np.float64)
+    out["restore/step"] = np.asarray(int(state.step))
+    np.savez(Path(out_dir) / f"restore{rank}.npz", **out)
+    say(rank, f"restore on a new group of {ways} ranks as {RESTORE_SHAPE[0]}x"
+              f"{RESTORE_SHAPE[1]} from step {at} == reshard_state of the whole state; "
+              f"{TRAIN_MESH_STEPS} steps, losses {[round(x, 6) for x in losses]}: OK")
+    say(rank, "train-restore suite: OK")
+
+
 SUITES = {"partitioned": partitioned_suite, "sharded": sharded_suite, "fault": fault_suite,
-          "lm-mesh": lm_mesh_suite}
+          "lm-mesh": lm_mesh_suite, "train-mesh": train_mesh_suite}
+# suites that go on in a new, smaller group once the first has ended
+FOLLOW_UPS = {"train-mesh": (train_restore_suite, RESTORE_SHAPE[0] * RESTORE_SHAPE[1])}
 
 
 def main(argv=None) -> int:
@@ -916,6 +1272,9 @@ def main(argv=None) -> int:
     if a.out is not None:
         Path(a.out).mkdir(parents=True, exist_ok=True)
     spawn_ranks(SUITES[a.suite], a.ways, args=(a.out,), timeout_s=a.timeout)
+    if a.suite in FOLLOW_UPS:
+        body, ways = FOLLOW_UPS[a.suite]
+        spawn_ranks(body, ways, args=(a.out,), timeout_s=a.timeout)
     return 0
 
 

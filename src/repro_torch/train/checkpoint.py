@@ -15,7 +15,14 @@ steps.
 Trees are nested dicts, lists, tuples and NamedTuples of tensors, numpy
 arrays or Python scalars. ``restore`` rebuilds the template's structure
 with each tensor leaf in the template leaf's type and on its device.
-Re-sharding onto a mesh at restore waits for training on a mesh.
+
+On a (data, model) mesh the state is each rank's training placement
+(``models.sharding.train_specs``): a leaf whose tree path ends in a param's
+path (``0/blocks/wq``, ``1/mu/embed``) is that param's block.
+``save(..., mesh=)`` gathers every such leaf whole, so the file is the
+one a single device writes, and the mesh's first rank writes it;
+``restore(..., mesh=)`` cuts each rank's blocks for the mesh it is given
+(the reference's ``shardings=``), which may differ from the one that saved.
 """
 from __future__ import annotations
 
@@ -78,9 +85,57 @@ def config_hash(cfg) -> str:
     return hashlib.sha1(repr(cfg).encode()).hexdigest()[:16]
 
 
+def _param_specs(cfg, mesh) -> Dict[str, tuple]:
+    """The training placement's spec of each param, by its path."""
+    from repro_torch.models import lm, sharding
+    flat: Dict[str, tuple] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = v
+
+    walk(sharding.train_specs(cfg, lm.param_shapes(cfg), mesh), "")
+    return flat
+
+
+def _placed(fn: Callable, tree, cfg, mesh):
+    """``fn(leaf, spec)`` on every tensor leaf whose path ends in a param's
+    path (``_param_specs``); the other leaves as they are."""
+    if cfg is None:
+        raise ValueError("a checkpoint on a mesh needs cfg (the params' placement)")
+    specs = _param_specs(cfg, mesh)
+
+    def one(path, leaf):
+        parts = path.split("/")
+        spec = next((specs[p] for p in ("/".join(parts[i:]) for i in range(len(parts)))
+                     if p in specs), None)
+        if spec is None or not isinstance(leaf, torch.Tensor) or leaf.ndim != len(spec):
+            return leaf
+        return fn(leaf, spec)
+
+    return _map_with_path(one, tree)
+
+
 def save(ckpt_dir: str, step: int, state: Any, cfg=None,
-         mesh_descr: str = "", keep: int = 3) -> str:
-    """Atomic checkpoint save. Returns the checkpoint path."""
+         mesh_descr: str = "", keep: int = 3, mesh=None) -> str:
+    """Atomic checkpoint save. Returns the checkpoint path. On ``mesh``
+    every rank of it calls this alike: the placed leaves are gathered
+    whole, the mesh's first rank writes, and all return after the write."""
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.models import sharding
+        state = _placed(lambda w, sp: sharding.whole_leaf(w, sp, mesh), state, cfg, mesh)
+        if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+            _write(ckpt_dir, step, state, cfg, mesh_descr, keep)
+        dist.barrier()
+        return os.path.join(ckpt_dir, f"step_{step:08d}")
+    return _write(ckpt_dir, step, state, cfg, mesh_descr, keep)
+
+
+def _write(ckpt_dir: str, step: int, state: Any, cfg, mesh_descr: str, keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
@@ -123,10 +178,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
-            cfg=None) -> Tuple[Any, int]:
-    """Restore into the structure of ``template`` (the latest step unless
-    ``step`` is given); refuses a checkpoint whose config hash differs from
-    ``cfg``'s. Returns (state, step)."""
+            cfg=None, mesh=None) -> Tuple[Any, int]:
+    """Restore into the structure of ``template`` (whole leaves; the latest
+    step unless ``step`` is given); refuses a checkpoint whose config hash
+    differs from ``cfg``'s. With ``mesh`` (and ``cfg``) each param leaf,
+    and each moment, comes back as this rank's block of it on ``mesh``.
+    Returns (state, step)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -150,4 +207,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
                  else torch.from_numpy(arr))
             return t.to(device=tmpl.device, dtype=tmpl.dtype)
 
-        return _map_with_path(leaf, template), step
+        state = _map_with_path(leaf, template)
+    if mesh is not None:
+        from repro_torch.models import sharding
+        state = _placed(lambda w, sp: sharding.place_leaf(w, sp, mesh), state, cfg, mesh)
+    return state, step

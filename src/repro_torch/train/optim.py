@@ -11,7 +11,9 @@ float32. ``torch.optim.AdamW`` with ``clip_grad_norm_`` is another function
 
 The update is functional: ``init(params)`` gives the state and
 ``update(grads, state, params)`` returns new parameters and a new state;
-nothing is written in place.
+nothing is written in place. On a (data, model) mesh the trees are each
+rank's blocks (``models.sharding.train_specs``) and the clip's norm is the
+whole tree's (``global_sq_norm``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,33 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def global_sq_norm(tree, specs, mesh) -> torch.Tensor:
+    """The sum of squares of a tree whose leaves are this rank's blocks
+    under ``specs`` (a tree of the same dict keys; a leaf's spec names the
+    mesh axes it is split over), the same float32 0-d tensor on every rank:
+    each leaf's squares summed over the axes that split it, a leaf held
+    whole counted once (a sum over every rank would count it data x model
+    times). Leaves split alike are summed locally first, then reduced once
+    a group."""
+    from repro_torch.core import mesh as mesh_util
+    from repro_torch.models.sharding import spec_axes
+    groups: dict = {}
+
+    def add(g, spec):
+        axes = spec_axes(spec)
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+
+    tree_map(add, tree, specs)
+    total = None
+    for axes in sorted(groups):
+        part = groups[axes]
+        for a in axes:
+            part = mesh_util.all_reduce_sum(part, mesh, a)
+        total = part if total is None else total + part
+    return total
 
 
 class AdamWState(NamedTuple):
@@ -63,11 +92,16 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                           mu=zeros(), nu=zeros())
 
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, mesh=None, specs=None):
+        """New (params, state). On ``mesh`` the three trees are this rank's
+        blocks under ``specs`` (``models.sharding.train_specs``): the
+        update is elementwise on them, and the clip's norm is the whole
+        tree's (``global_sq_norm``)."""
         step = state.step + 1
         f32 = torch.float32
         if self.grad_clip is not None:
-            sq = sum(torch.sum(torch.square(g.to(f32))) for g in tree_leaves(grads))
+            sq = (sum(torch.sum(torch.square(g.to(f32))) for g in tree_leaves(grads))
+                  if mesh is None else global_sq_norm(grads, specs, mesh))
             gnorm = torch.sqrt(sq + 1e-12)
             scale = torch.clamp(self.grad_clip / gnorm, max=1.0)
             grads = tree_map(lambda g: g * scale, grads)

@@ -5,8 +5,7 @@ In process, with stand-in meshes of the same shape in each package (JAX's
 ``AbstractMesh``): ``sharding.param_pspecs`` and ``cache_pspecs`` equal the
 reference's ``PartitionSpec``s leaf by leaf (the port's convention: one
 entry a dimension, a tuple of axis names or None) for all ten configs, full
-and smoke, on (2, 4) and (1, 8) meshes; ``lm._FSDP_GATHER_SPECS`` equals the
-reference's table; the placement cuts the experts and the attention cache
+and smoke, on (2, 4) and (1, 8) meshes; the placement cuts the experts and the attention cache
 only, and refuses slots that do not divide over ``model``.
 
 In subprocesses, started together: ``python -m repro_torch.testing
@@ -116,15 +115,20 @@ def test_cache_pspecs_match_jax(arch, batch, shape):
         assert tuple(cache[k].shape) == tuple(jcache[k].shape), k
 
 
-def test_fsdp_gather_specs_match_jax():
-    assert lm._FSDP_GATHER_SPECS == jlm._FSDP_GATHER_SPECS
-
-
 def test_gather_fsdp_is_identity_off_a_mesh_or_fsdp():
     cfg = get_smoke_config("deepseek-67b")
+    blk, specs = {"wq": torch.zeros(2, 2)}, {"wq": (("data",), None)}
+    assert lm._gather_fsdp(blk, cfg, None, specs) is blk
+    assert not cfg.fsdp and lm._gather_fsdp(blk, cfg, _Mesh((2, 4)), specs) is blk
+
+
+def test_train_use_gathers_nothing_without_fsdp():
+    """A training pass of a config without FSDP hands each layer its leaves
+    as they are, before it reads any spec."""
+    cfg = get_smoke_config("deepseek-67b")
     blk = {"wq": torch.zeros(2, 2)}
-    assert lm._gather_fsdp(blk, cfg, None) is blk
-    assert not cfg.fsdp and lm._gather_fsdp(blk, cfg, _Mesh((2, 4))) is blk
+    train = lm._Train(mesh=_Mesh((2, 4)), split=True, specs={})
+    assert not cfg.fsdp and train.use(blk, cfg, "blocks") is blk
 
 
 @pytest.mark.parametrize("shape,split", [((2, 4), True), ((1, 8), False)])

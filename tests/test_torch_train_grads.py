@@ -256,9 +256,3 @@ def test_train_step_matches_jax(arch, microbatches):
     _close_tree(pt, pj, F32_TOL)
     _close_tree(ts.mu, js.mu, F32_TOL)
     assert int(ts.step) == int(js.step) == 2
-
-
-def test_train_step_on_a_mesh_is_not_ported():
-    _, tcfg = _cfgs("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        lm.make_train_step(tcfg, AdamW(), mesh=object())
