@@ -122,7 +122,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (bf16, on a 1x4 and a 2x2 mesh), granite-moe-1b-a400m (bf16, 32 experts
    over 4 ranks), deepseek-v2-236b at full width (160 experts over 4 ranks,
    the latent cache S-sharded; f32 at 2 and bf16 at 6 of its 60 layers)
-   and zamba2-1.2b (f32 and bf16), all 1x4 but the 2x2. Every rank makes
+   and zamba2-1.2b (f32 and bf16), all 1x4 but the 2x2; granite-3-2b at 4
+   layers in f32 on a 2x1x2 (pod, data, model) mesh, its batch rows over
+   pod and data. Every rank makes
    its own params (``init_params(mesh=)``, one rank at a time), steps once
    from an empty cache (every slice but the first rank's empty), prefills
    with ``prefill(mesh=)`` and decodes 8 steps through ``Server(mesh=)``
@@ -239,7 +241,17 @@ Phases, each printing its own lines; any failure exits non-zero:
       and microbatch under remat; its backward 80), then one profiled
       step. On the smoke config (bf16): the loss falls over 12 steps
       (``tests/test_train_infra.py``'s run) and 3 steps + checkpoint +
-      restore + 3 steps equal 6 straight steps (rtol 1e-5);
+      restore + 3 steps equal 6 straight steps (rtol 1e-5). [dryrun] on the
+      full-depth model: one more step under ``launch.trace_cost``'s counter
+      on the card, whose FLOPs must equal the same step traced on meta
+      tensors as launch analysis traces it (``lm.abstract_params``), the
+      predicted argument bytes equal to the distinct storages that the
+      card's allocator holds for the same state; the meta trace's
+      predicted peak against the phase's measured peak (a ratio), its
+      compute term at the bf16 peak against the measured step;
+   [dryrun] ``torch.library.opcheck`` of every kernel operator at its
+      main-path shape (schema, autograd registration, the shape-only
+      implementation's shapes, dtypes and strides against the kernel's);
    c. [time] flash_attention backward at the training shapes of
       granite-3-2b (the JSON row), qwen2-vl (D 128, 64 / 8 heads), MLA
       ((192, 128), B 1 x 128 heads) and seamless's cross attention (non-
@@ -248,7 +260,11 @@ Phases, each printing its own lines; any failure exits non-zero:
       on a kept graph, its forward not rerun; each backend's time beside
       it), the bound from ``ops.bwd_flops`` (2 (3 D + 2 Dv) operations a
       kept (row, key) pair), Dr's, dK/dV's and dQ's ms one by one from the
-      profiler in a child process, and the launches a train step.
+      profiler in a child process, and the launches a train step;
+   d. [lm-train-mesh] on 4 gloo ranks sharing cuda:0 (``phase_lm_train_mesh``):
+      f32 steps held to one device (stablelm-12b on 4x1, granite-moe on
+      2x2 and on a 2x1x2 (pod, data, model) mesh), bf16 runs of
+      stablelm-12b and granite-moe.
    Each phase's wall seconds follow it on a ``[phase]`` line.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -1886,13 +1902,16 @@ def phase_mesh() -> None:
 
 
 LM_MESH_STEPS = 8  # decode steps after the B 4 x 2048 prefill in [lm-mesh]
-LM_MESH_CONFIGS = (  # arch, layers kept (None: all), type, (data, model) meshes
+# arch, layers kept (None: all), type, (data, model) or (pod, data, model) meshes
+LM_MESH_CONFIGS = (
     ("granite-3-2b", None, "bfloat16", ((1, MESH_RANKS), (2, MESH_RANKS // 2))),
     ("granite-moe-1b-a400m", None, "bfloat16", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 2, "float32", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 6, "bfloat16", ((1, MESH_RANKS),)),
     ("zamba2-1.2b", None, "float32", ((1, MESH_RANKS),)),
     ("zamba2-1.2b", None, "bfloat16", ((1, MESH_RANKS),)),
+    # rows over pod and data, slots over model
+    ("granite-3-2b", 4, "float32", ((2, 1, MESH_RANKS // 2),)),
 )
 
 
@@ -2071,7 +2090,7 @@ def lm_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
     """One rank of [lm-mesh]: every config of ``LM_MESH_CONFIGS`` on each of
     its meshes (``_lm_mesh_run``); writes its reports to
     ``out_dir/lm-rank{rank}.json``."""
-    from repro_torch.core import mesh as mesh_util
+    from repro_torch.testing import host_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reports = []
@@ -2080,7 +2099,7 @@ def lm_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
         with np.load(Path(out_dir, f"{_lm_mesh_name(arch, layers, dtype)}.npz")) as z:
             want = {k: z[k] for k in z.files}
         for shape in shapes:
-            mesh = mesh_util.make_host_mesh(*shape, device="cuda")
+            mesh = host_mesh(shape, device="cuda")
             reports.append(_lm_mesh_run(arch, cfg, mesh, want, rank, ways))
     Path(out_dir, f"lm-rank{rank}.json").write_text(json.dumps(reports))
 
@@ -2097,7 +2116,7 @@ def phase_lm_mesh() -> None:
     of the speed of several cards."""
     import tempfile
     from repro_torch.models import lm
-    from repro_torch.testing import spawn_ranks
+    from repro_torch.testing import mesh_tag, spawn_ranks
     _free()
     with tempfile.TemporaryDirectory() as out:
         for arch, layers, dtype, shapes in LM_MESH_CONFIGS:
@@ -2110,7 +2129,7 @@ def phase_lm_mesh() -> None:
                   f"{LM_MESH_STEPS} steps and an empty-cache step, {secs:.1f} s"
                   + (f"; response to a one-ulp move of the embeddings {response:.3g}, bar "
                      f"{lm_mesh_bar(dtype, response):.3g}" if dtype == "bfloat16" else "")
-                  + "; meshes " + ", ".join(f"{d}x{m}" for d, m in shapes))
+                  + "; meshes " + ", ".join(mesh_tag(sh) for sh in shapes))
         t0 = time.perf_counter()
         spawn_ranks(lm_mesh_rank, MESH_RANKS, args=(out,), device="cuda:0",
                     timeout_s=MESH_TIMEOUT_S)
@@ -2139,7 +2158,7 @@ def phase_lm_mesh() -> None:
                        f"{p['empty_l'][1]:g} (plain), weight 0 in the merge"))
             steps = sorted(rep["step_ms"])
             print(f"[lm-mesh] {arch} {dtype} {cfg.n_layers} layers, mesh "
-                  f"{rep['mesh'][0]}x{rep['mesh'][1]} rank {r}: experts "
+                  f"{mesh_tag(rep['mesh'])} rank {r}: experts "
                   f"{'split over model' if rep['experts_split'] else 'whole' if cfg.moe else '-'}"
                   f", cache block {rep['cache_block']}; launches prefill "
                   f"{json.dumps({k: v for k, v in fa.items() if v})}, {LM_MESH_STEPS} steps "
@@ -3358,6 +3377,8 @@ def phase_lm_train(card: str) -> dict:
     profile_breakdown(f"{LM_ARCH} train step B{LM_TRAIN_BATCH}xS{LM_TRAIN_SEQ}",
                       lambda: step(params, state, batch)[2]["loss"].item(), top=8,
                       also=("fab::",))
+    dryrun_train_check(cfg, opt, step, (params, state, batch), steady,
+                       torch.cuda.max_memory_allocated(), card)
     del params, state, batch, step
     _free()
 
@@ -3380,6 +3401,121 @@ def phase_lm_train(card: str) -> dict:
           f"(losses {[round(x, 5) for x in part2.losses]} vs "
           f"{[round(x, 5) for x in full.losses[3:]]}, rtol {RESUME_RTOL:g})")
     return launches
+
+
+def _leaf_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages under ``tree``'s tensors: what the
+    caching allocator handed out for them (views counted once, a view's
+    whole storage counted)."""
+    from torch.utils._pytree import tree_leaves
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)}
+    return sum(held.values())
+
+
+def dryrun_train_check(cfg, opt, step, args: tuple, step_ms: float, peak: int,
+                       card: str) -> None:
+    """[dryrun] on [lm-train]'s model: one more step on the card under
+    ``launch.trace_cost``'s counter, against the same step traced on meta
+    tensors (``lm.abstract_params``, AdamW's state of them, a batch of the
+    same shapes) as launch analysis traces it. The FLOPs must be equal (the
+    meta path takes the card's branches), and the predicted argument bytes
+    equal to the storages that the card's allocator holds for the same
+    state; printed beside them: the meta trace's peak
+    (the arguments plus its live bytes) against the phase's measured peak,
+    and the trace's compute term at the card's bf16 peak against the
+    measured step."""
+    from repro_torch.launch import trace_cost
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    with trace_cost.TraceCost(args) as on_card:
+        out = step(*args)
+        torch.cuda.synchronize()
+    del out
+    _free()
+    meta_params = lm.abstract_params(cfg)
+    meta = (meta_params, opt.init(meta_params),
+            {k: torch.empty_like(v, device="meta") for k, v in args[2].items()})
+    with trace_cost.TraceCost(meta) as on_meta:
+        step(*meta)
+    counts = lambda c: (c.flops, c.product_flops)
+    if counts(on_card) != counts(on_meta):
+        raise AssertionError(f"[dryrun] FLOPs on the card {counts(on_card)} != the meta "
+                             f"trace's {counts(on_meta)}")
+    held, predicted = _storage_bytes(args), _leaf_bytes(meta)
+    if held != predicted:
+        raise AssertionError(f"[dryrun] argument bytes: meta {predicted}, card {held}")
+    form, (_, _, bf16_peak, _) = card_peaks(card)
+    peak_pred = predicted + on_meta.peak_bytes
+    compute_ms = on_meta.flops / bf16_peak * 1e3
+    print(f"[dryrun] {LM_ARCH} train step B{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in "
+          f"{LM_TRAIN_MICRO} microbatches, remat: FLOPs on the card {on_card.flops:.6e} "
+          f"(products {on_card.product_flops:.6e}) == the meta trace's; {on_meta.ops.total()} "
+          f"ops traced; argument bytes predicted {predicted} == the storages allocated for "
+          f"them {held} "
+          f"({held / 1e9:.2f} GB); predicted peak {peak_pred / 1e9:.2f} GB (arguments + "
+          f"{on_meta.peak_bytes / 1e9:.2f} GB live) against [lm-train]'s measured "
+          f"{peak / 1e9:.2f} GB: ratio {peak_pred / peak:.4f}; compute term "
+          f"{compute_ms:.1f} ms at {bf16_peak / 1e12:g} TFLOP/s bf16 ({form}) is "
+          f"{100 * compute_ms / step_ms:.1f}% of the measured {step_ms:.1f} ms step; bytes "
+          f"term {on_meta.bytes / card_peaks(card)[1][1] * 1e3:.1f} ms; {card}, "
+          f"{_smi('power.limit')}; {time.perf_counter() - t0:.1f} s")
+
+
+def opcheck_cases(shapes: dict) -> dict:
+    """Each kernel operator at its main-path shape (PERF.md §6: the
+    engine kernels at ``[full]``'s largest operands, the attention kernels
+    at granite-3-2b's prefill, backward and decode), as ``torch.library
+    .opcheck`` takes them."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ops = torch.ops.repro_torch
+    m, k, n, t = shapes["block_matmul"]
+    cases = {"block_matmul": (ops.block_matmul.default,
+                              (_normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5), t))}
+    m, k, n, act = shapes["fused_dense"]
+    cases["fused_dense"] = (ops.fused_dense.default,
+                            (_normal(gen, (m, k)), _normal(gen, (k, n), k ** -0.5),
+                             _normal(gen, (n,)), act))
+    n, d, t, depth = shapes["decision_forest"]
+    cases["decision_forest"] = (ops.forest_predict.default, _forest_inputs(gen, n, d, t, depth))
+    b, hq, hkv, s, d = lm_shapes()["flash_attention"]
+    q, k, v = _attn_inputs(gen, b, hq, hkv, s, d, torch.bfloat16)
+    o, lse = fa._forward_op(q, k, v, True, True)
+    cases["flash_attention"] = (ops.flash_attention.default, (q, k, v, True, True))
+    cases["flash_attention_bwd"] = (ops.flash_attention_bwd.default,
+                                    (q, k, v, o, lse, torch.randn_like(o), True))
+    b, hq, hkv, cap, filled, d = lm_shapes()["flash_decode"]
+    kc, vc = (_normal(gen, (b, cap, hkv, d), dtype=torch.bfloat16) for _ in range(2))
+    qd = _normal(gen, (b, hq, d), dtype=torch.bfloat16)
+    cases["flash_decode"] = (ops.flash_decode.default,
+                             (qd, kc, vc, torch.tensor(filled, dtype=torch.int32,
+                                                       device="cuda")))
+    cases["flash_decode_n"] = (ops.flash_decode_n.default, (qd, kc, vc, filled))
+    return cases
+
+
+def phase_dryrun(shapes: dict) -> None:
+    """[dryrun]: ``torch.library.opcheck`` of every kernel operator at its
+    main-path shape on the card: the schema, the autograd registration and
+    the shape-only (fake) implementation's shapes, dtypes and strides
+    against the kernel's (what launch analysis traces on meta tensors).
+    The FLOP and memory checks run in ``[lm-train]`` on its model
+    (``dryrun_train_check``)."""
+    for name, (op, args) in opcheck_cases(shapes).items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(op, args)
+        shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        print(f"[dryrun] opcheck {op} at {shape}: schema, autograd registration, fake "
+              f"(shapes, dtypes, strides against the kernel), aot dispatch: OK "
+              f"({time.perf_counter() - t0:.1f} s)")
+    _free()
 
 
 BWD_TIME_SHAPES = {  # label -> (B, Hq, Hkv, S, Skv, D, Dv, causal)
@@ -3498,9 +3634,12 @@ def phase_attention_bwd_times(train_launches: dict, errs: dict, card: str) -> di
 
 
 # [lm-train-mesh]: training on a (data, model) mesh of gloo ranks sharing cuda:0
-TRAIN_MESH_F32 = (  # arch, layers kept, (data, model), B, S: one f32 step each
+# arch, layers kept, (data, model) or (pod, data, model), B, S: one f32 step each
+TRAIN_MESH_F32 = (
     ("stablelm-12b", 1, (MESH_RANKS, 1), 4, 128),
     ("granite-moe-1b-a400m", 2, (2, MESH_RANKS // 2), 2, 128),  # 256 tokens: none drops
+    # rows over pod and data, experts over model
+    ("granite-moe-1b-a400m", 2, (2, 1, MESH_RANKS // 2), 2, 128),
 )
 TRAIN_MESH_BF16 = (  # arch, layers kept, (data, model), B, S, microbatches, steps
     ("stablelm-12b", 4, (MESH_RANKS, 1), 4, 2048, 1, 4),
@@ -3663,14 +3802,14 @@ def _train_mesh_bf16(arch, layers, shape, b, s, micro, steps, mesh, rank, ways) 
 def train_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
     """One rank of [lm-train-mesh]: the f32 checks, then the bf16 runs;
     writes its reports to ``out_dir/train-rank{rank}.json``."""
-    from repro_torch.core import mesh as mesh_util
+    from repro_torch.testing import host_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     meshes = {}
 
     def mesh_of(shape):
         if shape not in meshes:
-            meshes[shape] = mesh_util.make_host_mesh(*shape, device="cuda")
+            meshes[shape] = host_mesh(shape, device="cuda")
         return meshes[shape]
 
     reports = [_train_mesh_f32(*c, mesh_of(c[2]), rank, ways) for c in TRAIN_MESH_F32]
@@ -3692,7 +3831,7 @@ def phase_lm_train_mesh(card: str) -> None:
     are of ranks sharing one card and its host: no multi-card speed."""
     import tempfile
     from repro_torch.models import lm
-    from repro_torch.testing import spawn_ranks
+    from repro_torch.testing import mesh_tag, spawn_ranks
     _free()
     arch, layers, shape, b, s, micro, steps = TRAIN_MESH_BF16[0]
     cfg = _family_cfg(arch, n_layers=layers)
@@ -3728,7 +3867,7 @@ def phase_lm_train_mesh(card: str) -> None:
                                      f"{rep['want']}; {rep['drops']} tokens dropped")
             one = rep["one_device"]
             print(f"[lm-train-mesh] {arch} f32 full width, {layers} layer(s), mesh "
-                  f"{shape[0]}x{shape[1]} rank {r}, B{b} x S{s}, one step (AdamW lr 1e-2, eps "
+                  f"{mesh_tag(shape)} rank {r}, B{b} x S{s}, one step (AdamW lr 1e-2, eps "
                   f"1e-3): loss {rep['loss']:.6f} vs one device {one['loss']:.6f} (bar "
                   f"{TRAIN_LOSS_TOL:g}); gathered leaves, worst max|err| / the leaf's largest "
                   f"update (params) or |value| (moments): params "
@@ -3758,7 +3897,7 @@ def phase_lm_train_mesh(card: str) -> None:
                                      f"want {rep['want']}")
             ms = rep["ms"]
             print(f"[lm-train-mesh] {arch} bf16 full width, {layers} of {full.n_layers} layers "
-                  f"(remat {full.remat}, FSDP {full.fsdp}), mesh {shape[0]}x{shape[1]} rank {r}, "
+                  f"(remat {full.remat}, FSDP {full.fsdp}), mesh {mesh_tag(shape)} rank {r}, "
                   f"B{b} x S{s} in {micro} microbatch(es), {steps} steps (AdamW lr 3e-4, f32 "
                   f"moments): losses {[round(x, 5) for x in rep['losses']]} (equal on all "
                   f"ranks){first}; step ms {[round(x, 1) for x in ms]} (host clock to the "
@@ -3820,6 +3959,7 @@ def main() -> int:
     timed(phase_lm_hybrid)()
     timed(phase_lm_xlstm)()
     train_launches = timed(phase_lm_train)(card)
+    timed(phase_dryrun)(shapes)
     rows.append(timed(phase_attention_bwd_times)(train_launches, errs, card))
     timed(phase_lm_train_mesh)(card)
     print(json.dumps({"kernels": rows}))

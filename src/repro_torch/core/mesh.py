@@ -38,24 +38,61 @@ A mesh needs the default process group (``torch.distributed
 group made here takes that group's timeout, so a rank that never joins a
 collective fails the others within it instead of hanging them.
 
+The collectives take one mesh axis or a tuple of them (the LM's batch
+axes ``("pod", "data")``): over a tuple they run one axis after the other,
+the first axis the slowest (all-gathers from the last axis out,
+reduce-scatters from the first in), which is the joint group's row-major
+order. Every collective adds the bytes of its result to a counter by kind
+and axis (``collective_bytes``), as the reference's dry run sums the result
+shapes of the collectives in its HLO; ``launch.dryrun`` reads it.
+
 Also here: the intra-query partition arithmetic of the PartSpec layer
-(``row_block``, ``padded_capacity``, ``hash_bucket``) and ``make_host_mesh``
-(``repro.launch.mesh`` re-exports it). The reference's 256-chip
-``make_production_mesh`` belongs to launch analysis (ROADMAP item 16).
+(``row_block``, ``padded_capacity``, ``hash_bucket``) and the mesh builders
+``make_host_mesh`` and ``make_production_mesh`` (``launch.mesh`` re-exports
+both). The production mesh is the reference's 256 or 512 chips; launch
+analysis builds it over a fake world of that many ranks in one process
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
 import datetime
-from typing import Callable, Optional
+import math
+from collections import defaultdict
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.sharding import axis_size, batch_axes, batch_spec
+from repro_torch.models.sharding import axis_size, batch_axes, batch_spec, block_index
 
 DATA_AXIS = "data"
+Axis = Union[str, Tuple[str, ...]]  # one mesh axis, or several taken together
+
+# bytes of every collective's result since the last reset, by (kind, axis);
+# the kinds are the reference's HLO names (``launch/hlo_stats.py``)
+_COLLECTIVE_BYTES: Dict[Tuple[str, str], int] = defaultdict(int)
+
+
+def reset_collective_bytes() -> None:
+    _COLLECTIVE_BYTES.clear()
+
+
+def collective_bytes() -> Dict[Tuple[str, str], int]:
+    """The bytes counted since the last reset, keyed by (kind, axis):
+    ``all-gather``, ``all-reduce`` and ``reduce-scatter`` count their
+    result tensor (the gathered rows, the reduced tensor, the rank's
+    block)."""
+    return dict(_COLLECTIVE_BYTES)
+
+
+def _count(kind: str, axis: str, nbytes: int) -> None:
+    _COLLECTIVE_BYTES[(kind, axis)] += int(nbytes)
+
+
+def _axes(axis: Axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 def _require_group() -> None:
@@ -67,8 +104,13 @@ def _require_group() -> None:
 
 def group_timeout(group=None) -> datetime.timedelta:
     """The timeout of ``group`` (default: the world group): what a
-    collective on it waits for a rank that does not join."""
+    collective on it waits for a rank that does not join. torch's fake
+    backend (``torch.testing._internal.distributed.fake_pg``, launch
+    analysis) keeps no options and waits for no one: its groups take
+    torch's default timeout."""
     pg = group if group is not None else dist.group.WORLD
+    if dist.get_backend(pg) == "fake":
+        return dist.default_pg_timeout
     for dev in ("cpu", "cuda"):
         try:
             return pg._get_backend(torch.device(dev)).options._timeout
@@ -155,10 +197,11 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def rank_of(mesh, axis: str = DATA_AXIS) -> int:
-    """This rank's index along ``axis`` (``jax.lax.axis_index``)."""
+def rank_of(mesh, axis: Axis = DATA_AXIS) -> int:
+    """This rank's index along ``axis`` (``jax.lax.axis_index``); over a
+    tuple of axes its row-major index, the first axis the slowest."""
     _require_group()
-    return mesh.get_local_rank(axis)
+    return block_index(mesh, _axes(axis))[0]
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -166,44 +209,50 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
 
 
-def all_gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """Every rank's ``x`` concatenated on dim 0 in rank order
     (``jax.lax.all_gather(x, axis, axis=0, tiled=True)``)."""
-    group = _group(mesh, axis)
     w = _wire(x)
-    out = w.new_empty((w.shape[0] * axis_size(mesh, axis),) + tuple(w.shape[1:]))
-    dist.all_gather_into_tensor(out, w, group=group)
-    return out.to(x.dtype)
+    for a in reversed(_axes(axis)):
+        out = w.new_empty((w.shape[0] * axis_size(mesh, a),) + tuple(w.shape[1:]))
+        dist.all_gather_into_tensor(out, w, group=_group(mesh, a))
+        _count("all-gather", a, out.numel() * out.element_size())
+        w = out
+    return w.to(x.dtype)
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """The sum of every rank's ``x`` (``jax.lax.psum``); a mask sums as
     int32 and comes back as ``count > 0``."""
-    group = _group(mesh, axis)
     w = x.to(torch.int32) if x.dtype == torch.bool else x.clone(
         memory_format=torch.contiguous_format)
-    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
+    for a in _axes(axis):
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=_group(mesh, a))
+        _count("all-reduce", a, w.numel() * w.element_size())
     return w > 0 if x.dtype == torch.bool else w
 
 
-def all_reduce_max(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+def all_reduce_max(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """The elementwise max of every rank's ``x`` (``jax.lax.pmax``)."""
-    group = _group(mesh, axis)
     w = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group)
+    for a in _axes(axis):
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=_group(mesh, a))
+        _count("all-reduce", a, w.numel() * w.element_size())
     return w
 
 
-def reduce_scatter_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+def reduce_scatter_rows(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """This rank's block of rows of the sum of every rank's ``x`` over
     ``axis`` (``jax.lax.psum_scatter(x, axis, tiled=True)``): dim 0 must
     divide over the axis. gloo takes float32 and bfloat16, CUDA tensors
     included (torch 2.11 on the H100)."""
-    group = _group(mesh, axis)
     w = x.contiguous()
-    out = w.new_empty((w.shape[0] // axis_size(mesh, axis),) + tuple(w.shape[1:]))
-    dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM, group=group)
-    return out
+    for a in _axes(axis):
+        out = w.new_empty((w.shape[0] // axis_size(mesh, a),) + tuple(w.shape[1:]))
+        dist.reduce_scatter_tensor(out, w, op=dist.ReduceOp.SUM, group=_group(mesh, a))
+        _count("reduce-scatter", a, out.numel() * out.element_size())
+        w = out
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -263,26 +312,26 @@ class _SplitRows(torch.autograd.Function):
         return all_gather_rows(g, ctx.mesh, ctx.axis), None, None
 
 
-def _block_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def _block_rows(x: torch.Tensor, mesh, axis: Axis) -> torch.Tensor:
     blk = x.shape[0] // axis_size(mesh, axis)
     return x.narrow(0, rank_of(mesh, axis) * blk, blk)
 
 
-def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def sum_over(x: torch.Tensor, mesh, axis: Axis) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``axis``; the gradient passes
     through as it is (``psum`` of partial results into a replicated
     output, as the MoE's combine over ``model``)."""
     return _SumOver.apply(x, mesh, axis)
 
 
-def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def copy_to(x: torch.Tensor, mesh, axis: Axis) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``axis``. For a replicated
     input that each rank of ``axis`` uses only in part (its experts, its
     tokens): each rank's gradient is then a partial sum."""
     return _CopyTo.apply(x, mesh, axis)
 
 
-def gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS,
+def gather_rows(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS,
                 sum_grads: bool = True) -> torch.Tensor:
     """``all_gather_rows`` with a gradient: the rank's block of the
     gradient, summed over ``axis`` first (a reduce-scatter) when each rank
@@ -291,7 +340,7 @@ def gather_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS,
     return _GatherRows.apply(x, mesh, axis, sum_grads)
 
 
-def split_rows(x: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+def split_rows(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """This rank's block of ``x``'s rows over ``axis``, a whole tensor on
     every rank; the gradient is all-gathered back to the whole rows."""
     return _SplitRows.apply(x, mesh, axis)
@@ -385,24 +434,52 @@ def hash_bucket(keys, ways: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# host mesh builder (repro.launch.mesh re-exports it)
+# mesh builders (repro_torch.launch.mesh re-exports them)
 # ---------------------------------------------------------------------------
 
-def make_host_mesh(data: Optional[int] = None, model: int = 1, *, device=None):
+def _grid_mesh(shape: tuple, names: tuple, device_type: str):
+    """A mesh of ``shape`` over the default group's ranks, rank ``i`` at the
+    row-major position ``i`` (the last axis the fastest); each axis's
+    groups enumerated once (every line of the grid along that axis) with
+    the world group's timeout."""
+    _require_group()
+    n = dist.get_world_size()
+    if math.prod(shape) != n:
+        raise ValueError(f"a {' x '.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the group has {n}")
+    timeout = group_timeout()
+    grid = torch.arange(n).reshape(shape)
+    groups = []
+    for i, size in enumerate(shape):
+        lines = grid.movedim(i, -1).reshape(-1, size).tolist()
+        groups.append(dist.new_subgroups_by_enumeration(lines, timeout=timeout)[0])
+    return _device_mesh(groups, device_type, tuple(shape), tuple(names))
+
+
+def make_host_mesh(data: Optional[int] = None, model: int = 1, *, pod: Optional[int] = None,
+                   device=None):
     """A (data, model) mesh over the ranks already in the default group
-    (``data * model`` must be the world size); rank ``d * model + m`` sits
-    at (d, m). Each dimension's groups take the world group's timeout."""
+    (``data * model`` must be the world size), rank ``d * model + m`` at
+    (d, m); with ``pod`` a (pod, data, model) mesh of ``pod * data *
+    model`` ranks, rank ``(p * data + d) * model + m`` at (p, d, m). Each
+    dimension's groups take the world group's timeout."""
     dev = resolve_device(device)
     _require_group()
     n = dist.get_world_size()
-    data = data if data is not None else max(n // model, 1)
-    if data * model != n:
-        raise ValueError(f"a {data} x {model} mesh needs {data * model} ranks, "
-                         f"the group has {n}")
-    timeout = group_timeout()
-    data_group, _ = dist.new_subgroups_by_enumeration(
-        [[d * model + m for d in range(data)] for m in range(model)], timeout=timeout)
-    model_group, _ = dist.new_subgroups_by_enumeration(
-        [[d * model + m for m in range(model)] for d in range(data)], timeout=timeout)
-    return _device_mesh([data_group, model_group], dev.type, (data, model),
-                        ("data", "model"))
+    data = data if data is not None else max(n // (model * (pod or 1)), 1)
+    if pod is None:
+        return _grid_mesh((data, model), ("data", "model"), dev.type)
+    return _grid_mesh((pod, data, model), ("pod", "data", "model"), dev.type)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production mesh: one pod of 256 ranks (16 data x 16
+    model) or two (2 pod x 16 data x 16 model), over an initialised world
+    of exactly that many ranks, real or fake (``launch.dryrun`` starts a
+    fake one in its own process). Raises on any other world."""
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    return _grid_mesh(shape, names, resolve_device(device).type)

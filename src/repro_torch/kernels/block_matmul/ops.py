@@ -12,13 +12,16 @@ The call goes through the custom operator ``repro_torch::block_matmul``
 (plain version on the CPU, kernel on CUDA), so that it keeps running inside
 a CUDA-graph capture and under ``torch.func.vmap``: its batching rule folds
 the batch axis into the rows and launches the kernel once (the weight, an
-ML function's parameter, is never batched; a batched one raises).
+ML function's parameter, is never batched; a batched one raises). Its
+shape-only (fake) implementation and FLOP formula (2MNK) serve launch
+analysis's traces on ``meta`` tensors.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.block_matmul import ref
@@ -60,6 +63,16 @@ def _block_matmul_cuda(x: torch.Tensor, w: torch.Tensor, n_tiles: int) -> torch.
         raise RuntimeError(f"block_matmul: launch failed, CUDA error {rc}")
     launches += 1
     return out
+
+
+@_block_matmul_op.register_fake
+def _block_matmul_fake(x, w, n_tiles):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.block_matmul)
+def _block_matmul_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
 
 
 @_block_matmul_op.register_vmap

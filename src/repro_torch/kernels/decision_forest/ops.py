@@ -10,6 +10,9 @@ The call goes through the custom operator ``repro_torch::forest_predict``,
 so that it keeps running inside a CUDA-graph capture and under
 ``torch.func.vmap``, whose batching rule folds the batch axis into the rows
 and launches the kernel once over all of them (a batched forest raises).
+Its shape-only (fake) implementation and FLOP formula (a compare a level
+of each tree and the mean's add, for every row) serve launch analysis's
+traces on ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import ctypes
 import dataclasses
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.decision_forest import ref
@@ -179,6 +183,17 @@ def _forest_cuda(x: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     depth = (feat.shape[1] + 1).bit_length() - 1
     return launch(x, feat, thresh, leaf, forest_tiling(n, d, feat.shape[0], depth, n_sm))
+
+
+@_forest_op.register_fake
+def _forest_fake(x, feat, thresh, leaf):
+    return x.new_empty((x.shape[0],), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.forest_predict)
+def _forest_flops(x_shape, feat_shape, *args, out_shape=None, **kwargs) -> int:
+    depth = (feat_shape[1] + 1).bit_length() - 1
+    return x_shape[0] * feat_shape[0] * (depth + 1)
 
 
 @_forest_op.register_vmap

@@ -17,12 +17,23 @@ output has q's layout (with Dv columns). The bf16 instance copies rows in
 multiple of 8. A (D, Dv) pair that the source does not instantiate raises
 ValueError: V is never padded to D, and nothing falls back to the plain
 version.
+
+The forward (out and the rows' log-sum-exp) and the backward are the
+custom operators ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_bwd``: the plain version is their CPU
+implementation, the kernels their ``cuda`` one. Each has a shape-only
+(fake) implementation with the kernel's shapes, types and strides, which
+refuses what the kernel refuses, so a model traces on ``meta`` tensors as
+it runs on the card (``launch.dryrun``), and a FLOP formula
+for ``torch.utils.flop_counter`` (the whole (row, key) rectangle, as
+torch's own formulas for SDPA and its backward count it).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_plain,
@@ -97,24 +108,51 @@ def _strides(*ts: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(ts)))(*(t.stride(i) for t in ts for i in range(3)))
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-             with_lse: bool):
-    """The forward kernel's (out, lse or None); lse is float32 [B, Hq, S]."""
+def _lse(q: torch.Tensor, with_lse: bool) -> torch.Tensor:
+    """The forward's float32 [B, Hq, S] log-sum-exp of each row, or an
+    empty tensor when it is not asked for."""
+    shape = tuple(q.shape[:3]) if with_lse else (0,)
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    got = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal, return_lse=with_lse)
+    out, lse = _out(q, v.shape[3]), _lse(q, with_lse)
+    if with_lse:
+        got, row_lse = got
+        lse.copy_(row_lse.transpose(1, 2))
+    out.copy_(got.transpose(1, 2))
+    return out, lse
+
+
+def _fake_check(q, v) -> None:
+    """What the kernel's path refuses, where the head dims are known (a
+    symbolic size, under ``torch.compile``'s dynamic shapes, is not)."""
+    d, dv = q.shape[3], v.shape[3]
+    if isinstance(d, int) and isinstance(dv, int):
+        check_instance(d, dv)
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, causal, with_lse):
+    _fake_check(q, v)
+    return _out(q, v.shape[3]), _lse(q, with_lse)
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  with_lse: bool):
     global launches
-    if q.device.type == "cpu":
-        got = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal=causal, return_lse=with_lse)
-        if not with_lse:
-            return got.transpose(1, 2), None
-        return got[0].transpose(1, 2), got[1].transpose(1, 2)
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     check_instance(d, dv)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q)
-    out = _out(q, dv)
-    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    out, lse = _out(q, dv), _lse(q, with_lse)
     if out.numel() == 0:
         return out, lse
     with torch.cuda.device(q.device):
@@ -130,32 +168,43 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out, lse
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True):
-    """(dq, dk, dv) of ``flash_attention`` at the output cotangent ``do``:
-    q [B,Hq,S,D], k [B,Hkv,Skv,D], v [B,Hkv,Skv,Dv], o and do [B,Hq,S,Dv],
-    lse float32 [B,Hq,S] (the forward's). Each gradient has its input's
-    type and order of dimensions in memory. On CUDA tensors the kernels of
-    ``csrc/flash_attention_bwd.cu`` (Dr, then dK/dV in one pass or, at a
-    head dim over 128, two, then dQ); a ``do`` off the kernel's layout is
-    copied contiguous first."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             with_lse: bool):
+    """The forward kernel's (out, lse or None); lse is float32 [B, Hq, S]."""
+    out, lse = _forward_op(q, k, v, causal, with_lse)
+    return out, (lse if with_lse else None)
+
+
+def _grads(q, k, v):
+    return _out(q, q.shape[3]), _out(k, k.shape[3]), _out(v, v.shape[3])
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                 lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    t = lambda x: x.transpose(1, 2)
+    got = flash_attention_bwd_plain(t(q), t(k), t(v), t(o), t(lse), t(do), causal)
+    out = _grads(q, k, v)
+    for dst, g in zip(out, got):
+        dst.copy_(t(g))
+    return out
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, o, lse, do, causal):
+    _fake_check(q, v)
+    return _grads(q, k, v)
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                   lse: torch.Tensor, do: torch.Tensor, causal: bool):
     global bwd_launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        t = lambda x: x.transpose(1, 2)
-        return tuple(t(g) for g in flash_attention_bwd_plain(
-            t(q), t(k), t(v), t(o), t(lse), t(do), causal))
     b, hq, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     check_instance(d, dv)
-    if tuple(o.shape) != (b, hq, sq, dv) or tuple(do.shape) != tuple(o.shape) \
-            or tuple(lse.shape) != (b, hq, sq):
-        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
-                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
-    if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: dtypes o {o.dtype}, do {do.dtype}, "
-                        f"lse {lse.dtype}")
     if not _kernel_layout(do):
         do = do.contiguous()
     lse = lse.contiguous()
@@ -163,7 +212,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_operand(name, t, q)
     if lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse on {lse.device}, q on {q.device}")
-    dq, dk, dvv = _out(q, d), _out(k, d), _out(v, dv)
+    dq, dk, dvv = _grads(q, k, v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dvv.zero_()
     dr = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -176,6 +225,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bwd: launch failed, CUDA error {rc}")
     bwd_launches += 1
     return dq, dk, dvv
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _forward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """S = q k^T and o = P v over every (row, key) pair, causal or not."""
+    b, hq, sq, d = q_shape
+    return 2 * b * hq * sq * k_shape[2] * (d + v_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _backward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """dV, dP, dQ and dK over every (row, key) pair: torch's formula for
+    SDPA's backward (no recomputation of S counted)."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * sq * k_shape[2] * (d + v_shape[3])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at the output cotangent ``do``:
+    q [B,Hq,S,D], k [B,Hkv,Skv,D], v [B,Hkv,Skv,Dv], o and do [B,Hq,S,Dv],
+    lse float32 [B,Hq,S] (the forward's). Each gradient has its input's
+    type and order of dimensions in memory. On CUDA tensors the kernels of
+    ``csrc/flash_attention_bwd.cu`` (Dr, then dK/dV in one pass or, at a
+    head dim over 128, two, then dQ); a ``do`` off the kernel's layout is
+    copied contiguous first."""
+    _check(q, k, v)
+    b, hq, sq, _ = q.shape
+    dv = v.shape[3]
+    if tuple(o.shape) != (b, hq, sq, dv) or tuple(do.shape) != tuple(o.shape) \
+            or tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: dtypes o {o.dtype}, do {do.dtype}, "
+                        f"lse {lse.dtype}")
+    return _backward_op(q, k, v, o, lse, do, causal)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -25,12 +25,23 @@ caching allocator on the current stream, which hands a block to no other
 stream while it is in use, and inside a CUDA-graph capture takes it from
 the graph's private pool. So calls in flight on different streams, and a
 graph replay beside an eager call, never share tickets.
+
+``gqa_decode_partials`` goes through one of two custom operators,
+``repro_torch::flash_decode`` (``valid_len`` an int32 tensor, read on the
+device) or ``repro_torch::flash_decode_n`` (``valid_len`` an int): a
+schema of one type would turn an int into a device tensor on every call,
+a copy from the host in each eager step, and inside a capture a tensor
+made there. The plain version is their CPU implementation, the kernel
+their ``cuda`` one; each has a shape-only (fake) implementation and a
+FLOP formula (the products over every slot of the cache, as torch counts
+SDPA).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.flash_decode.ref import decode_partials_plain
@@ -131,13 +142,7 @@ def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_decode: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    _check_dtypes(q, k, v)
-    s, d = k.shape[1], q.shape[2]
-    if q.device.type == "cpu":
-        acc, m, l = decode_partials_plain(q, k[:, :, None], v[:, :, None], s,
-                                          d ** -0.5)
-    else:
-        acc, m, l = _launch(q[:, None], k[:, None], v[:, None], s, s)
+    acc, m, l = gqa_decode_partials(q, k[:, :, None], v[:, :, None], k.shape[1])
     return acc[:, 0], m[:, 0], l[:, 0]
 
 
@@ -145,6 +150,76 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     """Single-shard convenience: normalized one-token attention."""
     acc, _, l = decode_partials(q, k, v)
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _partials_out(q: torch.Tensor, k_cache: torch.Tensor):
+    """Empty float32 (acc [B,Hkv,G,D], m [B,Hkv,G], l [B,Hkv,G])."""
+    b, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    shape = (b, hkv, hq // hkv)
+    return (torch.empty(shape + (d,), dtype=torch.float32, device=q.device),
+            torch.empty(shape, dtype=torch.float32, device=q.device),
+            torch.empty(shape, dtype=torch.float32, device=q.device))
+
+
+def _plain(q, k_cache, v_cache, valid_len):
+    out = _partials_out(q, k_cache)
+    for dst, got in zip(out, decode_partials_plain(q, k_cache, v_cache, valid_len,
+                                                   q.shape[2] ** -0.5)):
+        dst.copy_(got)
+    return out
+
+
+def _kernel(q, k_cache, v_cache, valid_len):
+    b, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    return _launch(q.reshape(b, hkv, hq // hkv, d), k_cache.transpose(1, 2),
+                   v_cache.transpose(1, 2), valid_len, k_cache.shape[1])
+
+
+def _fake(q, k_cache, v_cache, valid_len):
+    """The kernel's outputs, refusing what its launch refuses (where the
+    sizes are known: a symbolic one, under ``torch.compile``'s dynamic
+    shapes, is not)."""
+    b, hq, d = q.shape
+    if not all(isinstance(n, int) for n in (hq, d, k_cache.shape[1], k_cache.shape[2])):
+        return _partials_out(q, k_cache)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {d} not in {HEAD_DIMS}")
+    if k_cache.shape[1] == 0:
+        raise ValueError("flash_decode: the cache has no slots")
+    if not 1 <= hq // k_cache.shape[2] <= MAX_GROUP:
+        raise ValueError(f"flash_decode: group {hq // k_cache.shape[2]} not in "
+                         f"1..{MAX_GROUP}")
+    return _partials_out(q, k_cache)
+
+
+Partials = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=(), device_types="cpu")
+def _decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               valid_len: torch.Tensor) -> Partials:
+    return _plain(q, k_cache, v_cache, valid_len)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_n", mutates_args=(), device_types="cpu")
+def _decode_n_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 valid_len: int) -> Partials:
+    return _plain(q, k_cache, v_cache, valid_len)
+
+
+for _op in (_decode_op, _decode_n_op):
+    _op.register_kernel("cuda")(_kernel)
+    _op.register_fake(_fake)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_decode,
+                        torch.ops.repro_torch.flash_decode_n])
+def _decode_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """q k^T and P v over every slot of the cache, filled or not."""
+    b, hq, d = q_shape
+    return 4 * b * hq * k_shape[1] * d
 
 
 def gqa_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
@@ -159,8 +234,6 @@ def gqa_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not fit cache "
                          f"{tuple(k_cache.shape)}")
     _check_dtypes(q, k_cache, v_cache)
-    if q.device.type == "cpu":
-        return decode_partials_plain(q, k_cache, v_cache, valid_len, d ** -0.5)
-    hkv = k_cache.shape[2]
-    return _launch(q.reshape(b, hkv, hq // hkv, d), k_cache.transpose(1, 2),
-                   v_cache.transpose(1, 2), valid_len, k_cache.shape[1])
+    if isinstance(valid_len, torch.Tensor):
+        return _decode_op(q, k_cache, v_cache, valid_len)
+    return _decode_n_op(q, k_cache, v_cache, int(valid_len))

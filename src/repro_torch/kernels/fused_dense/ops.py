@@ -9,13 +9,16 @@ kernel. An activation the kernel does not have (softmax included) raises
 The call goes through the custom operator ``repro_torch::fused_dense``, so
 that it keeps running inside a CUDA-graph capture and under
 ``torch.func.vmap``, whose batching rule folds the batch axis into the rows
-and launches the kernel once (a batched weight or bias raises).
+and launches the kernel once (a batched weight or bias raises). Its
+shape-only (fake) implementation and FLOP formula (2MNK, the product's)
+serve launch analysis's traces on ``meta`` tensors.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, common
 from repro_torch.kernels.fused_dense import ref
@@ -65,6 +68,16 @@ def _fused_dense_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"fused_dense: launch failed, CUDA error {rc}")
     launches += 1
     return out
+
+
+@_fused_dense_op.register_fake
+def _fused_dense_fake(x, w, b, act):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_dense)
+def _fused_dense_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
 
 
 @_fused_dense_op.register_vmap

@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG, flash_attention_plain)
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import decode_partials_plain  # noqa: F401
-from repro_torch.models.sharding import axis_size, batch_rows, sharded_experts
+from repro_torch.models.sharding import axis_size, batch_axes, batch_rows, sharded_experts
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +139,9 @@ def lse_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh,
 
 
 def gather_batch(x: torch.Tensor, rows: Optional[slice], mesh) -> torch.Tensor:
-    """A batch-sharded result back to the whole batch on every rank."""
-    return x if rows is None else mesh_util.all_gather_rows(x, mesh, "data")
+    """A batch-sharded result back to the whole batch on every rank (over
+    the batch axes, ``data`` or (``pod``, ``data``))."""
+    return x if rows is None else mesh_util.all_gather_rows(x, mesh, batch_axes(mesh))
 
 
 def sharded_decode_attention(q: torch.Tensor, k_local: torch.Tensor,
@@ -325,14 +326,15 @@ def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None,
     divides over ``data`` (capacity counts the local tokens), and the
     combine is one all-reduce sum of the [T_loc, D] output over ``model``,
     in x's type as the reference's psum; a batch-sharded output is then
-    all-gathered over ``data``. ``local_rows``: x is already this rank's
-    tokens over ``data`` (data-parallel training), split no further.
+    all-gathered over the batch axes (``data``, or ``pod`` and ``data``).
+    ``local_rows``: x is already this rank's tokens over the batch axes
+    (data-parallel training), split no further.
 
     Under autograd the collectives carry the gradient
     (``core.mesh.{sum_over,copy_to,split_rows,gather_rows}``): x and the
     router enter the experts' split with their gradients summed over
-    ``model``, and where the tokens split here over ``data`` the router's
-    and experts' gradients are summed over ``data`` too, so that every
+    ``model``, and where the tokens split here over the batch axes the
+    router's and experts' gradients are summed over them too, so that every
     rank ends with the whole gradient of its leaves. The forward is the
     same computation either way."""
     e = cfg.moe.n_experts
@@ -344,10 +346,11 @@ def moe_block(x, router_w, e_gate, e_in, e_out, cfg, mesh=None,
                          f"is {e_loc} of {e} (sharding.shard_params)")
     rows = None if local_rows else batch_rows(mesh, x.shape[0])
     ws = [router_w, e_gate, e_in, e_out]
+    b_axes = batch_axes(mesh)
     if rows is not None:
-        x = mesh_util.split_rows(x, mesh, "data")
-        ws = [w if w is None else mesh_util.copy_to(w, mesh, "data") for w in ws]
+        x = mesh_util.split_rows(x, mesh, b_axes)
+        ws = [w if w is None else mesh_util.copy_to(w, mesh, b_axes) for w in ws]
     x, ws[0] = (mesh_util.copy_to(t, mesh, "model") for t in (x, ws[0]))
     out = _moe_dispatch_compute(x, *ws, cfg, mesh_util.rank_of(mesh, "model") * e_loc, e_loc)
     out = mesh_util.sum_over(out, mesh, "model")
-    return out if rows is None else mesh_util.gather_rows(out, mesh, "data", sum_grads=False)
+    return out if rows is None else mesh_util.gather_rows(out, mesh, b_axes, sum_grads=False)

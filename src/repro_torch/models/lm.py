@@ -40,11 +40,12 @@ layers, the Mamba-2 and mLSTM layers, the CE chunks) with
 weights are unbound once a forward (``_layers``), so the backward stacks
 each leaf's gradient once.
 
-``mesh=`` (a (data, model) mesh of ``core.mesh.make_host_mesh``) runs the
-reference's sharded paths on ranks that all run the same program: the MoE
-splits its experts over ``model`` (``layers.moe_block``) in ``forward``,
+``mesh=`` (a (data, model) or (pod, data, model) mesh of
+``core.mesh.make_host_mesh``) runs the reference's sharded paths on ranks
+that all run the same program: the MoE splits its experts over ``model``
+(``layers.moe_block``) in ``forward``,
 ``prefill`` and the decode step; the decode step attends over a cache whose
-slots are split over ``model`` and rows over ``data``
+slots are split over ``model`` and rows over the batch axes
 (``layers.sharded_decode_attention`` for GQA and the hybrid's shared block,
 ``mla_latent_attention`` for MLA). On a mesh, params and the cache are each
 rank's (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
@@ -53,7 +54,8 @@ computed on every rank. The encoder-decoder and xLSTM decode on one device,
 as in the reference.
 
 Training on a mesh (``loss_fn``, ``value_and_grad`` and ``make_train_step``
-with ``mesh=``) runs data-parallel over ``data`` on each rank's rows of
+with ``mesh=``) runs data-parallel over the batch axes (``data``, or
+``pod`` and ``data`` on a (pod, data, model) mesh) on each rank's rows of
 the batch, gathers FSDP weights at their use (``_gather_fsdp``) and splits
 the experts over ``model``; the collectives carry the gradients
 (``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``). Params and
@@ -216,10 +218,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
     the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``).
     With ``mesh=`` the experts are this rank's block over ``model``
     (``sharding.shard_params``'s cut of the whole leaf): each layer is drawn
-    whole, as without a mesh, and only the block is kept."""
+    whole, as without a mesh, and only the block is kept. On the ``meta``
+    device the leaves have their shapes and types and no values
+    (``abstract_params``)."""
     dev = resolve_device(device)
     dt = _dt(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
     shapes = param_shapes(cfg)
     cut = sharding.sharded_experts(cfg, mesh)
     specs = sharding.param_pspecs(cfg, shapes, mesh) if cut else None
@@ -233,6 +238,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
                 if cut and name in sharding.EXPERTS else (lambda w: w))
         out = torch.empty((shape[0],) + keep(torch.empty(shape[1:], device="meta")).shape
                           if len(shape) >= 3 else shape, dtype=dt, device=dev)
+        if meta:
+            return out
         fan_in = np.sqrt(max(shape[-2], 1))
         for part in (out if len(shape) >= 3 else [out]):  # a layer at a time
             whole = shape[1:] if len(shape) >= 3 else shape
@@ -245,6 +252,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
                 else mk(n, v, spec and spec[n]) for n, v in sorted(tree.items())}
 
     return build(shapes, specs)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params' shapes and types without values: ``init_params`` on the
+    ``meta`` device (the reference's ``jax.eval_shape`` of its init)."""
+    return init_params(cfg, device="meta")
 
 
 def _layers(blocks: Dict[str, torch.Tensor]) -> list:
@@ -387,11 +400,12 @@ def _gather_fsdp(blk, cfg: ModelConfig, mesh, specs, sum_grads: bool = True):
 
 
 class _Train(NamedTuple):
-    """A training pass on a (data, model) mesh: ``split`` when each data
-    rank runs its own rows of the batch (its gradients are then partial
-    sums over ``data``), else every data rank runs the whole batch (the
-    reference's ``batch_spec`` replicates a batch whose rows do not
-    divide); ``specs`` is the params' placement (``sharding.train_specs``)."""
+    """A training pass on a (data, model) or (pod, data, model) mesh:
+    ``split`` when each rank runs its own rows of the batch over the batch
+    axes (its gradients are then partial sums over them), else every rank
+    runs the whole batch (the reference's ``batch_spec`` replicates a
+    batch whose rows do not divide); ``specs`` is the params' placement
+    (``sharding.train_specs``)."""
     mesh: Any
     split: bool
     specs: Dict[str, Any]
@@ -663,16 +677,17 @@ def _train_place(cfg: ModelConfig, mesh, batch, specs=None) -> _Train:
 
 
 def _train_loss(params, cfg: ModelConfig, batch, train: _Train) -> torch.Tensor:
-    """The loss of a training pass on a mesh. Split over ``data``: the rank
-    runs its rows (``pos3`` on axis 1, ``enc_embeds`` by rows) and
-    computes ``tot_local / cnt`` with ``cnt`` the whole batch's count
-    (summed over ``data``, no gradient), and the ranks' terms are summed
-    with a gradient that passes through (``core.mesh.sum_over``): each
-    rank's gradient is its rows' part, counted once, and the leaves it
-    holds whole are summed over ``data`` after the backward
-    (``_sum_partial_grads``). Not split: every data rank runs the whole
-    batch, and its gradient is the whole gradient. ``embed`` is gathered
-    once and serves both the embedding and the CE."""
+    """The loss of a training pass on a mesh. Split over the batch axes
+    (``data``, or ``pod`` and ``data``): the rank runs its rows (``pos3``
+    on axis 1, ``enc_embeds`` by rows) and computes ``tot_local / cnt``
+    with ``cnt`` the whole batch's count (summed over the batch axes, no
+    gradient), and the ranks' terms are summed with a gradient that passes
+    through (``core.mesh.sum_over``): each rank's gradient is its rows'
+    part, counted once, and the leaves' partial gradients are summed over
+    the batch axes after the backward (``_sum_partial_grads``). Not split:
+    every rank runs the whole batch, and its gradient is the whole
+    gradient. ``embed`` is gathered once and serves both the embedding and
+    the CE."""
     mesh = train.mesh
     if train.split:
         rows = sharding.batch_rows(mesh, torch.as_tensor(batch["tokens"]).shape[0])
@@ -683,8 +698,9 @@ def _train_loss(params, cfg: ModelConfig, batch, train: _Train) -> torch.Tensor:
     tot, cnt = _ce_sums(params, cfg, batch, train)
     if not train.split:
         return tot / torch.clamp(cnt, min=1.0)
-    cnt = mesh_util.all_reduce_sum(cnt.detach(), mesh, "data")
-    return mesh_util.sum_over(tot / torch.clamp(cnt, min=1.0), mesh, "data")
+    axes = sharding.batch_axes(mesh)
+    cnt = mesh_util.all_reduce_sum(cnt.detach(), mesh, axes)
+    return mesh_util.sum_over(tot / torch.clamp(cnt, min=1.0), mesh, axes)
 
 
 def _leaf_grads(params, loss_of):
@@ -701,23 +717,27 @@ def _leaf_grads(params, loss_of):
 
 
 def _sum_partial_grads(grads, train: _Train):
-    """A split pass's gradients completed: every leaf that the rank holds
-    whole over ``data`` has its rows' part summed over ``data`` (one
-    all-reduce a dtype, the leaves packed flat); FSDP blocks are already
-    the sums (their gather's reduce-scatter). Not split: as they are."""
+    """A split pass's gradients completed: each leaf's partial gradient
+    summed over the batch axes that do not split the leaf (one all-reduce
+    a dtype and set of axes, the leaves packed flat): a leaf held whole
+    over ``pod`` and ``data``; an FSDP block over ``pod`` only, since its
+    gather's reduce-scatter summed it over ``data``. Not split: as they
+    are."""
     if not train.split:
         return grads
     leaves, spec = tree_flatten(grads)
     specs = tree_flatten(sharding._zip_map(lambda g, sp: sp, grads, train.specs),
                          is_leaf=lambda x: isinstance(x, tuple))[0]
+    batch = sharding.batch_axes(train.mesh)
     out = list(leaves)
-    for dt in sorted({g.dtype for g in leaves}, key=str):
-        idx = [i for i, (g, sp) in enumerate(zip(leaves, specs))
-               if g.dtype == dt and "data" not in sharding.spec_axes(sp)]
-        if not idx:
-            continue
+    groups: Dict[Any, list] = {}
+    for i, (g, sp) in enumerate(zip(leaves, specs)):
+        axes = tuple(a for a in batch if a not in sharding.spec_axes(sp))
+        if axes:
+            groups.setdefault((str(g.dtype), axes), []).append(i)
+    for (_, axes), idx in sorted(groups.items()):
         flat = mesh_util.all_reduce_sum(torch.cat([leaves[i].reshape(-1) for i in idx]),
-                                        train.mesh, "data")
+                                        train.mesh, axes)
         for i, part in zip(idx, flat.split([leaves[i].numel() for i in idx])):
             out[i] = part.view_as(leaves[i])
     return tree_unflatten(out, spec)

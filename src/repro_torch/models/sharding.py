@@ -15,10 +15,10 @@ runs the same program (multi-controller), so placement is explicit and
 covers what the sharded bodies consume, nothing more: ``shard_params``
 cuts the experts (``e_gate``, ``e_in``, ``e_out``) to the rank's block over
 ``model``; ``shard_cache`` cuts the attention cache (``k``/``v``, MLA's
-``ckv``/``kpe``) to the rank's rows over ``data`` (when ``batch_spec``
-shards the batch) and slots over ``model``. Every other leaf and state
-(the hybrid's ``conv`` and ``ssm`` included) stays whole on every rank and
-is computed replicated.
+``ckv``/``kpe``) to the rank's rows over the batch axes, ``data`` or
+(``pod``, ``data``) (when ``batch_spec`` shards the batch), and slots over
+``model``. Every other leaf and state (the hybrid's ``conv`` and ``ssm``
+included) stays whole on every rank and is computed replicated.
 
 Training on a mesh keeps its own placement (``train_specs``): FSDP configs
 hold the rank's block of each leaf's ``data`` dim, the experts their block
@@ -36,8 +36,14 @@ CACHE_ROWS = ("k", "v", "ckv", "kpe")  # the S-sharded cache of a mesh's decode
 _STACKED_GROUPS = ("blocks", "enc_blocks", "cross", "mlstm", "slstm", "mamba")
 
 
-def axis_size(mesh, axis: str) -> int:
-    """Number of ranks along the mesh dimension named ``axis``."""
+def axis_size(mesh, axis) -> int:
+    """Number of ranks along the mesh dimension named ``axis``, or over a
+    tuple of them."""
+    if not isinstance(axis, str):
+        n = 1
+        for a in axis:
+            n *= axis_size(mesh, a)
+        return n
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
@@ -238,8 +244,53 @@ def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
         raise ValueError(f"shard_cache: {slots} cache slots do not divide over "
                          f"{ways} model ranks")
     specs = cache_pspecs(cfg, {k: cache[k] for k in rows}, mesh, batch)
-    return dict(cache, **{k: local_block(cache[k], specs[k], mesh, ("data", "model"))
+    return dict(cache, **{k: local_block(cache[k], specs[k], mesh, ("pod", "data", "model"))
                           for k in rows})
+
+
+def serve_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Where prefill and decode on ``mesh`` keep each leaf of the params
+    (``shard_params``): ``param_pspecs``'s ``model`` entries on the experts
+    where ``moe_block`` splits them, every other dim whole."""
+    split = sharded_experts(cfg, mesh)
+
+    def walk(specs):
+        return {k: walk(v) if isinstance(v, dict) else
+                tuple(ax if split and k in EXPERTS and ax and "model" in ax else None
+                      for ax in v) for k, v in specs.items()}
+
+    return walk(param_pspecs(cfg, shapes, mesh))
+
+
+def serve_cache_specs(cfg, cache: Dict[str, Any], mesh, batch: int) -> Dict[str, Any]:
+    """Where a decode step on ``mesh`` keeps each entry of the cache
+    (``shard_cache``): ``cache_pspecs``'s on K/V (MLA's ``ckv``/``kpe``) of
+    the families whose decode takes the mesh, every other entry whole."""
+    specs = cache_pspecs(cfg, cache, mesh, batch)
+    keep = sharded_cache(cfg)
+    return {k: sp if keep and k in CACHE_ROWS else (None,) * len(sp)
+            for k, sp in specs.items()}
+
+
+def block_shape(shape, spec: tuple, mesh) -> tuple:
+    """This rank's block of a leaf of ``shape`` under ``spec``: each dim
+    over the product of its axes' sizes, rounded up where it does not
+    divide (``NamedSharding(mesh, spec).shard_shape(shape)``)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(-(-d // axis_size(mesh, ax)) if ax else d for d, ax in zip(shape, spec))
+
+
+def to_shape_dtype(tree: Dict[str, Any], mesh, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """Launch analysis's inputs (the reference's ``ShapeDtypeStruct``s with
+    a ``NamedSharding``): each leaf (a tensor, or anything with ``shape``
+    and ``dtype``) becomes a ``meta`` tensor of this rank's block under its
+    spec (``block_shape``), which it carries as ``.spec``."""
+    def leaf(x, sp):
+        t = torch.empty(block_shape(tuple(x.shape), sp, mesh), dtype=x.dtype, device="meta")
+        t.spec = tuple(sp)
+        return t
+
+    return _zip_map(leaf, tree, specs)
 
 
 # ---------------------------------------------------------------------------

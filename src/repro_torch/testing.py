@@ -638,9 +638,13 @@ def fault_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
 # the LM on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-LM_MESH_SHAPES = ((2, 4), (1, 8))  # (data, model) meshes of the 8 ranks
+# (data, model) meshes of the 8 ranks, and a (pod, data, model) one
+LM_MESH_SHAPES = ((2, 4), (1, 8), (2, 2, 2))
 LM_MESH_ARCHS = ("granite-3-2b", "granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-1.2b")
-LM_MESH_DTYPE = {(2, 4): "bfloat16", (1, 8): "float32"}  # of each mesh's LM runs
+LM_MESH_DTYPE = {(2, 4): "bfloat16", (1, 8): "float32"}  # of each 2-D mesh's LM runs
+# the (pod, data, model) mesh's LM runs: (arch, dtype)
+LM_POD_RUNS = (("granite-3-2b", "float32"), ("granite-3-2b", "bfloat16"),
+               ("granite-moe-1b-a400m", "float32"))
 LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_MAX_LEN, LM_MESH_STEPS = 4, 14, 64, 3
 LM_F32_TOL, LM_BF16_TOL = 2e-4, 3e-2  # the port's LM bars (tests/test_torch_lm_families.py)
 ATTN_SHAPE = (8, 2, 16)  # query heads, KV heads, head dim of the attention cases
@@ -650,11 +654,29 @@ def lm_tol(dtype: str) -> float:
     return LM_F32_TOL if dtype == "float32" else LM_BF16_TOL
 
 
+def mesh_tag(shape: tuple) -> str:
+    """``2x4``, ``2x2x2``: a mesh shape in a case's label."""
+    return "x".join(map(str, shape))
+
+
+def host_mesh(shape: tuple, device="cpu"):
+    """``core.mesh.make_host_mesh`` of a (data, model) or (pod, data,
+    model) ``shape``."""
+    from repro_torch.core import mesh as mesh_util
+    if len(shape) == 3:
+        return mesh_util.make_host_mesh(shape[1], shape[2], pod=shape[0], device=device)
+    return mesh_util.make_host_mesh(*shape, device=device)
+
+
 def lm_mesh_cases(shape: tuple) -> list:
     """The cases of the ``lm-mesh`` suite on a (data, model) mesh of
-    ``shape``, in the order the ranks run them. Each is a dict with a
-    unique ``label``; ``lm_mesh_inputs`` makes its inputs."""
-    tag = f"{shape[0]}x{shape[1]}"
+    ``shape``, in the order the ranks run them; on the (pod, data, model)
+    mesh, ``prefill(mesh=)`` and 3 decode steps of ``LM_POD_RUNS``. Each is
+    a dict with a unique ``label``; ``lm_mesh_inputs`` makes its inputs."""
+    tag = mesh_tag(shape)
+    if len(shape) == 3:
+        return [dict(label=f"{tag}/lm/{dtype}/{arch}", kind="lm", arch=arch, dtype=dtype,
+                     prompt=LM_MESH_PROMPT) for arch, dtype in LM_POD_RUNS]
     cases = []
     for dtype in ("float32", "bfloat16"):
         # len 1: every rank but the first holds no valid slot; b 1: the
@@ -775,7 +797,7 @@ def _lm_mesh_case(case: dict, mesh, say_line: Callable) -> np.ndarray:
     note = ""
 
     def cut(x, spec):
-        return sharding.local_block(x, spec, mesh, ("data", "model"))
+        return sharding.local_block(x, spec, mesh, ("pod", "data", "model"))
 
     if kind in ("attn", "mla"):
         names = ("q", "k", "v") if kind == "attn" else ("q_c", "q_pe", "ckv", "kpe")
@@ -880,11 +902,10 @@ def _check_gather_fsdp(mesh, say_line: Callable) -> None:
 
 def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
     """The rank body of the LM's mesh proof on 8 ranks: every case of
-    ``lm_mesh_cases`` on the (2, 4) and (1, 8) meshes, each held to this
+    ``lm_mesh_cases`` on the (2, 4), (1, 8) and (2, 2, 2) meshes, each held to this
     rank's one-device run of the same inputs; FSDP's gather. Every rank
     writes what it computed to ``out_dir/rank{rank}.npz`` (one array a
     case label), which the tests hold to JAX's ``shard_map`` results."""
-    from repro_torch.core import mesh as mesh_util
     if ways != 8:
         raise ValueError(f"lm-mesh runs on 8 ranks, not {ways}")
     results = {}
@@ -893,10 +914,10 @@ def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
         say(rank, text)
 
     for shape in LM_MESH_SHAPES:
-        mesh = mesh_util.make_host_mesh(*shape, device="cpu")
+        mesh = host_mesh(shape)
         for case in lm_mesh_cases(shape):
             results[case["label"]] = _lm_mesh_case(case, mesh, line)
-        if shape[0] > 1:
+        if len(shape) == 2 and shape[0] > 1:
             _check_gather_fsdp(mesh, line)
     if out_dir is not None:
         np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
@@ -918,8 +939,8 @@ RESTORE_SHAPE = (1, 4)  # the mesh of the new 4-rank group that restores
 
 def train_mesh_cases() -> list:
     """The cases of the ``train-mesh`` suite, in the order the ranks run
-    them. Each is a dict: ``label``, ``arch``, the (data, model)
-    ``shape``, the global batch ``b``, the config's ``fsdp``, ``remat`` and
+    them. Each is a dict: ``label``, ``arch``, the (data, model) or (pod,
+    data, model) ``shape``, the global batch ``b``, the config's ``fsdp``, ``remat`` and
     expert count (``experts``, None: the smoke config's), AdamW's ``clip``,
     and ``ref``: ``"mesh"`` when the reference's jitted mesh step is the
     target, ``"one"`` when its one-device step is (an MoE whose experts
@@ -929,7 +950,7 @@ def train_mesh_cases() -> list:
 
     def add(arch, shape, ref="mesh", b=TRAIN_MESH_BATCH, fsdp=False, remat=False,
             experts=None, clip=1.0, tag=""):
-        label = f"{shape[0]}x{shape[1]}/{arch}" + "".join(
+        label = f"{mesh_tag(shape)}/{arch}" + "".join(
             f"/{t}" for t, on in (("fsdp", fsdp), ("remat", remat),
                                   (f"e{experts}", experts), (f"b{b}", b != TRAIN_MESH_BATCH),
                                   (tag, tag)) if on)
@@ -954,6 +975,11 @@ def train_mesh_cases() -> list:
     add("stablelm-12b", (4, 2), b=4, fsdp=True)
     add("granite-moe-1b-a400m", (4, 2), b=4, ref="one")
     add("deepseek-v2-236b", (2, 4), ref="one", fsdp=True, clip=TRAIN_MESH_CLIP, tag="clip")
+    # (pod, data, model): rows over pod and data, FSDP over data only, its
+    # gradients reduce-scattered over data and summed over pod; the experts
+    # split over model
+    add("stablelm-12b", (2, 2, 2), fsdp=True, remat=True)
+    add("granite-moe-1b-a400m", (2, 2, 2), ref="one")
     return cases
 
 
@@ -1189,7 +1215,6 @@ def train_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> Non
     unequal scales, the reshard and the checkpoint saved from a mesh
     (``_reshard_and_save``). Every rank writes its losses and blocks to
     ``out_dir/rank{rank}.npz``, which the tests hold to JAX."""
-    from repro_torch.core import mesh as mesh_util
     if ways != 8:
         raise ValueError(f"train-mesh runs on 8 ranks, not {ways}")
     if out_dir is None:
@@ -1202,7 +1227,7 @@ def train_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> Non
     meshes = {}
     for case in train_mesh_cases():
         if case["shape"] not in meshes:
-            meshes[case["shape"]] = mesh_util.make_host_mesh(*case["shape"], device="cpu")
+            meshes[case["shape"]] = host_mesh(case["shape"])
         results.update(_train_mesh_case(case, meshes[case["shape"]], line))
     results.update(_compressed_psum(meshes[(8, 1)], rank))
     line(f"compressed_psum over data=8, scales 1..8 apart: sum(q) * max(scale) / n: OK")

@@ -753,3 +753,45 @@ def test_lm_smoke_on_card_matches_cpu(cuda_device):
     dl_c, _ = lm.make_decode_step(cfg)(p_cpu, cache_c, toks[:, -1])
     for got, want in ((h, h_c), (lg, lg_c), (dl, dl_c)):
         torch.testing.assert_close(got.cpu(), want, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+def _opcheck_args(name, dtype, dev):
+    """Arguments of kernel operator ``name`` on the card in ``dtype``; the
+    attention operands as the model hands them in ([B,H,S,D] views of
+    [B,S,H,D] tensors)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    if name == "block_matmul":
+        return (r(130, 200), r(200, 70), 3)
+    if name == "fused_dense":
+        return (r(130, 200), r(200, 70), r(70), "gelu")
+    if name == "forest_predict":
+        return (r(300, 29), torch.randint(0, 29, (5, 63), generator=g, device=dev,
+                                          dtype=torch.int32), r(5, 63), r(5, 64))
+    bshd = lambda b, s, h, d: r(b, s, h, d).transpose(1, 2)
+    q, k, v = bshd(2, 129, 4, 64), bshd(2, 129, 2, 64), bshd(2, 129, 2, 64)
+    if name == "flash_attention":
+        return (q, k, v, True, True)
+    if name == "flash_attention_bwd":
+        o, lse = torch.ops.repro_torch.flash_attention(q, k, v, True, True)
+        return (q, k, v, o, lse, torch.randn_like(o), True)
+    dq, kc, vc = r(2, 8, 64), r(2, 300, 2, 64), r(2, 300, 2, 64)
+    if name == "flash_decode":
+        return (dq, kc, vc, torch.tensor(37, dtype=torch.int32, device=dev))
+    return (dq, kc, vc, 37)
+
+
+OPCHECK = [(n, dt) for n in ("block_matmul", "fused_dense", "flash_attention",
+                              "flash_attention_bwd", "flash_decode", "flash_decode_n")
+           for dt in ("float32", "bfloat16")] + [("forest_predict", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", OPCHECK, ids=[f"{n}-{d}" for n, d in OPCHECK])
+def test_kernel_operator_opcheck(cuda_device, name, dtype):
+    """``torch.library.opcheck`` of each kernel operator on the card: its
+    schema, autograd registration and shape-only (fake) implementation,
+    whose shapes, dtypes and strides must be the kernel's (launch analysis
+    traces the model on them)."""
+    op = getattr(torch.ops.repro_torch, name).default
+    torch.library.opcheck(op, _opcheck_args(name, getattr(torch, dtype), cuda_device))

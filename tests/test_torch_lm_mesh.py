@@ -5,7 +5,7 @@ In process, with stand-in meshes of the same shape in each package (JAX's
 ``AbstractMesh``): ``sharding.param_pspecs`` and ``cache_pspecs`` equal the
 reference's ``PartitionSpec``s leaf by leaf (the port's convention: one
 entry a dimension, a tuple of axis names or None) for all ten configs, full
-and smoke, on (2, 4) and (1, 8) meshes; the placement cuts the experts and the attention cache
+and smoke, on (2, 4), (1, 8) and (2, 2, 2) meshes; the placement cuts the experts and the attention cache
 only, and refuses slots that do not divide over ``model``.
 
 In subprocesses, started together: ``python -m repro_torch.testing
@@ -19,7 +19,9 @@ and 300 tokens a rank, past the dropless 256) and whole (4 experts on 8
 model ranks), MLA's sharded latent attention, ``prefill(mesh=)`` and 3
 decode steps through ``Server(mesh=)`` for granite-3-2b, granite-moe,
 deepseek-v2 and zamba2 (and granite-3-2b writing the last slot twice), and
-the serve loop of 6 requests. Each rank's results are held to JAX's
+the serve loop of 6 requests; on a (2, 2, 2) (pod, data, model) mesh,
+whose batch rows split over pod and data, ``prefill(mesh=)`` and 3 decode
+steps of granite-3-2b (float32 and bfloat16) and granite-moe (float32). Each rank's results are held to JAX's
 ``jax.jit`` of the reference under ``shard_map`` at the port's LM bars:
 2e-4 in float32 and 3e-2 in bfloat16 (``tests/test_torch_lm_families.py``'s
 for these families); the served tokens exactly. The ranks also hold each
@@ -53,12 +55,17 @@ SHAPES = T.LM_MESH_SHAPES
 RUN_TIMEOUT_S = 2 * T.GROUP_TIMEOUT_S + 60  # each subprocess's, above the group's
 
 
+def _names(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
 class _Mesh:
-    """A stand-in for a (data, model) mesh of the port: its shape."""
-    mesh_dim_names = ("data", "model")
+    """A stand-in for a (data, model) or (pod, data, model) mesh of the
+    port: its shape."""
 
     def __init__(self, shape):
         self.shape = shape
+        self.mesh_dim_names = _names(shape)
 
     def size(self, dim):
         return self.shape[dim]
@@ -92,7 +99,7 @@ def _configs(arch, which):
 def test_param_pspecs_match_jax(arch, which, shape):
     jcfg, tcfg = _configs(arch, which)
     want = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg),
-                                             AbstractMesh(shape, ("data", "model")))))
+                                             AbstractMesh(shape, _names(shape)))))
     got = dict(_flat(sharding.param_pspecs(tcfg, lm.param_shapes(tcfg), _Mesh(shape))))
     assert set(got) == set(want)
     for k, p in want.items():
@@ -106,7 +113,7 @@ def test_cache_pspecs_match_jax(arch, batch, shape):
     """Full configs' caches (shapes only: the port's on the meta device)."""
     jcfg, tcfg = _configs(arch, "full")
     jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, 64, enc_len=8))
-    want = jsharding.cache_pspecs(jcfg, jcache, AbstractMesh(shape, ("data", "model")), batch)
+    want = jsharding.cache_pspecs(jcfg, jcache, AbstractMesh(shape, _names(shape)), batch)
     cache = lm.init_cache(tcfg, batch, 64, enc_len=8, device="meta")
     got = sharding.cache_pspecs(tcfg, cache, _Mesh(shape), batch)
     assert set(got) == set(want)
@@ -228,10 +235,13 @@ def _jax_case(case, cfg, inp, jmesh):
 
 def jax_side(shape, out_dir) -> None:
     """Every case of ``shape`` through the reference on a mesh of the
-    forced host devices; saves ``jax_<data>x<model>.npz``."""
+    forced host devices; saves ``jax_<shape>.npz`` (``testing.mesh_tag``).
+    A (pod, data, model) mesh is the production builder's axes on 8
+    devices."""
     from repro.core.mesh import make_host_mesh
     assert jax.device_count() == 8, jax.devices()
-    jmesh = make_host_mesh(*shape)
+    jmesh = (make_host_mesh(*shape) if len(shape) == 2 else jax.make_mesh(
+        shape, _names(shape), axis_types=(jax.sharding.AxisType.Auto,) * 3))
     res = {}
     for case in T.lm_mesh_cases(shape):
         cfg = T.lm_mesh_config(case, j_smoke)
@@ -240,7 +250,7 @@ def jax_side(shape, out_dir) -> None:
         if case["label"].endswith(CLAMPED):
             res[case["label"] + ONE_DEVICE] = np.asarray(_jax_case(case, cfg, inp, None),
                                                          np.float32)
-    np.savez(Path(out_dir) / f"jax_{shape[0]}x{shape[1]}.npz", **res)
+    np.savez(Path(out_dir) / f"jax_{T.mesh_tag(shape)}.npz", **res)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +273,7 @@ def runs(tmp_path_factory):
     jenv = _env(JAX_PLATFORMS="cpu", XLA_FLAGS=" ".join(
         flags + ["--xla_force_host_platform_device_count=8"]))
     procs = {f"jax {s}": subprocess.Popen(
-        [sys.executable, __file__, str(s[0]), str(s[1]), str(out)], env=jenv,
+        [sys.executable, __file__, T.mesh_tag(s), str(out)], env=jenv,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for s in SHAPES}
     procs["ranks"] = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.testing", "lm-mesh", "--ways", "8",
@@ -313,7 +323,7 @@ CASES = [(shape, case["label"]) for shape in SHAPES for case in T.lm_mesh_cases(
 @pytest.mark.parametrize("shape,label", CASES, ids=[c[1] for c in CASES])
 def test_every_rank_matches_jax_shard_map(runs, shape, label):
     out, _ = runs
-    with np.load(out / f"jax_{shape[0]}x{shape[1]}.npz") as z:
+    with np.load(out / f"jax_{T.mesh_tag(shape)}.npz") as z:
         want = z[label]
         one = z[label + ONE_DEVICE] if label.endswith(CLAMPED) else None
     tol = T.lm_tol(label.split("/")[2])
@@ -340,4 +350,4 @@ def test_every_rank_matches_jax_shard_map(runs, shape, label):
 
 
 if __name__ == "__main__":
-    jax_side((int(sys.argv[1]), int(sys.argv[2])), sys.argv[3])
+    jax_side(tuple(int(n) for n in sys.argv[1].split("x")), sys.argv[2])

@@ -10,7 +10,9 @@ four groups of work on 8 forced host devices
 batches: two steps of ``make_train_step(mesh=)`` at microbatches 2 with
 AdamW (lr 1e-2, eps 1e-3) for dense, FSDP, M-RoPE, encoder-decoder, hybrid
 and MoE configs on (8, 1), (2, 4), (4, 2) and (1, 8), a microbatch of 2
-rows on data 4 (replicated) and a clip that binds. Each rank's losses and
+rows on data 4 (replicated), a clip that binds, and FSDP and MoE configs
+on a (2, 2, 2) (pod, data, model) mesh (rows over pod and data, FSDP over
+data). Each rank's losses and
 its blocks of the params and both moments are held to the reference at the
 port's training bars: the loss at 2e-4, every leaf at 2e-4 of its largest
 |value| (``tests/test_torch_train_grads.py``). The reference is its jitted
@@ -55,8 +57,8 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 RUN_TIMEOUT_S = 2 * T.GROUP_TIMEOUT_S + 60  # each subprocess's, above the group's
 CASES = T.train_mesh_cases()
 # one JAX process each: cases, then the extras by name
-JAX_GROUPS = ((CASES[:5], ()), (CASES[5:8], ()), (CASES[8:], ("compress",)),
-              ((), ("pin", "reshard")))
+JAX_GROUPS = ((CASES[:5], ()), (CASES[5:8], ()), (CASES[8:14], ("compress",)),
+              (CASES[14:], ("pin", "reshard")))
 PIN = "finding2"  # the reference's mesh MoE gradient against its one-device one
 
 
@@ -64,10 +66,14 @@ PIN = "finding2"  # the reference's mesh MoE gradient against its one-device one
 # the JAX side: this file as a script on 8 forced host devices
 # ---------------------------------------------------------------------------
 
+def _names(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
 def _jmesh(shape, n_devices=None):
     from jax.sharding import AxisType, Mesh
-    devs = np.array(jax.devices()[:n_devices or shape[0] * shape[1]]).reshape(shape)
-    return Mesh(devs, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    devs = np.array(jax.devices()[:n_devices or int(np.prod(shape))]).reshape(shape)
+    return Mesh(devs, _names(shape), axis_types=(AxisType.Auto,) * len(shape))
 
 
 def _placed(tree, cfg, jmesh):
@@ -271,7 +277,7 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.mark.parametrize("shape", [(2, 4), (8, 1)])
+@pytest.mark.parametrize("shape", [(2, 4), (8, 1), (2, 2, 2)])
 @pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_train_specs_keep_data_and_the_experts_model(arch, shape):
     """The training placement of the full configs against the reference's
@@ -280,7 +286,7 @@ def test_train_specs_keep_data_and_the_experts_model(arch, shape):
     (where ``moe_block`` splits them) and nothing else."""
     jcfg, tcfg = j_config(arch), get_config(arch)
     want = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg),
-                                             AbstractMesh(shape, ("data", "model")))))
+                                             AbstractMesh(shape, _names(shape)))))
     got = dict(_flat(sharding.train_specs(tcfg, lm.param_shapes(tcfg), _Mesh(shape))))
     assert set(got) == set(want)
     split = sharding.sharded_experts(tcfg, _Mesh(shape))
@@ -293,23 +299,24 @@ def test_train_specs_keep_data_and_the_experts_model(arch, shape):
         entries += (None,) * (len(got[k]) - len(entries))
         assert got[k] == tuple(e if e is not None and keep in e else None for e in entries), k
         n_data += ("data",) in got[k]
-    assert (n_data > 0) == (tcfg.fsdp and shape[0] > 1)
+    assert (n_data > 0) == (tcfg.fsdp and shape[-2] > 1)
 
 
 class _Mesh:
-    """A stand-in for a (data, model) mesh of the port: its shape, and the
-    coordinates of ``rank`` (``make_host_mesh``'s rank ``d * model + m``)."""
-    mesh_dim_names = ("data", "model")
+    """A stand-in for a (data, model) or (pod, data, model) mesh of the
+    port: its shape, and the coordinates of ``rank`` (``make_host_mesh``'s
+    row-major rank, ``d * model + m`` or ``(p * data + d) * model + m``)."""
 
     def __init__(self, shape, rank=0):
         self.shape, self.rank = shape, rank
+        self.mesh_dim_names = _names(shape)
 
     def size(self, dim):
         return self.shape[dim]
 
     def get_local_rank(self, axis):
-        d, m = divmod(self.rank, self.shape[1])
-        return d if axis == "data" else m
+        coords = np.unravel_index(self.rank, self.shape)
+        return int(coords[self.mesh_dim_names.index(axis)])
 
 
 PARTS = ("params", "mu", "nu")
@@ -356,7 +363,8 @@ def test_ranks_hold_each_case_to_one_device(runs):
                     None)
         assert line is not None, case["label"]
         assert line.endswith(": OK") and ", 0 tokens dropped" in line, line
-        split = case["b"] // T.TRAIN_MESH_MICRO % case["shape"][0] == 0 and case["shape"][0] > 1
+        ways = int(np.prod(case["shape"][:-1]))  # the batch axes' ranks
+        split = case["b"] // T.TRAIN_MESH_MICRO % ways == 0 and ways > 1
         assert ("rows split over data" if split else "rows replicated") in line, line
     assert "compressed_psum over data=8" in stdout
     assert "train-mesh suite: OK" in stdout and stdout.rstrip().endswith(

@@ -224,7 +224,9 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.testing', 'repro_torch.data.tokens',\n"
         "        'repro_torch.train.checkpoint', 'repro_torch.train.loop',\n"
         "        'repro_torch.train.compress', 'repro_torch.train.elastic',\n"
-        "        'repro_torch.train.stragglers', 'repro_torch.launch.train'\n"
+        "        'repro_torch.train.stragglers', 'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.specs',\n"
+        "        'repro_torch.launch.trace_cost', 'repro_torch.launch.trace_stats'\n"
         "        } <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
