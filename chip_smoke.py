@@ -1906,6 +1906,8 @@ LM_MESH_STEPS = 8  # decode steps after the B 4 x 2048 prefill in [lm-mesh]
 LM_MESH_CONFIGS = (
     ("granite-3-2b", None, "bfloat16", ((1, MESH_RANKS), (2, MESH_RANKS // 2))),
     ("granite-moe-1b-a400m", None, "bfloat16", ((1, MESH_RANKS),)),
+    # 23.3 GB of bf16 weights: tensor parallel, each rank holds about a quarter
+    ("stablelm-12b", None, "bfloat16", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 2, "float32", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 6, "bfloat16", ((1, MESH_RANKS),)),
     ("zamba2-1.2b", None, "float32", ((1, MESH_RANKS),)),
@@ -2002,6 +2004,25 @@ def _lm_mesh_partials(cache: dict, cfg, mesh, rank: int) -> dict:
             "empty_l": [float(got[2].max()), float(want[2].max())] if not valid else None}
 
 
+def _rank_flash_attention(shapes, dtype, rank: int) -> float:
+    """flash_attention at the shape the rank's prefill gave it (its rows,
+    its query heads, the KV heads they read; ``shapes`` = q's, k's and v's
+    [B, S, H, D]), on inputs seeded by the rank, against its plain version;
+    outside the counted window."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(50 + rank)
+    q, k, v = (_normal(gen, sh, dtype=dtype).transpose(1, 2) for sh in shapes)
+    got = fa.flash_attention(q, k, v, True)
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=True).transpose(1, 2)
+    tol = BF16_TOL if dtype == torch.bfloat16 else ATTN_TOL
+    err = kernel_vs_plain(got, want, tol, f"[lm-mesh] rank {rank} flash_attention at "
+                          f"{list(shapes)}")
+    del q, k, v, got, want
+    return err
+
+
 def lm_mesh_bar(dtype: str, response: float) -> float:
     """The bar of a rank's logits against one rank's: the CPU tests' LM bar
     (``testing.lm_tol``: 2e-4 in float32, 3e-2 in bfloat16); in bfloat16 at
@@ -2025,6 +2046,8 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     from repro_torch.launch import serve
     from repro_torch.models import lm, sharding
     bar = lm_mesh_bar(cfg.dtype, float(want["response"]))
+    # the tensor-parallel families hand flash_attention shapes of their own
+    tp = sharding.tensor_parallel(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for r in range(ways):
@@ -2043,10 +2066,20 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     empty_err = kernel_vs_plain(server.logits[:, :v].float().cpu(),
                                 torch.from_numpy(want["empty"]), bar,
                                 f"[lm-mesh] rank {rank} {arch} empty-cache step")
+    attend, fa_shapes = lm._attend, set()
+
+    def recording(q, k, v, causal):  # the shapes the prefill hands the kernel
+        fa_shapes.add((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return attend(q, k, v, causal)
+
     reset_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    logits, server.cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, mesh=mesh)
+    lm._attend = recording
+    try:
+        logits, server.cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, mesh=mesh)
+    finally:
+        lm._attend = attend
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t1
     prefill_launches = read_launches()
@@ -2080,7 +2113,10 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
         "empty_launches": empty_launches, "err": err, "empty_err": empty_err,
         "init_s": init_s, "prefill_s": prefill_s, "step_ms": ms,
         "peak_bytes": torch.cuda.max_memory_allocated(),
-        "partials": _lm_mesh_partials(server.cache, cfg, mesh, rank) if rows == "k" else None}
+        "partials": _lm_mesh_partials(server.cache, cfg, mesh, rank) if rows == "k" else None,
+        "fa_shapes": sorted(fa_shapes) if tp else [],
+        "fa_err": [_rank_flash_attention(sh, lm._dt(cfg), rank)
+                   for sh in sorted(fa_shapes)] if tp else []}
     del params, server, logits, prompt, steps
     _free()
     return report
@@ -2157,6 +2193,8 @@ def phase_lm_mesh() -> None:
                        f"; empty slice: m -1e30 in both, l {p['empty_l'][0]:g} (kernel) / "
                        f"{p['empty_l'][1]:g} (plain), weight 0 in the merge"))
             steps = sorted(rep["step_ms"])
+            fa_at = "; ".join(f"q {q}, k {k}, v {v}: == plain, max|err|={e:.3g}"
+                              for (q, k, v), e in zip(rep["fa_shapes"], rep["fa_err"]))
             print(f"[lm-mesh] {arch} {dtype} {cfg.n_layers} layers, mesh "
                   f"{mesh_tag(rep['mesh'])} rank {r}: experts "
                   f"{'split over model' if rep['experts_split'] else 'whole' if cfg.moe else '-'}"
@@ -2166,7 +2204,10 @@ def phase_lm_mesh() -> None:
                   f"max|err|={rep['err']:.3g} (worst at step {rep['worst'][0]}, row "
                   f"{rep['worst'][1]}; {rep['over']} of {FAMILY_BATCH * (LM_MESH_STEPS + 1)} rows past "
                   f"{lm_mesh_bar(dtype, 0.0):g}), empty-cache step {rep['empty_err']:.3g} (bar "
-                  f"{rep['bar']:.3g}); {part}; init {rep['init_s']:.1f} s, prefill "
+                  f"{rep['bar']:.3g}); {part}; "
+                  + (f"flash_attention at the rank's shapes in the prefill (B, S, H, D) "
+                     f"{fa_at}; " if fa_at else "")
+                  + f"init {rep['init_s']:.1f} s, prefill "
                   f"{rep['prefill_s']:.2f} s, eager step median {steps[len(steps) // 2]:.1f} ms "
                   f"(min {steps[0]:.1f}), peak {rep['peak_bytes'] / 2 ** 30:.2f} GiB")
     print(f"[lm-mesh] {MESH_RANKS} gloo ranks time-slicing cuda:0 (not a multi-card speed): "
@@ -3637,12 +3678,15 @@ def phase_attention_bwd_times(train_launches: dict, errs: dict, card: str) -> di
 # arch, layers kept, (data, model) or (pod, data, model), B, S: one f32 step each
 TRAIN_MESH_F32 = (
     ("stablelm-12b", 1, (MESH_RANKS, 1), 4, 128),
+    # FSDP over data 2 and tensor parallel over model 2
+    ("stablelm-12b", 1, (2, MESH_RANKS // 2), 4, 128),
     ("granite-moe-1b-a400m", 2, (2, MESH_RANKS // 2), 2, 128),  # 256 tokens: none drops
     # rows over pod and data, experts over model
     ("granite-moe-1b-a400m", 2, (2, 1, MESH_RANKS // 2), 2, 128),
 )
 TRAIN_MESH_BF16 = (  # arch, layers kept, (data, model), B, S, microbatches, steps
     ("stablelm-12b", 4, (MESH_RANKS, 1), 4, 2048, 1, 4),
+    ("stablelm-12b", 4, (2, MESH_RANKS // 2), 4, 2048, 1, 3),  # FSDP and TP
     ("granite-moe-1b-a400m", 12, (2, MESH_RANKS // 2), 4, 2048, 2, 3),
 )
 TRAIN_MESH_BF16_TOL = 3e-2  # a bf16 rank's first loss against one device's
@@ -3671,12 +3715,22 @@ def _train_batch(cfg, b: int, s: int, steps: int = 1) -> list:
             for _ in range(steps)]
 
 
-def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float) -> float:
+def _rank_heads(cfg, mesh) -> tuple:
+    """(query heads, KV heads) of this rank's attention: its block of the
+    heads where the model splits them over ``model``, else all of them."""
+    from repro_torch.models import lm
+    hq, _, hkv = lm._local_kv(cfg, lm._tp(cfg, mesh))
+    return hq, hkv
+
+
+def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float,
+                        mesh) -> float:
     """flash_attention's backward at this rank's shape of the layer's
-    attention (its rows, all heads), seeded by the rank, against the plain
+    attention (its rows, its heads), seeded by the rank, against the plain
     backward; outside the counted window."""
     gen = torch.Generator(device="cuda").manual_seed(40 + rank)
-    inputs = _bwd_inputs(gen, b_loc, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.hd, cfg.hd, dtype)
+    hq, hkv = _rank_heads(cfg, mesh)
+    inputs = _bwd_inputs(gen, b_loc, hq, hkv, s, s, cfg.hd, cfg.hd, dtype)
     err, _ = bwd_vs_plain(inputs, True, tol,
                           f"[lm-train-mesh] rank {rank} {cfg.name} flash_attention backward")
     del inputs
@@ -3751,8 +3805,9 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
                     TRAIN_LOSS_TOL, f"[lm-train-mesh] rank {rank} {arch} f32 loss")
     rows = sharding.batch_rows(mesh, b)
     b_loc = b if rows is None else rows.stop - rows.start
-    report["bwd"] = {"shape": [b_loc, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd],
-                     "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL)}
+    report["bwd"] = {"shape": [b_loc, *_rank_heads(cfg, mesh), s, cfg.hd],
+                     "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL,
+                                                mesh)}
     return report
 
 
@@ -3791,9 +3846,9 @@ def _train_mesh_bf16(arch, layers, shape, b, s, micro, steps, mesh, rank, ways) 
               "state_bytes": local, "whole_state_bytes": whole * (2 + 4 + 4),
               "peak_bytes": torch.cuda.max_memory_allocated()}
     rows = b // micro // shape[0] if (b // micro) % shape[0] == 0 else b // micro
-    report["bwd"] = {"shape": [rows, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd],
+    report["bwd"] = {"shape": [rows, *_rank_heads(cfg, mesh), s, cfg.hd],
                      "err": _rank_attention_bwd(cfg, rows, s, rank, torch.bfloat16,
-                                                BF16_TOL)}
+                                                BF16_TOL, mesh)}
     del params, state, step, batches
     _free()
     return report
@@ -3821,14 +3876,17 @@ def phase_lm_train_mesh(card: str) -> None:
     """[lm-train-mesh]: ``make_train_step(mesh=)`` on ``MESH_RANKS`` gloo ranks
     time-slicing cuda:0 (``train_mesh_rank``). (a) f32 at full width, cut
     in depth: stablelm-12b (FSDP over data 4; head dim 160, the backward's
-    (160, 160) pair in two passes) and granite-moe (experts over model 2,
-    no token dropped), each rank against one device. (b) stablelm-12b in
-    bf16 at full width, FSDP over 4 data ranks, B 4 x 2048; (c) granite-moe
-    in bf16 on 2 x 2. Each rank's flash_attention forward and backward
-    launches must match its layers and microbatches; each rank holds the
-    backward kernel at its own shape against the plain backward. The
-    one-device loss of (b)'s first batch comes from this process. Times
-    are of ranks sharing one card and its host: no multi-card speed."""
+    (160, 160) pair in two passes; and on 2 x 2, FSDP over data and tensor
+    parallel over model) and granite-moe (experts over model 2, no token
+    dropped), each rank against one device. (b) stablelm-12b in bf16 at
+    full width, B 4 x 2048, FSDP over 4 data ranks and on 2 x 2 (FSDP and
+    tensor parallel); (c) granite-moe in bf16 on 2 x 2. Each rank's
+    flash_attention forward and backward launches must match its layers
+    and microbatches; each rank holds the backward kernel at its own shape
+    (its rows and heads) against the plain backward. The one-device loss
+    of (b)'s first batch comes from this process, and both meshes' first
+    losses are held to it. Times are of ranks sharing one card and its
+    host: no multi-card speed."""
     import tempfile
     from repro_torch.models import lm
     from repro_torch.testing import mesh_tag, spawn_ranks
@@ -3884,9 +3942,9 @@ def phase_lm_train_mesh(card: str) -> None:
             raise AssertionError(f"[lm-train-mesh] {arch} bf16 losses "
                                  f"{[rep['losses'] for rep in reps]}")
         first = ""
-        if i == 0:
+        if (arch, layers, b, s) == TRAIN_MESH_BF16[0][:2] + TRAIN_MESH_BF16[0][3:5]:
             kernel_vs_plain(torch.tensor(losses[0]), torch.tensor(want), TRAIN_MESH_BF16_TOL,
-                            f"[lm-train-mesh] {arch} bf16 first loss")
+                            f"[lm-train-mesh] {arch} {mesh_tag(shape)} bf16 first loss")
             first = (f"; the first loss {losses[0]:.6f} vs one device {want:.6f} (bar "
                      f"{TRAIN_MESH_BF16_TOL:g})")
         full = _family_cfg(arch)

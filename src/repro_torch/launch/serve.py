@@ -65,11 +65,12 @@ class Server:
     ``pool_bytes``), ``captures`` how many times it was captured, and
     ``logits`` the last step's [B, V] logits (overwritten by the next).
 
-    On ``mesh`` the given ``params`` are whole and the server keeps this
-    rank's (``sharding.shard_params``; without them ``init_params(mesh=)``
-    makes this rank's directly), and ``cache`` is this rank's
-    (``sharding.shard_cache``, or ``lm.prefill(mesh=)``'s). The step is
-    never captured there."""
+    On ``mesh`` the given ``params`` are whole (or this rank's already) and
+    the server keeps this rank's (``sharding.shard_params``: the experts,
+    and the GQA decoders' tensor-parallel leaves; without them
+    ``init_params(mesh=)`` makes this rank's directly), and ``cache`` is
+    this rank's block (``lm.init_cache(mesh=)``, or ``lm.prefill(mesh=)``'s).
+    The step is never captured there."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
                  seed: int = 0, device=None, params=None, mesh=None):
@@ -81,8 +82,7 @@ class Server:
         self.params = (sharding.shard_params(params, cfg, mesh) if params is not None
                        else lm.init_params(cfg, seed, device=self.device, mesh=mesh))
         self.decode_fn = lm.make_decode_step(cfg, mesh)
-        self.cache = sharding.shard_cache(
-            lm.init_cache(cfg, batch, max_len, device=self.device), cfg, mesh)
+        self.cache = lm.init_cache(cfg, batch, max_len, device=self.device, mesh=mesh)
         self.captured: Optional[CapturedGraph] = None
         self.captures = 0
         self.logits: Optional[torch.Tensor] = None

@@ -11,13 +11,14 @@ Shapes (the reference's):
                 compressed-latent archs only; skips documented in dryrun)
 
 Every leaf is this rank's block under the placement the port's step runs
-with, which is not the reference's GSPMD placement: training keeps
-``sharding.train_specs`` (FSDP blocks over ``data``, experts over
-``model``, everything else whole), prefill and decode
-``sharding.serve_specs`` (experts over ``model``) and
+with: training keeps ``sharding.train_specs`` (FSDP blocks over ``data``,
+the experts and the GQA decoders' tensor-parallel leaves over ``model``,
+the reference's ``param_pspecs`` but for the experts' ``data`` entries and
+a mid-head cut), prefill and decode ``sharding.serve_specs`` (the same
+``model`` entries, no ``data`` ones: the reference's TP-only serving) and
 ``sharding.serve_cache_specs`` (K/V over the batch axes and ``model``).
 The port's entry points take the whole batch on every rank, so the token
-inputs are whole.
+inputs are whole; the GQA decoders' prefill runs its rows of them.
 """
 from __future__ import annotations
 

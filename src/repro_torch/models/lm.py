@@ -42,24 +42,41 @@ each leaf's gradient once.
 
 ``mesh=`` (a (data, model) or (pod, data, model) mesh of
 ``core.mesh.make_host_mesh``) runs the reference's sharded paths on ranks
-that all run the same program: the MoE splits its experts over ``model``
-(``layers.moe_block``) in ``forward``,
-``prefill`` and the decode step; the decode step attends over a cache whose
-slots are split over ``model`` and rows over the batch axes
-(``layers.sharded_decode_attention`` for GQA and the hybrid's shared block,
-``mla_latent_attention`` for MLA). On a mesh, params and the cache are each
-rank's (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
-``prefill(mesh=)`` returns the rank's cache); all else is whole and
-computed on every rank. The encoder-decoder and xLSTM decode on one device,
-as in the reference.
+that all run the same program. Params and the cache are each rank's
+(``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
+``init_cache(mesh=)`` and ``prefill(mesh=)`` allocate the rank's block of
+the cache). The GQA decoders (``sharding.tensor_parallel``: granite-3-2b,
+granite-moe, stablelm-12b, nemotron-4-15b, deepseek-67b, qwen2-vl-72b) are
+tensor parallel over ``model``, as the reference's ``param_pspecs``
+placement is under GSPMD (``_tp``, with Megatron's pair
+``core.mesh.copy_to`` before a column-split product and ``sum_over``
+after a row-split one): each rank computes q for its query heads and k
+and v of every KV head, attends its heads to the KV heads they read, and
+sums its rows of ``wo``'s output over ``model``; the dense FFN takes the
+rank's ``d_ff`` block; the embedding is a masked lookup in the rank's
+vocab block summed over ``model``; prefill and decode gather the logits
+over ``model``, training's CE is vocab-parallel. Their ``prefill``
+runs the rank's rows of the batch. The MoE splits its experts over
+``model`` (``layers.moe_block``) in ``forward``, ``prefill`` and the decode
+step; the decode step attends over a cache whose slots are split over
+``model`` and rows over the batch axes (``layers.sharded_decode_attention``
+for GQA and the hybrid's shared block, ``mla_latent_attention`` for MLA),
+the GQA decoders' q gathered whole over ``model`` for it. MLA, the hybrid's
+shared block and everything else the other families run stay whole and
+computed on every rank; the encoder-decoder and xLSTM decode on one
+device, as in the reference.
 
 Training on a mesh (``loss_fn``, ``value_and_grad`` and ``make_train_step``
 with ``mesh=``) runs data-parallel over the batch axes (``data``, or
 ``pod`` and ``data`` on a (pod, data, model) mesh) on each rank's rows of
-the batch, gathers FSDP weights at their use (``_gather_fsdp``) and splits
-the experts over ``model``; the collectives carry the gradients
-(``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``). Params and
-moments are the rank's training placement (``sharding.train_specs``).
+the batch, gathers FSDP weights over ``data`` at their use
+(``_gather_fsdp``, keeping a tensor-parallel leaf's ``model`` block),
+runs the GQA decoders tensor parallel and splits the experts over
+``model``; the collectives carry the gradients
+(``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``), and the partial
+gradients are summed once a step (``_sum_partial_grads``: ``wk`` and ``wv``
+over ``model`` too). Params and moments are the rank's training placement
+(``sharding.train_specs``).
 """
 from __future__ import annotations
 
@@ -216,9 +233,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
     params across with ``convert.lm_params_from_numpy``. A stacked leaf is
     drawn one layer at a time in float32 and stored in the model's type, so
     the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``).
-    With ``mesh=`` the experts are this rank's block over ``model``
-    (``sharding.shard_params``'s cut of the whole leaf): each layer is drawn
-    whole, as without a mesh, and only the block is kept. On the ``meta``
+    With ``mesh=`` each leaf is this rank's block under
+    ``sharding.serve_specs`` (``sharding.shard_params``'s cut of the whole
+    leaf: the experts, and the GQA decoders' tensor-parallel leaves): each
+    layer is drawn whole, as without a mesh, and only the block is kept.
+    On the ``meta``
     device the leaves have their shapes and types and no values
     (``abstract_params``)."""
     dev = resolve_device(device)
@@ -226,23 +245,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
     meta = dev.type == "meta"
     gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
     shapes = param_shapes(cfg)
-    cut = sharding.sharded_experts(cfg, mesh)
-    specs = sharding.param_pspecs(cfg, shapes, mesh) if cut else None
+    specs = sharding.serve_specs(cfg, shapes, mesh) if mesh is not None else None
 
     def mk(name, shape, spec):
         if name in NORMS or len(shape) == 1:
             return torch.ones(shape, dtype=dt, device=dev)
         if name in CONSTANTS:
             return torch.full(shape, CONSTANTS[name], dtype=dt, device=dev)
-        keep = ((lambda w: sharding.block_view(w, spec[1:], mesh, ("model",)))
-                if cut and name in sharding.EXPERTS else (lambda w: w))
-        out = torch.empty((shape[0],) + keep(torch.empty(shape[1:], device="meta")).shape
-                          if len(shape) >= 3 else shape, dtype=dt, device=dev)
+        layered = len(shape) >= 3  # a stacked leaf, drawn a layer at a time
+        whole = shape[1:] if layered else shape
+        cut = spec is not None and sharding.spec_axes(spec)
+        keep = ((lambda w: sharding.block_view(w, spec[1:] if layered else spec, mesh,
+                                               ("model",))) if cut else (lambda w: w))
+        part_shape = tuple(keep(torch.empty(whole, device="meta")).shape)
+        out = torch.empty(((shape[0],) if layered else ()) + part_shape, dtype=dt, device=dev)
         if meta:
             return out
         fan_in = np.sqrt(max(shape[-2], 1))
-        for part in (out if len(shape) >= 3 else [out]):  # a layer at a time
-            whole = shape[1:] if len(shape) >= 3 else shape
+        for part in (out if layered else [out]):
             part.copy_(keep(torch.randn(whole, generator=gen, dtype=torch.float32,
                                         device=dev).div_(fan_in)))
         return out
@@ -284,17 +304,72 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+class _TP(NamedTuple):
+    """Tensor parallelism over ``model`` (``sharding.model_leaves``): this
+    rank's ``rank`` of ``ways`` on ``mesh``; ``heads``: ``wq``'s columns and
+    ``wo``'s rows are the rank's query heads; ``ffn``: ``w_gate``, ``w_in``
+    and ``w_out`` its block of ``d_ff``; ``vocab``: ``embed`` its block of
+    rows."""
+    mesh: Any
+    ways: int
+    rank: int
+    heads: bool
+    ffn: bool
+    vocab: bool
+
+
+def _tp(cfg: ModelConfig, mesh):
+    """The tensor-parallel split of ``cfg`` on ``mesh`` (``_TP``), or None
+    off a mesh, for a family that keeps those leaves whole, and on a
+    ``model`` axis of one rank (whose blocks are whole)."""
+    if mesh is None or not sharding.tensor_parallel(cfg):
+        return None
+    ways = sharding.axis_size(mesh, "model")
+    if ways == 1:
+        return None
+    specs = sharding.serve_specs(cfg, param_shapes(cfg), mesh)
+    split = {k: ("model",) in sp for k, sp in specs["blocks"].items()}
+    return _TP(mesh, ways, mesh_util.rank_of(mesh, "model"), split["wq"],
+               split.get("w_in", False), ("model",) in specs["embed"])
+
+
+def _block(w: torch.Tensor, dim: int, whole: int, tp, name: str) -> torch.Tensor:
+    """``w`` checked to hold this rank's block of ``whole`` on ``dim`` over
+    ``model`` (``tp``) or all of it (``tp`` None): placement and compute
+    must agree, nothing is gathered to make them."""
+    want = whole if tp is None else whole // tp.ways
+    if w.shape[dim] != want:
+        raise ValueError(f"{name}: {w.shape[dim]} on dim {dim}, the compute wants "
+                         f"{want} of {whole}" + ("" if tp is None else
+                                                 f" ({tp.ways} model ranks)"))
+    return w
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     # JAX's gather wraps negative ids once and clamps the rest into range
-    n = emb.shape[0]
+    n = cfg.padded_vocab
     tokens = torch.where(tokens < 0, tokens + n, tokens).clamp(0, n - 1)
-    return emb[tokens].to(_dt(cfg))
+    if tp is None or not tp.vocab:
+        return _block(emb, 0, n, None, "embed")[tokens].to(_dt(cfg))
+    # vocab-parallel: the rank looks up the ids in its block of rows, the
+    # others are zero, and the sum over ``model`` is exact
+    v_loc = _block(emb, 0, n, tp, "embed").shape[0]
+    local = tokens - tp.rank * v_loc
+    own = (local >= 0) & (local < v_loc)
+    e = torch.where(own[..., None], emb[local.clamp(0, v_loc - 1)], 0)
+    return mesh_util.sum_over(e, tp.mesh, "model").to(_dt(cfg))
 
 
-def _logits(params, x: torch.Tensor) -> torch.Tensor:
-    return x.float() @ params["embed"].float().T
+def _logits(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """float32 logits of x [..., D] over the whole padded vocabulary; a
+    vocab-parallel rank computes its block and all-gathers the rest over
+    ``model``."""
+    lg = x.float() @ params["embed"].float().T
+    if tp is None or not tp.vocab:
+        return lg
+    return mesh_util.all_gather_rows(lg.movedim(-1, 0), tp.mesh, "model").movedim(0, -1)
 
 
 def _final_norm(params, x: torch.Tensor, last=None) -> torch.Tensor:
@@ -330,15 +405,42 @@ def _attend(q, k, v, causal: bool):
     return o.transpose(1, 2).reshape(b, s, -1)
 
 
-def _attn_prefill(x, blk, cfg: ModelConfig, positions, pos3, causal=True):
-    """Self-attention over x; returns its output and the rotated (k, v)."""
+def _local_kv(cfg: ModelConfig, tp) -> Tuple[int, int, int]:
+    """(this rank's query heads, its first KV head, its KV heads): query
+    head h reads KV head h // G (G = n_heads / n_kv_heads); with the heads
+    split over ``model`` a rank's heads read ``hq / G`` KV heads, or one
+    when G exceeds its ``hq`` heads. Raises where a rank's heads would read
+    a part of a KV group that another rank's heads share unevenly."""
+    if tp is None or not tp.heads:
+        return cfg.n_heads, 0, cfg.n_kv_heads
+    hq, g = cfg.n_heads // tp.ways, cfg.n_heads // cfg.n_kv_heads
+    if hq % g and g % hq:
+        raise ValueError(f"{cfg.name}: {hq} query heads a rank do not cover whole "
+                         f"groups of {g} (n_heads {cfg.n_heads}, n_kv_heads "
+                         f"{cfg.n_kv_heads}, {tp.ways} model ranks)")
+    return hq, tp.rank * hq // g, max(hq // g, 1)
+
+
+def _attn_prefill(x, blk, cfg: ModelConfig, positions, pos3, causal=True, tp=None):
+    """Self-attention over x; returns its output and the rotated (k, v) of
+    every KV head. With the heads split over ``model`` (``tp.heads``) the
+    rank computes q for its query heads, k and v of all KV heads from the
+    whole ``wk`` and ``wv`` (the cache keeps them all), attends its heads to
+    the KV heads they read, applies its rows of ``wo`` and sums the
+    partial outputs over ``model``."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = (x @ blk["wq"]).view(b, s, cfg.n_heads, hd)
+    hq, kv0, nkv = _local_kv(cfg, tp)
+    heads = tp if tp is not None and tp.heads else None
+    if heads:
+        x = mesh_util.copy_to(x, tp.mesh, "model")
+    q = (x @ _block(blk["wq"], -1, cfg.n_heads * hd, heads, "wq")).view(b, s, hq, hd)
     k = (x @ blk["wk"]).view(b, s, cfg.n_kv_heads, hd)
     v = (x @ blk["wv"]).view(b, s, cfg.n_kv_heads, hd)
     q, k = _rotate(q, k, cfg, positions, pos3)
-    return _attend(q, k, v, causal) @ blk["wo"], (k, v)
+    o = _attend(q, k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv], causal)
+    o = o @ _block(blk["wo"], -2, cfg.n_heads * hd, heads, "wo")
+    return (o if not heads else mesh_util.sum_over(o, tp.mesh, "model")), (k, v)
 
 
 def _mla_prefill(x, blk, cfg: ModelConfig, positions):
@@ -383,8 +485,8 @@ def _gather_fsdp(blk, cfg: ModelConfig, mesh, specs, sum_grads: bool = True):
     block of the gradient, summed over ``data`` when ``sum_grads``, the
     data-parallel case). ``specs``: each leaf's spec, one layer's
     (``sharding.train_specs`` without the stacked axis). Over
-    ``model`` a gathered weight is whole, as the port keeps every weight
-    but the experts whole there. Training on a mesh applies it at each
+    ``model`` a gathered weight keeps its spec's block: the rank's block of
+    a tensor-parallel leaf, else whole. Training on a mesh applies it at each
     layer's use, inside the layer's rematerialized body, and to ``embed``
     (``_Train.use``); ``forward`` on a mesh (serving) takes whole weights."""
     if mesh is None or not cfg.fsdp:
@@ -425,9 +527,19 @@ def _use(train, tree, cfg: ModelConfig, group: str = ""):
     return tree if train is None else train.use(tree, cfg, group)
 
 
-def _ffn(x, blk, cfg: ModelConfig, mesh=None, local_rows: bool = False):
+def _ffn(x, blk, cfg: ModelConfig, mesh=None, local_rows: bool = False, tp=None):
+    """The dense FFN (its ``d_ff`` split over ``model`` where ``tp.ffn``:
+    the rank's columns of ``w_gate`` and ``w_in``, its rows of ``w_out``,
+    the partial outputs summed over ``model``) or the MoE (expert-parallel
+    on ``mesh``; ``local_rows``: x is the rank's rows already)."""
     if cfg.moe is None:
-        return L.mlp(x, blk.get("w_gate"), blk["w_in"], blk["w_out"], cfg.act)
+        if tp is None or not tp.ffn:
+            return L.mlp(x, blk.get("w_gate"), blk["w_in"], blk["w_out"], cfg.act)
+        x = mesh_util.copy_to(x, tp.mesh, "model")
+        cols = [None if w is None else _block(w, -1, cfg.d_ff, tp, n)
+                for n, w in (("w_gate", blk.get("w_gate")), ("w_in", blk["w_in"]))]
+        y = L.mlp(x, *cols, _block(blk["w_out"], -2, cfg.d_ff, tp, "w_out"), cfg.act)
+        return mesh_util.sum_over(y, tp.mesh, "model")
     flat = x.reshape(-1, x.shape[-1])
     y = L.moe_block(flat, blk["router"], blk.get("e_gate"), blk["e_in"],
                     blk["e_out"], cfg, mesh=mesh, local_rows=local_rows)
@@ -442,18 +554,33 @@ def _cache_rows(cfg: ModelConfig) -> Tuple[str, str]:
     return ("ckv", "kpe") if cfg.attn == "mla" else ("k", "v")
 
 
+def _write_prompt(dst, src, start: int) -> None:
+    """The prompt's rows ``src`` [B, S, ...] into a cache row ``dst`` [B,
+    S_loc, ...] whose first slot is slot ``start`` of the whole cache (this
+    rank's block over ``model``, or the whole cache at 0): the slots of
+    ``[start, start + S_loc)`` that the prompt fills."""
+    n = min(max(src.shape[1] - start, 0), dst.shape[1])
+    if n:
+        dst[:, :n] = src[:, start:start + n]
+
+
 def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
-           cross=None, enc_h=None, cache=None, mesh=None, train=None, group="blocks"):
+           cross=None, enc_h=None, cache=None, mesh=None, train=None, group="blocks",
+           local_rows: bool = False, cache_start: int = 0):
     """The stacked layers of ``blocks`` over x: self-attention (GQA or
     MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
-    FFN (expert-parallel on ``mesh``). With ``cache`` each layer's rows go
-    to its first S slots. In training each layer is rematerialized
-    (``_remat``), as the reference's scan body; on a mesh (``train``) the
-    layer gathers its FSDP weights inside that body, so that the backward
-    gathers them again instead of keeping them."""
-    s = x.shape[1]
+    FFN (expert-parallel on ``mesh``; the GQA decoders' attention and dense
+    FFN tensor-parallel over its ``model`` axis, ``_tp``). With ``cache``
+    each layer's rows go to the cache's slots that the prompt fills (its
+    first slot is ``cache_start`` of the whole cache). In training each
+    layer is rematerialized (``_remat``), as the reference's scan body; on a
+    mesh (``train``) the layer gathers its FSDP weights inside that body, so
+    that the backward gathers them again instead of keeping them.
+    ``local_rows``: x is this rank's rows of the batch (the MoE splits it
+    no further)."""
     if train is not None:
-        mesh = train.mesh
+        mesh, local_rows = train.mesh, train.split
+    tp = _tp(cfg, mesh) if group == "blocks" else None
 
     def layer(x, blk, xblk):
         blk = _use(train, blk, cfg, group)
@@ -462,12 +589,12 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
         if cfg.attn == "mla":
             a, rows = _mla_prefill(h, blk, cfg, positions)
         else:
-            a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal)
+            a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal, tp)
         if xblk is not None:
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
             a = _cross_attn(h, xblk, cfg, enc_h)
         x, h = L.add_rms_norm(x, a, blk["ln2"])
-        return x + _ffn(h, blk, cfg, mesh, train is not None and train.split), rows
+        return x + _ffn(h, blk, cfg, mesh, local_rows, tp), rows
 
     layers = _layers(blocks)
     xlayers = _layers(cross) if cross is not None else [None] * len(layers)
@@ -475,7 +602,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
         x, rows = _remat(cfg, layer, x, blk, xblk)
         if cache is not None:
             for name, row in zip(_cache_rows(cfg), rows):
-                cache[name][i, :, :s] = row
+                _write_prompt(cache[name][i], row, cache_start)
     return x
 
 
@@ -578,7 +705,7 @@ def _encode(params, cfg: ModelConfig, enc_embeds, train=None) -> torch.Tensor:
 
 
 def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=None,
-          train=None):
+          train=None, local_rows: bool = False, cache_start: int = 0):
     """The layers of any family over the embedded tokens x; returns (x,
     the last residual term or None) for ``_final_norm``."""
     if cfg.kind == "hybrid":
@@ -586,7 +713,8 @@ def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=
     if cfg.kind == "xlstm":
         return _xlstm(x, params, cfg, cache, train)
     x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
-               cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh, train=train)
+               cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh, train=train,
+               local_rows=local_rows, cache_start=cache_start)
     return x, None
 
 
@@ -595,14 +723,15 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
     """Returns final hidden states [B, S, D]. tokens: [B, S] int (the
     decoder's input); enc_embeds: [B, S_src, D] for the encoder-decoder;
     pos3: [3, B, S] for M-RoPE; ``mesh``: the MoE's experts split over its
-    ``model`` axis (``params`` are this rank's)."""
+    ``model`` axis and the GQA decoders tensor parallel over it
+    (``params`` are this rank's, ``sharding.serve_specs``)."""
     return _forward(params, cfg, tokens, positions, pos3, enc_embeds, mesh)
 
 
 def _forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
              enc_embeds=None, mesh=None, train=None) -> torch.Tensor:
     check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, _tp(cfg, mesh if train is None else train.mesh))
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
@@ -626,7 +755,8 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
 
     On ``mesh`` (training on a (data, model) mesh) ``params`` are this
     rank's placement (``sharding.train_specs``: FSDP blocks over ``data``,
-    experts over ``model``) and ``batch`` is the whole batch; every rank
+    the experts and the GQA decoders' tensor-parallel leaves over
+    ``model``) and ``batch`` is the whole batch; every rank
     returns the whole batch's loss (``_train_loss``)."""
     if mesh is None:
         tot, cnt = _ce_sums(params, cfg, batch)
@@ -636,7 +766,11 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
 
 def _ce_sums(params, cfg: ModelConfig, batch, train=None):
     """(sum of the masked tokens' cross-entropies, their count) of
-    ``batch``, both float32 0-d tensors."""
+    ``batch``, both float32 0-d tensors. On a mesh whose ``model`` axis
+    splits the vocabulary (``_tp``) the CE is vocab-parallel: each rank
+    computes its block of the float32 logits, and the max, the sum of
+    exponentials and the target's logit (from the rank that holds it) are
+    reduced over ``model``; no rank holds the whole [rows, chunk, V]."""
     h = _forward(params, cfg, batch["tokens"], enc_embeds=batch.get("enc_embeds"),
                  pos3=batch.get("pos3"), train=train)
     b, s, _ = h.shape
@@ -648,17 +782,33 @@ def _ce_sums(params, cfg: ModelConfig, batch, train=None):
         h = F.pad(h, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
     emb = params["embed"].float()
-    in_vocab = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab
+    tp = None if train is None else _tp(cfg, train.mesh)
+    vocab = tp is not None and tp.vocab
+    lo = tp.rank * emb.shape[0] if vocab else 0
+    in_vocab = torch.arange(lo, lo + emb.shape[0], device=h.device) < cfg.vocab
 
     def ce(hh, ll, emb):
-        logits = torch.where(in_vocab, hh.float() @ emb.T, L.NEG)
-        gold = logits.gather(-1, ll.clamp(min=0)[..., None])[..., 0]
+        if not vocab:
+            logits = torch.where(in_vocab, hh.float() @ emb.T, L.NEG)
+            gold = logits.gather(-1, ll.clamp(min=0)[..., None])[..., 0]
+            lse = torch.logsumexp(logits, -1)
+        else:
+            logits = torch.where(in_vocab, mesh_util.copy_to(hh, tp.mesh, "model").float()
+                                 @ emb.T, L.NEG)
+            m = mesh_util.all_reduce_max(logits.detach().amax(-1), tp.mesh, "model")
+            lse = m + torch.log(mesh_util.sum_over(torch.exp(logits - m[..., None]).sum(-1),
+                                                   tp.mesh, "model"))
+            tgt = ll.clamp(min=0) - lo
+            own = (tgt >= 0) & (tgt < emb.shape[0])
+            gold = logits.gather(-1, tgt.clamp(0, emb.shape[0] - 1)[..., None])[..., 0]
+            gold = mesh_util.sum_over(torch.where(own, gold, 0.0), tp.mesh, "model")
         mask = (ll >= 0).float()
-        return ((torch.logsumexp(logits, -1) - gold) * mask).sum(), mask.sum()
+        return ((lse - gold) * mask).sum(), mask.sum()
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, nc * chunk, chunk):
-        t, n = _remat(cfg, ce, h[:, c:c + chunk], labels[:, c:c + chunk], emb)
+        t, n = _remat(cfg, ce, h[:, c:c + chunk], labels[:, c:c + chunk],
+                      _block(emb, 0, cfg.padded_vocab, tp if vocab else None, "embed"))
         tot, cnt = tot + t, cnt + n
     return tot, cnt
 
@@ -716,23 +866,37 @@ def _leaf_grads(params, loss_of):
         [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)], spec)
 
 
-def _sum_partial_grads(grads, train: _Train):
-    """A split pass's gradients completed: each leaf's partial gradient
-    summed over the batch axes that do not split the leaf (one all-reduce
-    a dtype and set of axes, the leaves packed flat): a leaf held whole
-    over ``pod`` and ``data``; an FSDP block over ``pod`` only, since its
-    gather's reduce-scatter summed it over ``data``. Not split: as they
-    are."""
-    if not train.split:
+def _names(tree):
+    """``tree`` with each leaf replaced by its key."""
+    return {k: _names(v) if isinstance(v, dict) else k for k, v in tree.items()}
+
+
+def _sum_partial_grads(grads, cfg: ModelConfig, train: _Train):
+    """A pass's gradients completed: each leaf's partial gradient summed
+    over the axes whose ranks each computed a part of it (one all-reduce a
+    dtype and set of axes, the leaves packed flat). Split over the batch
+    axes: a leaf held whole over ``pod`` and ``data`` over both, an FSDP
+    block over ``pod`` only (its gather's reduce-scatter summed it over
+    ``data``). With the heads split over ``model`` (``_tp``): ``wk`` and
+    ``wv`` over ``model`` too, since each rank reads only the KV heads of
+    its query heads; a leaf split over ``model`` holds its block's whole
+    gradient, and a leaf that every rank computes alike is whole."""
+    tp = _tp(cfg, train.mesh)
+    partial_kv = tp is not None and tp.heads
+    if not (train.split or partial_kv):
         return grads
     leaves, spec = tree_flatten(grads)
     specs = tree_flatten(sharding._zip_map(lambda g, sp: sp, grads, train.specs),
                          is_leaf=lambda x: isinstance(x, tuple))[0]
+    names = tree_flatten(_names(grads))[0]
     batch = sharding.batch_axes(train.mesh)
     out = list(leaves)
     groups: Dict[Any, list] = {}
-    for i, (g, sp) in enumerate(zip(leaves, specs)):
-        axes = tuple(a for a in batch if a not in sharding.spec_axes(sp))
+    for i, (g, sp, name) in enumerate(zip(leaves, specs, names)):
+        axes = (tuple(a for a in batch if a not in sharding.spec_axes(sp))
+                if train.split else ())
+        if partial_kv and name in ("wk", "wv"):
+            axes += ("model",)
         if axes:
             groups.setdefault((str(g.dtype), axes), []).append(i)
     for (_, axes), idx in sorted(groups.items()):
@@ -754,7 +918,7 @@ def value_and_grad(params, cfg: ModelConfig, batch, mesh=None):
         return _leaf_grads(params, lambda p: loss_fn(p, cfg, batch))
     train = _train_place(cfg, mesh, batch)
     loss, grads = _leaf_grads(params, lambda p: _train_loss(p, cfg, batch, train))
-    return loss, _sum_partial_grads(grads, train)
+    return loss, _sum_partial_grads(grads, cfg, train)
 
 
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
@@ -798,7 +962,7 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
     def grads_of(params, batch):
         if m == 1:
             loss, grads, train = one(params, batch)
-            return loss, grads if train is None else _sum_partial_grads(grads, train)
+            return loss, grads if train is None else _sum_partial_grads(grads, cfg, train)
         loss = 0.0
         leaves, spec = tree_flatten(params)
         acc = [torch.zeros(w.shape, dtype=accum_dtype, device=w.device) for w in leaves]
@@ -809,7 +973,7 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
                 a.add_(gi.to(accum_dtype))
         grads = tree_unflatten(acc, spec)
         if train is not None:
-            grads = _sum_partial_grads(grads, train)
+            grads = _sum_partial_grads(grads, cfg, train)
         return loss / m, tree_map(lambda a: a.div_(m), grads)
 
     def train_step(params, opt_state, batch):
@@ -831,7 +995,7 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1,
 # ===========================================================================
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               device=None):
+               device=None, mesh=None):
     """An empty cache of ``max_len`` slots (the reference's): K/V for a GQA
     decoder; MLA's latent ``ckv`` [L,B,S,kv_lora] and rotary ``kpe``
     [L,B,S,rope]; the hybrid's conv [L,B,W-1,d_in] and SSM [L,B,H,dstate,dh]
@@ -839,36 +1003,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     float32 mLSTM memories ``mS`` [L_m,B,H,dh,dh+1] and sLSTM states ``sh``,
     ``sc``, ``sn`` [L_s,B,D]. The encoder-decoder's also holds an encoder
     memory ``enc_h`` of ``enc_len`` frames (zero by default, as the
-    reference's server leaves it)."""
+    reference's server leaves it). With ``mesh=`` it is this rank's block,
+    allocated as such (``sharding.serve_cache_specs``: K/V or MLA's rows
+    over the batch axes where ``batch_spec`` shards them and by slot over
+    ``model``; raises where the slots do not divide over ``model``, as
+    ``sharding.shard_cache`` does), never the whole cache."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt, f32 = _dt(cfg), torch.float32
-
-    def zeros(shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
     kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     if cfg.kind == "xlstm":
         n_seg, per = _xlstm_layout(cfg)
         dh = cfg.ssm_expand * cfg.d_model // cfg.n_heads
-        cache = {"mS": zeros((n_seg * per, batch, cfg.n_heads, dh, dh + 1), f32)}
-        cache.update({n: zeros((n_seg, batch, cfg.d_model), f32) for n in ("sh", "sc", "sn")})
+        shapes = {"mS": ((n_seg * per, batch, cfg.n_heads, dh, dh + 1), f32)}
+        shapes.update({n: ((n_seg, batch, cfg.d_model), f32) for n in ("sh", "sc", "sn")})
     elif cfg.kind == "hybrid":
         d_in = cfg.ssm_expand * cfg.d_model
-        cache = {"conv": zeros((cfg.n_layers, batch, cfg.conv_width - 1, d_in)),
-                 "ssm": zeros((cfg.n_layers, batch, cfg.n_heads, cfg.ssm_state,
-                               d_in // cfg.n_heads), f32),
-                 "k": zeros((_n_attn(cfg),) + kv), "v": zeros((_n_attn(cfg),) + kv)}
+        shapes = {"conv": ((cfg.n_layers, batch, cfg.conv_width - 1, d_in), dt),
+                  "ssm": ((cfg.n_layers, batch, cfg.n_heads, cfg.ssm_state,
+                           d_in // cfg.n_heads), f32),
+                  "k": ((_n_attn(cfg),) + kv, dt), "v": ((_n_attn(cfg),) + kv, dt)}
     elif cfg.attn == "mla":
         m = cfg.mla
-        cache = {"ckv": zeros((cfg.n_layers, batch, max_len, m.kv_lora)),
-                 "kpe": zeros((cfg.n_layers, batch, max_len, m.rope_dim))}
+        shapes = {"ckv": ((cfg.n_layers, batch, max_len, m.kv_lora), dt),
+                  "kpe": ((cfg.n_layers, batch, max_len, m.rope_dim), dt)}
     else:
-        cache = {"k": zeros((cfg.n_layers,) + kv), "v": zeros((cfg.n_layers,) + kv)}
+        shapes = {"k": ((cfg.n_layers,) + kv, dt), "v": ((cfg.n_layers,) + kv, dt)}
         if cfg.kind == "encdec":
-            cache["enc_h"] = zeros((batch, enc_len, cfg.d_model))
-    cache["len"] = torch.zeros((), dtype=torch.int32, device=dev)
-    return cache
+            shapes["enc_h"] = ((batch, enc_len, cfg.d_model), dt)
+    shapes["len"] = ((), torch.int32)
+    if mesh is not None and sharding.sharded_cache(cfg):
+        sharding.check_slots(max_len, mesh)
+        specs = sharding.serve_cache_specs(cfg, {k: sh for k, (sh, _) in shapes.items()},
+                                           mesh, batch)
+        shapes = {k: (sharding.block_shape(sh, specs[k], mesh), t)
+                  for k, (sh, t) in shapes.items()}
+    return {k: torch.zeros(sh, dtype=t, device=dev) for k, (sh, t) in shapes.items()}
 
 
 def _decode_attn(q, k_cache, v_cache, valid_len, mesh=None):
@@ -944,18 +1114,29 @@ def _write_row(cache_row, row, slot) -> None:
 
 
 def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
-                     positions, mesh=None):
+                     positions, mesh=None, tp=None):
     """One token's self-attention (its K/V row written at ``slot`` in
-    place), through the output projection."""
+    place), through the output projection. With the heads split over
+    ``model`` (``tp.heads``): q of the rank's heads, all-gathered over
+    ``model`` to the whole q that the S-sharded attention takes, then the
+    rank's heads of its output through its rows of ``wo``, summed over
+    ``model``; k and v of every KV head from the whole ``wk`` and ``wv``."""
     b, hd = h.shape[0], cfg.hd
-    q = (h @ blk["wq"]).view(b, 1, cfg.n_heads, hd)
+    heads = tp if tp is not None and tp.heads else None
+    hq = cfg.n_heads // (heads.ways if heads else 1)
+    q = (h @ _block(blk["wq"], -1, cfg.n_heads * hd, heads, "wq")).view(b, 1, hq, hd)
     k = (h @ blk["wk"]).view(b, 1, cfg.n_kv_heads, hd)
     v = (h @ blk["wv"]).view(b, 1, cfg.n_kv_heads, hd)
     q, k = _rotate(q, k, cfg, positions, _pos3(cfg, positions, None))
     _write_row(k_cache, k, slot)
     _write_row(v_cache, v, slot)
+    if heads:
+        q = mesh_util.all_gather_rows(q.movedim(2, 0), tp.mesh, "model").movedim(0, 2)
     o = _decode_attn(q[:, 0], k_cache, v_cache, valid, mesh)
-    return o.reshape(b, cfg.n_heads * hd) @ blk["wo"]
+    if heads:
+        o = o[:, tp.rank * hq:(tp.rank + 1) * hq]
+    o = o.reshape(b, hq * hd) @ _block(blk["wo"], -2, cfg.n_heads * hd, heads, "wo")
+    return mesh_util.sum_over(o, tp.mesh, "model") if heads else o
 
 
 def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions,
@@ -1006,6 +1187,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     check_supported(cfg)
     hd = cfg.hd
     mesh = mesh if sharding.sharded_cache(cfg) else None
+    tp = _tp(cfg, mesh)
 
     def decoder(x, params, cache, slot, valid, positions, enc_h):
         blocks, cross = params["blocks"], params.get("cross")
@@ -1014,8 +1196,12 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         xlayers = _layers(cross) if cross is not None else None
         for i, blk in enumerate(layers):
             h = L.rms_norm(x, blk["ln1"])
-            attn = _mla_decode_attn if cfg.attn == "mla" else _gqa_decode_attn
-            a = attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid, positions, mesh)
+            if cfg.attn == "mla":
+                a = _mla_decode_attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid,
+                                     positions, mesh)
+            else:
+                a = _gqa_decode_attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid,
+                                     positions, mesh, tp)
             if cross is not None:
                 xblk = xlayers[i]
                 x, h = L.add_rms_norm(x, a, xblk["ln_x"])
@@ -1026,7 +1212,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
                 o = _decode_attn(q, ke, ve, ke.shape[1])
                 a = o.reshape(b, cfg.n_heads * hd) @ xblk["xo"]
             x, h = L.add_rms_norm(x, a, blk["ln2"])
-            x = x + _ffn(h, blk, cfg, mesh)
+            x = x + _ffn(h, blk, cfg, mesh, tp=tp)
         return x, None
 
     def hybrid(x, params, cache, slot, valid, positions):
@@ -1078,7 +1264,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         return x, last
 
     def decode_step(params, cache, token, enc_h=None):
-        x = _embed(params, cfg, token)  # [B, D]
+        x = _embed(params, cfg, token, tp)  # [B, D]
         dev = x.device
         clen = torch.as_tensor(cache["len"], dtype=torch.int32, device=dev)
         positions = clen.reshape(1, 1).expand(x.shape[0], 1)
@@ -1094,7 +1280,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
             else:
                 x, last = decoder(x, params, cache, slot, valid, positions,
                                   cache.get("enc_h") if enc_h is None else enc_h)
-        logits = _logits(params, _final_norm(params, x, last))
+        logits = _logits(params, _final_norm(params, x, last), tp)
         cols = torch.arange(cfg.padded_vocab, device=dev)
         logits = torch.where(cols[None, :] < cfg.vocab, logits, L.NEG)
         return logits, dict(cache, len=valid)
@@ -1111,14 +1297,28 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
     """Logits of the last token (no vocab mask, as in the JAX package) and
     a cache of ``max_len`` slots holding the prompt's rows (K/V, MLA's
     latent rows, the hybrid's K/V and states, xLSTM's memories; for the
-    encoder-decoder also the encoder's memory of ``enc_embeds``). On
-    ``mesh`` the MoE splits its experts (``params`` are this rank's) and
-    the cache returned is this rank's (``sharding.shard_cache``)."""
+    encoder-decoder also the encoder's memory of ``enc_embeds``).
+
+    On ``mesh`` ``params`` are this rank's (``sharding.serve_specs``) and the
+    cache returned is this rank's block. The GQA decoders
+    (``sharding.tensor_parallel``) run the rank's rows of the batch where
+    ``batch_spec`` shards it (the MoE splits them no further), tensor
+    parallel over ``model`` (``_tp``), into a cache allocated as the rank's
+    block (``init_cache(mesh=)``: its rows, its slots over ``model``, the
+    prompt's rows that fall into those slots), and gather the last token's
+    logits over ``model`` and the batch axes: every rank returns the whole
+    [B, V]. The other families run the whole batch (the MoE splits its
+    experts and tokens) and cut the rank's block of the cache at the end
+    (``sharding.shard_cache``)."""
     check_supported(cfg)
-    x = _embed(params, cfg, tokens)
-    b, s = x.shape[:2]
+    emb = params["embed"]
+    tokens = torch.as_tensor(tokens, device=emb.device)
+    b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prefill: prompt of {s} tokens exceeds max_len {max_len}")
+    if mesh is not None and sharding.tensor_parallel(cfg):
+        return _prefill_mesh(params, cfg, tokens, max_len, pos3, mesh)
+    x = _embed(params, cfg, tokens)
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     enc_h = None
@@ -1130,3 +1330,22 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
     if last is not None:  # the last token's slice keeps XLA from fusing the add
         x = x + last
     return _logits(params, _final_norm(params, x[:, -1])), cache
+
+
+def _prefill_mesh(params, cfg: ModelConfig, tokens, max_len: int, pos3, mesh):
+    """``prefill`` of a GQA decoder on ``mesh``: this rank's rows, its block
+    of the cache, the logits gathered whole."""
+    b, s = tokens.shape
+    rows = sharding.batch_rows(mesh, b)
+    if rows is not None:
+        tokens = tokens[rows]
+        pos3 = None if pos3 is None else torch.as_tensor(pos3, device=tokens.device)[:, rows]
+    tp = _tp(cfg, mesh)
+    x = _embed(params, cfg, tokens, tp)
+    cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh)
+    start = mesh_util.rank_of(mesh, "model") * cache["k"].shape[2]
+    x, _ = _body(params, cfg, x, _positions(x.shape[0], s, x.device), pos3, None, cache,
+                 mesh, local_rows=rows is not None, cache_start=start)
+    cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    logits = _logits(params, _final_norm(params, x[:, -1]), tp)
+    return L.gather_batch(logits, rows, mesh), cache

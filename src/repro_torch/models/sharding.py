@@ -10,20 +10,40 @@ reference's ``PartitionSpec``). The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions;
 ``param_pspecs`` and ``cache_pspecs`` read only its shape.
 
-The reference places its arrays with GSPMD. Here every rank of the mesh
-runs the same program (multi-controller), so placement is explicit and
-covers what the sharded bodies consume, nothing more: ``shard_params``
-cuts the experts (``e_gate``, ``e_in``, ``e_out``) to the rank's block over
-``model``; ``shard_cache`` cuts the attention cache (``k``/``v``, MLA's
-``ckv``/``kpe``) to the rank's rows over the batch axes, ``data`` or
-(``pod``, ``data``) (when ``batch_spec`` shards the batch), and slots over
-``model``. Every other leaf and state (the hybrid's ``conv`` and ``ssm``
-included) stays whole on every rank and is computed replicated.
+The reference places its arrays with GSPMD, which partitions every product
+by its weight's placement. Here every rank of the mesh runs the same
+program (multi-controller), so placement is explicit and covers what the
+sharded bodies consume, nothing more (``model_leaves``):
 
-Training on a mesh keeps its own placement (``train_specs``): FSDP configs
-hold the rank's block of each leaf's ``data`` dim, the experts their block
-over ``model``; ``place`` cuts it from whole leaves and ``unplace`` gathers
-it back (checkpoints, ``train.elastic.reshard_state``, tests).
+* the six GQA decoders (``tensor_parallel``: ``kind`` dense or moe with
+  ``attn`` gqa or mrope) take ``param_pspecs``'s ``model`` entries on
+  ``wq``, ``w_gate`` and ``w_in`` (columns), ``wo`` and ``w_out`` (rows)
+  and ``embed`` (vocab rows), and ``models.lm`` computes them tensor
+  parallel (Megatron's pair, ``core.mesh.copy_to`` before a column-split
+  product and ``sum_over`` after a row-split one); ``wk``, ``wv``, the
+  router and the norms stay whole, as in the reference. One difference
+  from the reference: where the query heads do not divide over ``model``
+  (``n_heads % model != 0``), ``wq`` and ``wo`` stay whole over ``model``
+  and the attention runs whole on every rank; the reference's ``_fit``
+  would cut their columns mid-head wherever ``n_heads * hd`` divides;
+* every family's experts (``e_gate``, ``e_in``, ``e_out``) take their block
+  over ``model`` where ``moe_block`` splits them;
+* the other families (MLA, the hybrid, xLSTM, the encoder-decoder) keep
+  every other leaf whole and compute it replicated over ``model``.
+
+``serve_specs`` is that placement (no ``data`` entries: serving is the
+reference's "TP-only"); ``shard_params`` cuts it from whole leaves and
+``lm.init_params(mesh=)`` draws it. The attention cache is the rank's
+block (``serve_cache_specs``): K/V (MLA's ``ckv``/``kpe``) over the batch
+axes, ``data`` or (``pod``, ``data``), when ``batch_spec`` shards the batch,
+and over ``model`` by slot; ``lm.init_cache(mesh=)`` and
+``lm.prefill(mesh=)`` allocate only that block, ``shard_cache`` cuts it
+from a whole cache. The hybrid's ``conv`` and ``ssm`` states stay whole.
+
+Training on a mesh keeps its own placement (``train_specs``): the same
+``model`` entries, and on every leaf but the experts its ``data`` entries
+(FSDP configs); ``place`` cuts it from whole leaves and ``unplace``
+gathers it back (checkpoints, ``train.elastic.reshard_state``, tests).
 """
 from __future__ import annotations
 
@@ -201,25 +221,65 @@ def sharded_experts(cfg, mesh) -> bool:
             and cfg.moe.n_experts % axis_size(mesh, "model") == 0)
 
 
+def tensor_parallel(cfg) -> bool:
+    """Whether the family's attention, dense FFN and vocabulary split over
+    ``model`` on a mesh: the GQA decoders (``kind`` dense or moe, ``attn``
+    gqa or mrope). MLA, the hybrid, xLSTM and the encoder-decoder keep
+    those leaves whole."""
+    return cfg.kind in ("dense", "moe") and cfg.attn in ("gqa", "mrope")
+
+
+HEAD_LEAVES = ("wq", "wo")  # split by query head: columns of wq, rows of wo
+TP_LEAVES = HEAD_LEAVES + ("w_gate", "w_in", "w_out", "embed")
+
+
+def model_leaves(cfg, mesh) -> frozenset:
+    """The leaf names whose ``param_pspecs`` entry over ``model`` the port
+    keeps on ``mesh`` (where ``_fit`` leaves one): the experts where
+    ``moe_block`` splits them; for ``tensor_parallel`` configs ``wq`` and
+    ``wo`` where the query heads divide over ``model`` (never mid-head),
+    and ``w_gate``, ``w_in``, ``w_out`` and ``embed``."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return frozenset()
+    keep = set(EXPERTS) if sharded_experts(cfg, mesh) else set()
+    if tensor_parallel(cfg):
+        keep.update(TP_LEAVES)
+        if cfg.n_heads % axis_size(mesh, "model"):
+            keep.difference_update(HEAD_LEAVES)
+    return frozenset(keep)
+
+
+def _check_block(name: str, w, spec: tuple, mesh, whole: tuple) -> None:
+    want = block_shape(whole, spec, mesh)
+    if tuple(w.shape) != want:
+        raise ValueError(f"{name}: a leaf of shape {tuple(w.shape)}, neither the whole "
+                         f"{whole} nor this rank's block {want} under {spec}")
+
+
 def shard_params(params: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
-    """Params -> this rank's: the experts ([L?, E, ...]) cut to the rank's
-    block over ``model`` where ``moe_block`` splits them (an expert leaf
-    that already holds fewer than all the experts is this rank's and
-    stays), every other leaf the same tensor."""
-    if not sharded_experts(cfg, mesh):
+    """Whole params -> this rank's under ``serve_specs``: each leaf with a
+    ``model`` entry cut to the rank's block over ``model`` (a leaf that
+    already is that block stays; any other shape raises), every other leaf
+    the same tensor."""
+    if mesh is None:
         return params
+    from repro_torch.models import lm
+    shapes = lm.param_shapes(cfg)
+    specs = serve_specs(cfg, shapes, mesh)
 
-    def cut(v):
-        dim = v.ndim - 3
-        if v.shape[dim] != cfg.moe.n_experts:
-            return v
-        return local_block(v, (None,) * dim + (("model",),), mesh, ("model",))
+    def cut(name, w, spec, whole):
+        if not spec_axes(spec):
+            return w
+        if tuple(w.shape) == whole:
+            return local_block(w, spec, mesh, ("model",))
+        _check_block(name, w, spec, mesh, whole)
+        return w
 
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else cut(v) if k in EXPERTS else v
-                for k, v in tree.items()}
+    def walk(tree, sp, sh, path):
+        return {k: walk(v, sp[k], sh[k], f"{path}{k}/") if isinstance(v, dict)
+                else cut(path + k, v, sp[k], tuple(sh[k])) for k, v in tree.items()}
 
-    return walk(params)
+    return walk(params, specs, shapes, "")
 
 
 def sharded_cache(cfg) -> bool:
@@ -227,6 +287,16 @@ def sharded_cache(cfg) -> bool:
     decoders, the hybrid's shared block): the encoder-decoder and xLSTM
     decode on one device in the reference, with their cache whole."""
     return cfg.kind in ("dense", "moe", "hybrid")
+
+
+def check_slots(slots: int, mesh) -> None:
+    """Raises ValueError when a cache of ``slots`` slots does not divide
+    over the ``model`` ranks, as the reference's ``shard_map`` refuses
+    such a cache."""
+    ways = axis_size(mesh, "model")
+    if slots % ways:
+        raise ValueError(f"shard_cache: {slots} cache slots do not divide over "
+                         f"{ways} model ranks")
 
 
 def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
@@ -239,25 +309,27 @@ def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
         return cache
     rows = [k for k in CACHE_ROWS if k in cache]
     batch, slots = cache[rows[0]].shape[1:3]
-    ways = axis_size(mesh, "model")
-    if slots % ways:
-        raise ValueError(f"shard_cache: {slots} cache slots do not divide over "
-                         f"{ways} model ranks")
+    check_slots(slots, mesh)
     specs = cache_pspecs(cfg, {k: cache[k] for k in rows}, mesh, batch)
     return dict(cache, **{k: local_block(cache[k], specs[k], mesh, ("pod", "data", "model"))
                           for k in rows})
 
 
 def serve_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
-    """Where prefill and decode on ``mesh`` keep each leaf of the params
-    (``shard_params``): ``param_pspecs``'s ``model`` entries on the experts
-    where ``moe_block`` splits them, every other dim whole."""
-    split = sharded_experts(cfg, mesh)
+    """Where prefill, decode and ``Server(mesh=)`` keep each leaf of the
+    params (``shard_params``, ``lm.init_params(mesh=)``): ``param_pspecs``'s
+    ``model`` entries on the leaves of ``model_leaves`` (the experts where
+    ``moe_block`` splits them; for the GQA decoders the columns of ``wq``,
+    ``w_gate`` and ``w_in``, the rows of ``wo`` and ``w_out`` and the vocab
+    of ``embed``, ``wq`` and ``wo`` only where the heads divide), every other
+    dim whole. No ``data`` entries: serving holds whole weights over the
+    batch axes, the reference's TP-only serving."""
+    keep = model_leaves(cfg, mesh)
 
     def walk(specs):
         return {k: walk(v) if isinstance(v, dict) else
-                tuple(ax if split and k in EXPERTS and ax and "model" in ax else None
-                      for ax in v) for k, v in specs.items()}
+                tuple(ax if k in keep and ax and "model" in ax else None for ax in v)
+                for k, v in specs.items()}
 
     return walk(param_pspecs(cfg, shapes, mesh))
 
@@ -300,20 +372,26 @@ def to_shape_dtype(tree: Dict[str, Any], mesh, specs: Dict[str, Any]) -> Dict[st
 def train_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
     """Where training on ``mesh`` keeps each leaf of the params (and of
     the AdamW moments, which take the params' placement, as the
-    reference's ``AdamWState`` takes ``pspecs``): ``param_pspecs``'s
-    ``data`` entries (a ``cfg.fsdp`` leaf holds the rank's block of the
-    dim it puts on ``data``, ``embed`` and the stacked blocks included) on
-    every leaf but the experts, and its ``model`` entries on the experts
-    only, where ``moe_block`` splits them. Every other dim is whole: the
-    port computes attention and the dense FFNs whole over ``model``."""
-    split = sharded_experts(cfg, mesh)
+    reference's ``AdamWState`` takes ``pspecs``): ``serve_specs``'s
+    ``model`` entries (the GQA decoders' tensor-parallel leaves, the
+    experts where ``moe_block`` splits them) and ``param_pspecs``'s
+    ``data`` entries on every leaf but the experts (a ``cfg.fsdp`` leaf
+    holds the rank's block of the dim it puts on ``data``, ``embed`` and
+    the stacked blocks included). A leaf split both ways (FSDP and tensor
+    parallel) holds one block of each dim; ``lm`` gathers the ``data`` dim
+    at its use and keeps the ``model`` block."""
+    keep = model_leaves(cfg, mesh)
 
-    def keep(name, spec):
-        want = ("model" if split else None) if name in EXPERTS else "data"
-        return tuple(ax if ax is not None and want in ax else None for ax in spec)
+    def entry(name, ax):
+        if ax is None:
+            return None
+        if "model" in ax:
+            return ax if name in keep else None
+        return ax if "data" in ax and name not in EXPERTS else None
 
     def walk(specs):
-        return {k: walk(v) if isinstance(v, dict) else keep(k, v) for k, v in specs.items()}
+        return {k: walk(v) if isinstance(v, dict) else tuple(entry(k, ax) for ax in v)
+                for k, v in specs.items()}
 
     return walk(param_pspecs(cfg, shapes, mesh))
 

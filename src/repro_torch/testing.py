@@ -839,17 +839,7 @@ def _lm_mesh_case(case: dict, mesh, say_line: Callable) -> np.ndarray:
     else:
         whole = convert.lm_params_from_numpy(inp["params"], device="cpu", dtype=dt)
         if kind == "serve":
-            def run(m):
-                srv = serve.Server(cfg, LM_MESH_BATCH, LM_MESH_MAX_LEN, device="cpu",
-                                   params=whole, mesh=m)
-                reqs = [serve.Request(rid=i, prompt=p, max_new=inp["max_new"])
-                        for i, p in enumerate(inp["prompts"])]
-                steps = serve.serve(srv, reqs)
-                out = np.full((len(reqs), LM_MESH_MAX_LEN), -1, np.int32)
-                for i, r in enumerate(reqs):
-                    out[i, :len(r.out)] = r.out
-                return out, steps
-            (got, steps), (want, _) = run(mesh), run(None)
+            (got, steps), (want, _) = (serve_tokens(cfg, whole, inp, m) for m in (mesh, None))
             np.testing.assert_array_equal(got, want, err_msg=case["label"])
             say_line(f"{case['label']}: {len(inp['prompts'])} requests in {steps} steps, "
                      "tokens == one device: OK")
@@ -880,7 +870,9 @@ def _lm_mesh_case(case: dict, mesh, say_line: Callable) -> np.ndarray:
 def _check_gather_fsdp(mesh, say_line: Callable) -> None:
     """``lm._gather_fsdp`` of one layer's FSDP weights, each cut to this
     rank's block by the training placement (``sharding.train_specs``
-    without the stacked axis), gives the whole weights back."""
+    without the stacked axis), gives each weight back whole over ``data``:
+    the whole weight, or its block over ``model`` where the placement
+    splits it there too (tensor parallelism)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
@@ -895,9 +887,10 @@ def _check_gather_fsdp(mesh, say_line: Callable) -> None:
     assert cut
     got = lm._gather_fsdp(local, cfg, mesh, specs)
     for k, w in blk.items():
-        assert torch.equal(got[k], w), k
+        model = tuple(ax if ax == ("model",) else None for ax in specs[k])
+        assert torch.equal(got[k], sharding.place_leaf(w, model, mesh)), k
     say_line(f"_gather_fsdp over data={sharding.axis_size(mesh, 'data')}: "
-             f"{cut} whole again: OK")
+             f"{cut} whole again over data: OK")
 
 
 def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
@@ -922,6 +915,172 @@ def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
     if out_dir is not None:
         np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
     say(rank, "lm-mesh suite: OK")
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over model: the GQA decoders on a mesh
+# ---------------------------------------------------------------------------
+
+TP_SHAPES = ((2, 4), (2, 2, 2), (1, 8))  # on (1, 8) the 4 smoke heads stay whole
+TP_ARCHS = ("deepseek-67b", "granite-3-2b", "granite-moe-1b-a400m", "nemotron-4-15b",
+            "qwen2-vl-72b", "stablelm-12b")
+TP_BATCH = 8  # rows of the loss's batch, of TRAIN_MESH_SEQ tokens
+TP_SERVE_SHAPE = (2, 4)  # the mesh of the float32 serve loops
+
+
+def tp_cases() -> list:
+    """The cases of the ``tp`` suite, in the order the ranks run them: each
+    GQA decoder's smoke config in float32 and bfloat16 on each mesh of
+    ``TP_SHAPES``; ``serve``: the float32 cases on ``TP_SERVE_SHAPE`` also
+    run the serve loop. ``ref`` names the reference that the loss's gradient is
+    held to: ``"one"`` where the experts split over more than one ``model``
+    rank (its mesh gradient is not its loss's, ROADMAP §3), else
+    ``"mesh"``."""
+    cases = []
+    for shape in TP_SHAPES:
+        for arch in TP_ARCHS:
+            for dtype in ("float32", "bfloat16"):
+                split = arch == "granite-moe-1b-a400m" and 4 % shape[-1] == 0
+                cases.append(dict(label=f"{mesh_tag(shape)}/tp/{dtype}/{arch}", kind="lm",
+                                  shape=shape, arch=arch, dtype=dtype, prompt=LM_MESH_PROMPT,
+                                  ref="one" if split else "mesh",
+                                  serve=dtype == "float32" and shape == TP_SERVE_SHAPE))
+    return cases
+
+
+def tp_inputs(case: dict, cfg) -> dict:
+    """``lm_mesh_inputs`` of the case (params, prompt, steps), the serve
+    loop's requests and the loss's batch, from seeds of its label."""
+    import zlib
+    out = lm_mesh_inputs(case, cfg)
+    serve = lm_mesh_inputs(dict(case, kind="serve"), cfg)
+    out.update(prompts=serve["prompts"], max_new=serve["max_new"],
+               batch=train_mesh_batches(cfg, TP_BATCH, zlib.crc32(case["label"].encode()),
+                                        1)[0])
+    return out
+
+
+def tp_bar(dtype: str) -> float:
+    """The bar of the loss and of each gradient leaf (against its largest
+    |g|): the port's training bar in float32, the LM bar in bfloat16."""
+    return TRAIN_MESH_TOL if dtype == "float32" else LM_BF16_TOL
+
+
+def tp_holds_grads(case: dict) -> bool:
+    """Whether the case's gradients are held to JAX's, leaf by leaf: all
+    but the MoE's in bfloat16, whose top-k router moves its gradients by
+    more than the bar on a rounding of its inputs (the port's one-device
+    bf16 gradient is 0.16 of the largest |g| off its own mesh run); there,
+    as ``tests/test_torch_train_grads.py`` holds bfloat16, the loss only."""
+    return case["dtype"] == "float32" or case["arch"] != "granite-moe-1b-a400m"
+
+
+def serve_tokens(cfg, params, inp, mesh) -> tuple:
+    """(each request's tokens [n, LM_MESH_MAX_LEN], -1 past its end; the
+    steps taken) of ``launch.serve.serve`` over ``inp``'s prompts through a
+    CPU ``Server(mesh=)`` holding the whole ``params``."""
+    from repro_torch.launch import serve
+    srv = serve.Server(cfg, LM_MESH_BATCH, LM_MESH_MAX_LEN, device="cpu", params=params,
+                       mesh=mesh)
+    reqs = [serve.Request(rid=i, prompt=p, max_new=inp["max_new"])
+            for i, p in enumerate(inp["prompts"])]
+    steps = serve.serve(srv, reqs)
+    out = np.full((len(reqs), LM_MESH_MAX_LEN), -1, np.int32)
+    for i, r in enumerate(reqs):
+        out[i, :len(r.out)] = r.out
+    return out, steps
+
+
+def _tp_case(case: dict, mesh, say_line: Callable) -> dict:
+    """One case on this rank: ``Server(mesh=)`` from whole params (each
+    leaf's block checked against ``serve_specs``), ``prefill(mesh=)`` into
+    its cache and 3 decode steps; in float32 the serve loop; the loss and
+    gradients of ``value_and_grad(mesh=)`` from the training placement. Each
+    is held to this rank's one-device run (the logits at ``lm_tol``, the
+    served tokens exactly, the loss at ``tp_bar``, in float32 every gathered
+    gradient leaf at ``tp_bar`` of its largest |g|). Returns this rank's
+    results: the logits, tokens, loss and its block of every gradient."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, sharding
+    cfg = lm_mesh_config(case, get_smoke_config)
+    inp = tp_inputs(case, cfg)
+    dt = getattr(torch, case["dtype"])
+    label = case["label"]
+    whole = convert.lm_params_from_numpy(inp["params"], device="cpu", dtype=dt)
+    shapes = lm.param_shapes(cfg)
+    srv = serve.Server(cfg, LM_MESH_BATCH, LM_MESH_MAX_LEN, device="cpu", params=whole,
+                       mesh=mesh)
+    specs = flat_tree(sharding.serve_specs(cfg, shapes, mesh))
+    for k, w in flat_tree(srv.params).items():
+        want = sharding.block_shape(tuple(flat_tree(shapes)[k]), specs[k], mesh)
+        if tuple(w.shape) != want:
+            raise AssertionError(f"{label}: {k} of {tuple(w.shape)}, its block is {want}")
+    split = sorted(k for k, sp in specs.items() if sharding.spec_axes(sp))
+    prompt, steps = torch.from_numpy(inp["prompt"]), torch.from_numpy(inp["steps"])
+    logits, srv.cache = lm.prefill(srv.params, cfg, prompt, LM_MESH_MAX_LEN, mesh=mesh)
+    step1 = lm.make_decode_step(cfg)
+    want_l, cache1 = lm.prefill(whole, cfg, prompt, LM_MESH_MAX_LEN)
+    got, want = [logits], [want_l]
+    for tok in steps:
+        srv.decode(tok)
+        got.append(srv.logits)
+        lg, cache1 = step1(whole, cache1, tok)
+        want.append(lg)
+    got, want = torch.stack(got).float(), torch.stack(want).float()
+    tol = lm_tol(case["dtype"])
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=lambda m: f"{label}: {m}")
+    out = {f"{label}/lm": got.numpy()}
+    note = f"cache block {list(srv.cache['k'].shape)}"
+    if case["serve"]:
+        tokens = serve_tokens(cfg, whole, inp, mesh)[0]
+        np.testing.assert_array_equal(tokens, serve_tokens(cfg, whole, inp, None)[0],
+                                      err_msg=f"{label} served tokens")
+        out[f"{label}/serve"] = tokens
+        note += f", {len(inp['prompts'])} requests served == one device"
+    batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+    tspecs = sharding.train_specs(cfg, shapes, mesh)
+    loss, grads = lm.value_and_grad(sharding.place(whole, tspecs, mesh), cfg, batch, mesh)
+    loss1, grads1 = lm.value_and_grad(whole, cfg, batch)
+    bar = tp_bar(case["dtype"])
+    np.testing.assert_allclose(float(loss), float(loss1), rtol=bar, atol=bar,
+                               err_msg=f"{label} loss")
+    worst = float("nan")
+    if case["dtype"] == "float32":
+        gathered = {k: v.float().numpy() for k, v in
+                    flat_tree(sharding.unplace(grads, tspecs, mesh)).items()}
+        worst = _assert_trees_close(gathered, {k: v.float().numpy() for k, v in
+                                               flat_tree(grads1).items()}, label, bar)
+    out[f"{label}/loss"] = np.asarray(float(loss), np.float64)
+    out.update({f"{label}/grad/{k}": v.float().numpy() for k, v in flat_tree(grads).items()})
+    err = float((got - want).abs().max())
+    say_line(f"{label}: {len(split)} leaves split over model ({', '.join(split)}); {note}; "
+             f"logits == one device, max|err|={err:.3g} (bar {tol:g}); loss {float(loss):.6f} "
+             f"== one device's {float(loss1):.6f}; gradients worst |err| / max = {worst:.3g} "
+             f"(bar {bar:g}): OK")
+    return out
+
+
+def tp_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
+    """The rank body of the tensor-parallel proof on 8 ranks: every case of
+    ``tp_cases`` (``_tp_case``); every rank writes its results to
+    ``out_dir/rank{rank}.npz``, which the tests hold to JAX."""
+    if ways != 8:
+        raise ValueError(f"tp runs on 8 ranks, not {ways}")
+    results, meshes = {}, {}
+
+    def line(text):
+        say(rank, text)
+
+    for case in tp_cases():
+        if case["shape"] not in meshes:
+            meshes[case["shape"]] = host_mesh(case["shape"])
+        results.update(_tp_case(case, meshes[case["shape"]], line))
+    if out_dir is not None:
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **results)
+    say(rank, "tp suite: OK")
 
 
 # ---------------------------------------------------------------------------
@@ -1281,7 +1440,7 @@ def train_restore_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> 
 
 
 SUITES = {"partitioned": partitioned_suite, "sharded": sharded_suite, "fault": fault_suite,
-          "lm-mesh": lm_mesh_suite, "train-mesh": train_mesh_suite}
+          "lm-mesh": lm_mesh_suite, "train-mesh": train_mesh_suite, "tp": tp_suite}
 # suites that go on in a new, smaller group once the first has ended
 FOLLOW_UPS = {"train-mesh": (train_restore_suite, RESTORE_SHAPE[0] * RESTORE_SHAPE[1])}
 

@@ -16,7 +16,8 @@ In subprocesses, started together: the fake process-group backend
 relies on, and ``make_production_mesh`` on fake worlds of 256 and 512
 ranks; the reference's ``make_production_mesh`` on 512 forced host
 devices; ``python -m repro_torch.launch.dryrun`` for every shape of
-granite-3-2b on (16, 16) and its decode on (2, 16, 16). Each record has
+granite-3-2b on (16, 16), its decode on (2, 16, 16) and granite-moe's
+prefill_32k on (16, 16), tensor parallel. Each record has
 every key that ``benchmarks/roofline.py`` reads, and that module renders
 them unchanged.
 """
@@ -45,6 +46,11 @@ SRC = ROOT / "src"
 MESHES = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model")}
 RUN_TIMEOUT_S = 240  # each subprocess's
 DRYRUN_ARCH = "granite-3-2b"
+TP_ARCH = "granite-moe-1b-a400m"
+# TP_ARCH's prefill_32k on (16, 16) as the dry run priced it before the batch
+# split and tensor parallelism (the whole batch and cache on every rank):
+# FLOPs a rank and GB a rank (PERF.md §6)
+TP_BEFORE = {"hlo_flops": 3.539634761807936e15, "per_device_total_gb": 77.723}
 
 
 class _Mesh:
@@ -359,7 +365,10 @@ def runs(tmp_path_factory):
     procs = {"fake_pg": ([sys.executable, "-c", FAKE_PG], _env()),
              "jax": ([sys.executable, "-c", JAX_MESH], jenv),
              "single": (dry + ["--mesh", "single"], _env()),
-             "multi": (dry + ["--mesh", "multi", "--shape", "decode_32k"], _env())}
+             "multi": (dry + ["--mesh", "multi", "--shape", "decode_32k"], _env()),
+             "tp": ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", TP_ARCH,
+                     "--shape", "prefill_32k", "--mesh", "single", "--out", str(out / "tp")],
+                    _env())}
     started = {n: subprocess.Popen(c, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                    text=True) for n, (c, e) in procs.items()}
     t0, outputs = time.monotonic(), {}
@@ -474,3 +483,19 @@ def test_multi_pod_decode_reduces_over_pod(runs):
     assert set(rec["collectives_by_axis"]) == {"pod", "data", "model"}
     single = _record(out, "decode_32k")
     assert rec["memory"]["argument_bytes"] < single["memory"]["argument_bytes"]
+
+
+def test_tensor_parallel_prefill_falls_as_predicted(runs):
+    """granite-moe's prefill_32k on (16, 16): with each rank on its 2 rows
+    of the batch, the attention and vocabulary split over 16 ``model``
+    ranks and only its block of the cache allocated, its FLOPs a rank fall
+    to at most 1/16 of ``TP_BEFORE``'s (the batch split alone) and its GB a
+    rank below it; the activations' sums run over ``model``."""
+    out, _, _ = runs
+    with open(out / "tp" / f"{TP_ARCH}_prefill_32k_single.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["hlo_flops"] <= TP_BEFORE["hlo_flops"] / 16, rec["hlo_flops"]
+    assert rec["memory"]["per_device_total_gb"] < TP_BEFORE["per_device_total_gb"]
+    assert rec["collectives_by_axis"]["model"] > 0
+

@@ -5,8 +5,10 @@ In process, with stand-in meshes of the same shape in each package (JAX's
 ``AbstractMesh``): ``sharding.param_pspecs`` and ``cache_pspecs`` equal the
 reference's ``PartitionSpec``s leaf by leaf (the port's convention: one
 entry a dimension, a tuple of axis names or None) for all ten configs, full
-and smoke, on (2, 4), (1, 8) and (2, 2, 2) meshes; the placement cuts the experts and the attention cache
-only, and refuses slots that do not divide over ``model``.
+and smoke, on (2, 4), (1, 8) and (2, 2, 2) meshes; the serving placement
+cuts the experts, the GQA decoders' tensor-parallel leaves and the
+attention cache only, and refuses slots that do not divide over ``model``
+(the tensor-parallel paths themselves: ``tests/test_torch_tp.py``).
 
 In subprocesses, started together: ``python -m repro_torch.testing
 lm-mesh`` on an 8-rank gloo group, and this file run as a script (the JAX
@@ -140,33 +142,53 @@ def test_train_use_gathers_nothing_without_fsdp():
 
 @pytest.mark.parametrize("shape,split", [((2, 4), True), ((1, 8), False)])
 def test_placement_cuts_only_experts_and_attention_cache(shape, split):
-    """Off a process group the cut is checked through its shapes: the
-    experts hold E / model of them where the expert count divides, every
-    other leaf is the same tensor; ``shard_cache`` refuses slots that do not
-    divide over ``model`` and leaves the encoder-decoder's and xLSTM's
-    caches whole."""
+    """Off a process group the cut is checked through its shapes. The
+    serving placement cuts, of the params, only the experts (E / model of
+    them where the expert count divides) and, in the GQA decoders, the
+    tensor-parallel leaves over ``model`` (``wq`` and ``wo`` where the
+    heads divide, the FFN and the vocab); every other leaf (``wk``, ``wv``,
+    the router, the norms) is the same tensor. Of the cache it cuts only
+    the attention rows: ``init_cache(mesh=)`` allocates the block that
+    ``shard_cache`` cuts, both refuse slots that do not divide over
+    ``model``, and the encoder-decoder's and xLSTM's caches stay whole."""
     class Ranked(_Mesh):
         def get_local_rank(self, axis):
             return 0
 
     mesh = Ranked(shape)
-    cfg = get_smoke_config("granite-moe-1b-a400m")
-    params = lm.init_params(cfg, seed=0, device="cpu")
-    placed = sharding.shard_params(params, cfg, mesh)
-    e = cfg.moe.n_experts
-    for k, w in params["blocks"].items():
-        if k in sharding.EXPERTS:
-            assert placed["blocks"][k].shape[1] == (e // shape[1] if split else e), k
-        else:
-            assert placed["blocks"][k] is w, k
-    assert sharding.sharded_experts(cfg, mesh) is split
+    ways = shape[-1]
+    heads = 4 % ways == 0  # the smoke configs' 4 query heads
+    for arch in ("granite-moe-1b-a400m", "granite-3-2b"):
+        cfg = get_smoke_config(arch)
+        params = lm.init_params(cfg, seed=0, device="cpu")
+        placed = sharding.shard_params(params, cfg, mesh)
+        for k, w in params["blocks"].items():
+            got = placed["blocks"][k].shape
+            if k in sharding.EXPERTS:
+                e = cfg.moe.n_experts
+                assert got[1] == (e // ways if split else e), k
+            elif k in ("wq", "w_gate", "w_in"):
+                assert got[-1] == w.shape[-1] // (ways if heads or k != "wq" else 1), k
+            elif k in ("wo", "w_out"):
+                assert got[-2] == w.shape[-2] // (ways if heads or k != "wo" else 1), k
+            else:
+                assert placed["blocks"][k] is w, k
+        assert placed["embed"].shape[0] == cfg.padded_vocab // ways
+        assert placed["final_norm"] is params["final_norm"]
+        assert sharding.sharded_experts(cfg, mesh) is (split and cfg.moe is not None)
     cache = lm.init_cache(cfg, 4, 64, device="cpu")
     local = sharding.shard_cache(cache, cfg, mesh)
     assert tuple(local["k"].shape) == (cfg.n_layers, 4 // shape[0], 64 // shape[1],
                                        cfg.n_kv_heads, cfg.hd)
     assert local["len"] is cache["len"]
-    with pytest.raises(ValueError, match="do not divide"):
-        sharding.shard_cache(lm.init_cache(cfg, 4, 62, device="cpu"), cfg, mesh)
+    made = lm.init_cache(cfg, 4, 64, device="cpu", mesh=mesh)
+    assert {k: tuple(v.shape) for k, v in made.items()} == {
+        k: tuple(v.shape) for k, v in local.items()}
+    for bad in (lambda: sharding.shard_cache(lm.init_cache(cfg, 4, 62, device="cpu"), cfg,
+                                             mesh),
+                lambda: lm.init_cache(cfg, 4, 62, device="cpu", mesh=mesh)):
+        with pytest.raises(ValueError, match="do not divide"):
+            bad()
     for arch in ("seamless-m4t-medium", "xlstm-1.3b"):
         c = get_smoke_config(arch)
         whole = lm.init_cache(c, 4, 62, enc_len=3, device="cpu")

@@ -282,24 +282,36 @@ def _flat(tree, prefix=""):
 def test_train_specs_keep_data_and_the_experts_model(arch, shape):
     """The training placement of the full configs against the reference's
     ``param_pspecs`` on an ``AbstractMesh``: each leaf keeps the reference's
-    ``data`` entries (FSDP configs), the experts its ``model`` entries
-    (where ``moe_block`` splits them) and nothing else."""
+    ``data`` entries (FSDP configs) but on the experts, and its ``model``
+    entries on the leaves of ``sharding.model_leaves`` (the experts where
+    ``moe_block`` splits them; for the six GQA decoders ``wq``, ``wo``,
+    ``w_gate``, ``w_in``, ``w_out`` and ``embed``, ``wq`` and ``wo`` only
+    where the heads divide) and nothing else."""
     jcfg, tcfg = j_config(arch), get_config(arch)
     want = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg),
                                              AbstractMesh(shape, _names(shape)))))
     got = dict(_flat(sharding.train_specs(tcfg, lm.param_shapes(tcfg), _Mesh(shape))))
     assert set(got) == set(want)
-    split = sharding.sharded_experts(tcfg, _Mesh(shape))
-    n_data = 0
+    keep = sharding.model_leaves(tcfg, _Mesh(shape))
+    assert (set(sharding.EXPERTS) <= keep) == sharding.sharded_experts(tcfg, _Mesh(shape))
+    tp = sharding.tensor_parallel(tcfg)
+    assert (keep - set(sharding.EXPERTS)) == (
+        set(sharding.TP_LEAVES) - (set() if tcfg.n_heads % shape[-1] == 0
+                                   else set(sharding.HEAD_LEAVES)) if tp else set())
+    n_data = n_model = 0
     for k, p in want.items():
-        keep = ("model" if split else None) if k.rsplit("/", 1)[-1] in sharding.EXPERTS \
-            else "data"
+        leaf = k.rsplit("/", 1)[-1]
         entries = tuple(None if e is None else (e,) if isinstance(e, str) else tuple(e)
                         for e in p)
         entries += (None,) * (len(got[k]) - len(entries))
-        assert got[k] == tuple(e if e is not None and keep in e else None for e in entries), k
+        assert got[k] == tuple(
+            e if e is not None and (("model" in e and leaf in keep)
+                                    or ("data" in e and leaf not in sharding.EXPERTS))
+            else None for e in entries), k
         n_data += ("data",) in got[k]
+        n_model += ("model",) in got[k] and leaf not in sharding.EXPERTS
     assert (n_data > 0) == (tcfg.fsdp and shape[-2] > 1)
+    assert (n_model > 0) == tp
 
 
 class _Mesh:
