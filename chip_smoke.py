@@ -117,22 +117,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    rank's peak memory: ranks time-slicing one card, no multi-card speed.
 5g. [lm-mesh]: the LM on a (data, model) mesh of the same 4 gloo ranks on
    cuda:0. Each config runs first on one rank in this process (prefill
-   B 4 x 2048, max_len 4096, 8 decode steps on seeded tokens, and one step
+   B 4 x 2048, max_len 4096, 2 decode steps on seeded tokens, and one step
    from an empty cache; its logits saved, the rest freed): granite-3-2b
-   (bf16, on a 1x4 and a 2x2 mesh), granite-moe-1b-a400m (bf16, 32 experts
-   over 4 ranks), deepseek-v2-236b at full width (160 experts over 4 ranks,
+   (bf16, 40 layers, on a 1x4 and a 2x2 mesh), stablelm-12b (bf16,
+   12 of 40 layers, tensor parallel), granite-moe-1b-a400m (bf16, 12 of
+   24 layers, 32 experts over 4 ranks), deepseek-v2-236b at full width (160 experts over 4 ranks,
    the latent cache S-sharded; f32 at 2 and bf16 at 6 of its 60 layers)
    and zamba2-1.2b (f32 and bf16), all 1x4 but the 2x2; granite-3-2b at 4
    layers in f32 on a 2x1x2 (pod, data, model) mesh, its batch rows over
    pod and data. Every rank makes
    its own params (``init_params(mesh=)``, one rank at a time), steps once
    from an empty cache (every slice but the first rank's empty), prefills
-   with ``prefill(mesh=)`` and decodes 8 steps through ``Server(mesh=)``
+   with ``prefill(mesh=)`` and decodes 2 steps through ``Server(mesh=)``
    (eager); its logits against the one rank's at ``lm_mesh_bar`` (2e-4 in
-   f32; in bf16 3e-2 or 4x the one-rank run's response to a one-ulp move
-   of the embeddings, if larger; the rows past 3e-2 are printed); the
-   flash_decode kernel on its own slice of the cache against its plain
-   version (2e-4; an empty slice: m -1e30, finite acc and l).
+   f32, 3e-2 in bf16; in bf16 and for zamba2 in f32, ``F32_ULP_ARCHS``, 4x
+   the one-rank run's response to a one-ulp move of the embeddings, if
+   larger; the rows past 2e-4 or 3e-2 are printed);
+   the flash_decode kernel on its own slice of the cache against its plain
+   version (2e-4; an empty slice: m -1e30, finite acc and l), and
+   flash_attention at the q/k/v shapes each rank's prefill gave it (its
+   rows and heads: MLA 32 of 128 heads at (192, 128), zamba2 8 of 32).
    Launches are zeroed just before the prefill, the steps and the empty
    step and read just after each: flash_attention once a layer in the
    prefill, flash_decode once an attention layer a step on every rank
@@ -262,9 +266,12 @@ Phases, each printing its own lines; any failure exits non-zero:
       kept (row, key) pair), Dr's, dK/dV's and dQ's ms one by one from the
       profiler in a child process, and the launches a train step;
    d. [lm-train-mesh] on 4 gloo ranks sharing cuda:0 (``phase_lm_train_mesh``):
-      f32 steps held to one device (stablelm-12b on 4x1, granite-moe on
-      2x2 and on a 2x1x2 (pod, data, model) mesh), bf16 runs of
-      stablelm-12b and granite-moe.
+      f32 steps held to one device (stablelm-12b on 4x1 and 2x2,
+      granite-moe on 2x2 and on a 2x1x2 (pod, data, model) mesh,
+      deepseek-v2 (1 layer, 16 of 160 experts) and zamba2 (2 layers) on
+      2x2, tensor parallel), 2-step bf16 runs of stablelm-12b (2 of 40
+      layers), granite-moe (6 of 24) and zamba2 (6 of 38); rank 0 gathers each rank's block of
+      every leaf and holds it to the same block of one device's.
    Each phase's wall seconds follow it on a ``[phase]`` line.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -1901,13 +1908,18 @@ def phase_mesh() -> None:
                                        for r, rep in enumerate(reports)))
 
 
-LM_MESH_STEPS = 8  # decode steps after the B 4 x 2048 prefill in [lm-mesh]
+# Decode steps after the B 4 x 2048 prefill in [lm-mesh], and the cuts of
+# depth below: the mesh phases run gloo through a shared host, whose speed
+# varies 2-3x between machines. On H100s (700 W) this script took 1,181 s
+# of its 1,200 with 8 steps and every config at full depth, and 1,173 s
+# with 4 steps and 2-step bf16 train runs (an eager 40-layer step 4.9 s).
+LM_MESH_STEPS = 2
 # arch, layers kept (None: all), type, (data, model) or (pod, data, model) meshes
 LM_MESH_CONFIGS = (
     ("granite-3-2b", None, "bfloat16", ((1, MESH_RANKS), (2, MESH_RANKS // 2))),
-    ("granite-moe-1b-a400m", None, "bfloat16", ((1, MESH_RANKS),)),
-    # 23.3 GB of bf16 weights: tensor parallel, each rank holds about a quarter
-    ("stablelm-12b", None, "bfloat16", ((1, MESH_RANKS),)),
+    ("granite-moe-1b-a400m", 12, "bfloat16", ((1, MESH_RANKS),)),
+    # tensor parallel at full width, each rank holds about a quarter
+    ("stablelm-12b", 12, "bfloat16", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 2, "float32", ((1, MESH_RANKS),)),
     ("deepseek-v2-236b", 6, "bfloat16", ((1, MESH_RANKS),)),
     ("zamba2-1.2b", None, "float32", ((1, MESH_RANKS),)),
@@ -1951,20 +1963,21 @@ def _one_rank_logits(cfg, params: dict) -> tuple:
             torch.stack(outs)[..., :cfg.vocab].float().cpu())
 
 
-def lm_mesh_one_rank(name: str, cfg, out_dir: str) -> tuple:
+def lm_mesh_one_rank(name: str, cfg, out_dir: str, ulp: bool) -> tuple:
     """A config's run on one rank, in this process: prefill, then
     ``LM_MESH_STEPS`` decode steps on the seeded tokens, and one step from
-    an empty cache. In bfloat16 it runs again with every embedding element
-    moved one ulp (``_ulp_moved``): the largest change of the logits is the
-    run's response to one rounding at its input. Saves the logits (the real
-    vocabulary, float32) and the response to ``out_dir/<name>.npz`` and
-    frees the rest. Returns (seconds, response)."""
+    an empty cache. Where ``ulp`` (``lm_mesh_bar`` reads it) it runs again
+    with every embedding element moved one ulp of its type (``_ulp_moved``):
+    the largest change of the logits is the run's response to one rounding
+    at its input. Saves the logits (the real vocabulary, float32) and the
+    response to ``out_dir/<name>.npz`` and frees the rest. Returns (seconds,
+    response)."""
     from repro_torch.models import lm
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     empty, steps = _one_rank_logits(cfg, params)
     response = 0.0
-    if cfg.dtype == "bfloat16":
+    if ulp:
         moved = _one_rank_logits(cfg, _ulp_moved(params, seed=5))[1]
         response = float((moved - steps).abs().max())
     np.savez(Path(out_dir, f"{name}.npz"), steps=steps.numpy(), empty=empty.numpy(),
@@ -2023,16 +2036,34 @@ def _rank_flash_attention(shapes, dtype, rank: int) -> float:
     return err
 
 
-def lm_mesh_bar(dtype: str, response: float) -> float:
+# the float32 configs held to a one-ulp bar too (``lm_mesh_bar``,
+# ``_train_mesh_f32``): zamba2's Mamba-2 layers carry the other association
+# of the tensor-parallel sums through their states. On an H100 (700 W) its
+# 38-layer f32 logits on 1x4 were 3.03e-4 off one rank against 2e-4, with a
+# one-ulp response of 2.84e-4; its 2-layer f32 step on 2x2 updated
+# ``shared_attn/ln1`` 4.49e-4 of its largest update off one device's
+# against 2e-4 (AdamW's first step divides each gradient element by
+# |g| + eps), with a one-ulp response of 4.5e-4 (a bar of 1.8e-3).
+F32_ULP_ARCHS = ("zamba2-1.2b",)
+
+
+def ulp_bar(arch: str, dtype: str) -> bool:
+    """Whether a config's bars take its one-ulp response (bfloat16, and
+    ``F32_ULP_ARCHS`` in float32)."""
+    return dtype == "bfloat16" or arch in F32_ULP_ARCHS
+
+
+def lm_mesh_bar(arch: str, dtype: str, response: float) -> float:
     """The bar of a rank's logits against one rank's: the CPU tests' LM bar
-    (``testing.lm_tol``: 2e-4 in float32, 3e-2 in bfloat16); in bfloat16 at
-    least ``XLSTM_ULPS`` times the one-rank run's response to a one-ulp move
-    of the embeddings, as ``[lm-xlstm]`` holds depth that amplifies
-    rounding. The ranks sum the MoE's combine in another association than
-    one device (the reference's psum does too), and a top-6-of-160 router
-    can flip a near tie on one rounding."""
+    (``testing.lm_tol``: 2e-4 in float32, 3e-2 in bfloat16); where
+    ``ulp_bar`` at least ``XLSTM_ULPS`` times the one-rank run's response
+    to a one-ulp move of the embeddings, as ``[lm-xlstm]`` holds depth that
+    amplifies rounding. The ranks sum the MoE's combine and the
+    tensor-parallel products' partials in another association than one
+    device (the reference's psum does too), and a top-6-of-160 router can
+    flip a near tie on one rounding."""
     from repro_torch.testing import lm_tol
-    return max(lm_tol(dtype), XLSTM_ULPS * response if dtype == "bfloat16" else 0.0)
+    return max(lm_tol(dtype), XLSTM_ULPS * response if ulp_bar(arch, dtype) else 0.0)
 
 
 def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict:
@@ -2045,7 +2076,7 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     import torch.distributed as dist
     from repro_torch.launch import serve
     from repro_torch.models import lm, sharding
-    bar = lm_mesh_bar(cfg.dtype, float(want["response"]))
+    bar = lm_mesh_bar(arch, cfg.dtype, float(want["response"]))
     # the tensor-parallel families hand flash_attention shapes of their own
     tp = sharding.tensor_parallel(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2099,10 +2130,11 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     got, ref = torch.stack(got), torch.from_numpy(want["steps"])
     rows = (got - ref).abs().amax(-1)  # [1 + steps, B]
     worst = divmod(int(rows.argmax()), rows.shape[1])
-    over = int((rows > lm_mesh_bar(cfg.dtype, 0.0)).sum())
+    over = int((rows > lm_mesh_bar(arch, cfg.dtype, 0.0)).sum())
     err = kernel_vs_plain(got, ref, bar, f"[lm-mesh] rank {rank} {arch} {cfg.dtype} logits "
                           f"against one rank (worst at step {worst[0]}, row {worst[1]}; "
-                          f"{over} of {rows.numel()} rows past {lm_mesh_bar(cfg.dtype, 0.0):g})")
+                          f"{over} of {rows.numel()} rows past "
+                          f"{lm_mesh_bar(arch, cfg.dtype, 0.0):g})")
     rows = "k" if "k" in server.cache else "ckv"
     report = {
         "arch": arch, "mesh": list(mesh.mesh.shape), "rank": rank, "bar": bar,
@@ -2157,14 +2189,16 @@ def phase_lm_mesh() -> None:
     with tempfile.TemporaryDirectory() as out:
         for arch, layers, dtype, shapes in LM_MESH_CONFIGS:
             cfg = _lm_mesh_cfg(arch, layers, dtype)
-            secs, response = lm_mesh_one_rank(_lm_mesh_name(arch, layers, dtype), cfg, out)
+            ulp = ulp_bar(arch, dtype)
+            secs, response = lm_mesh_one_rank(_lm_mesh_name(arch, layers, dtype), cfg, out,
+                                              ulp)
             full = _family_cfg(arch)
             print(f"[lm-mesh] {arch} {dtype} full width, {cfg.n_layers} of {full.n_layers} "
                   f"layers ({cfg.param_count() / 1e9:.2f} B params): one rank, prefill "
                   f"B{FAMILY_BATCH} x {FAMILY_PROMPT} (max_len {FAMILY_MAX_LEN}), "
                   f"{LM_MESH_STEPS} steps and an empty-cache step, {secs:.1f} s"
                   + (f"; response to a one-ulp move of the embeddings {response:.3g}, bar "
-                     f"{lm_mesh_bar(dtype, response):.3g}" if dtype == "bfloat16" else "")
+                     f"{lm_mesh_bar(arch, dtype, response):.3g}" if ulp else "")
                   + "; meshes " + ", ".join(mesh_tag(sh) for sh in shapes))
         t0 = time.perf_counter()
         spawn_ranks(lm_mesh_rank, MESH_RANKS, args=(out,), device="cuda:0",
@@ -2203,7 +2237,7 @@ def phase_lm_mesh() -> None:
                   f"{json.dumps({k: v for k, v in fd.items() if v})}; logits vs one rank "
                   f"max|err|={rep['err']:.3g} (worst at step {rep['worst'][0]}, row "
                   f"{rep['worst'][1]}; {rep['over']} of {FAMILY_BATCH * (LM_MESH_STEPS + 1)} rows past "
-                  f"{lm_mesh_bar(dtype, 0.0):g}), empty-cache step {rep['empty_err']:.3g} (bar "
+                  f"{lm_mesh_bar(arch, dtype, 0.0):g}), empty-cache step {rep['empty_err']:.3g} (bar "
                   f"{rep['bar']:.3g}); {part}; "
                   + (f"flash_attention at the rank's shapes in the prefill (B, S, H, D) "
                      f"{fa_at}; " if fa_at else "")
@@ -3683,13 +3717,32 @@ TRAIN_MESH_F32 = (
     ("granite-moe-1b-a400m", 2, (2, MESH_RANKS // 2), 2, 128),  # 256 tokens: none drops
     # rows over pod and data, experts over model
     ("granite-moe-1b-a400m", 2, (2, 1, MESH_RANKS // 2), 2, 128),
+    # MLA's heads, its shared experts and 16 of its 160 experts over model 2,
+    # FSDP over data 2 (MLA_F32_EXPERTS: [lm-mla]'s f32 cut)
+    ("deepseek-v2-236b", 1, (2, MESH_RANKS // 2), 2, 128),
+    # the Mamba-2 channels and the shared block over model 2: 2 layers, the
+    # shared block after the last
+    ("zamba2-1.2b", 2, (2, MESH_RANKS // 2), 4, 128),
 )
 TRAIN_MESH_BF16 = (  # arch, layers kept, (data, model), B, S, microbatches, steps
-    ("stablelm-12b", 4, (MESH_RANKS, 1), 4, 2048, 1, 4),
-    ("stablelm-12b", 4, (2, MESH_RANKS // 2), 4, 2048, 1, 3),  # FSDP and TP
-    ("granite-moe-1b-a400m", 12, (2, MESH_RANKS // 2), 4, 2048, 2, 3),
+    # 2 steps each, the first against one device, the second after an update;
+    # cut in depth as LM_MESH_STEPS says why
+    ("stablelm-12b", 2, (MESH_RANKS, 1), 4, 2048, 1, 2),
+    ("stablelm-12b", 2, (2, MESH_RANKS // 2), 4, 2048, 1, 2),  # FSDP and TP
+    ("granite-moe-1b-a400m", 6, (2, MESH_RANKS // 2), 4, 2048, 2, 2),
+    ("zamba2-1.2b", 6, (2, MESH_RANKS // 2), 4, 2048, 1, 2),  # one shared application
 )
 TRAIN_MESH_BF16_TOL = 3e-2  # a bf16 rank's first loss against one device's
+
+
+def _train_mesh_cfg(arch: str, dtype: str, layers: int):
+    """A ``[lm-train-mesh]`` config: full width, ``layers`` deep;
+    deepseek-v2 in float32 with ``MLA_F32_EXPERTS`` of its experts."""
+    cfg = _family_cfg(arch, dtype, n_layers=layers)
+    if cfg.attn == "mla" and dtype == "float32":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               n_experts=MLA_F32_EXPERTS))
+    return cfg
 
 
 def _train_mesh_params(cfg, mesh, rank: int, ways: int) -> tuple:
@@ -3723,6 +3776,13 @@ def _rank_heads(cfg, mesh) -> tuple:
     return hq, hkv
 
 
+def _attn_dims(cfg) -> tuple:
+    """(D, Dv) of the model's prefill attention: MLA's (nope + rope, v),
+    else (hd, hd)."""
+    m = cfg.mla
+    return (m.nope_dim + m.rope_dim, m.v_dim) if cfg.attn == "mla" else (cfg.hd, cfg.hd)
+
+
 def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float,
                         mesh) -> float:
     """flash_attention's backward at this rank's shape of the layer's
@@ -3730,7 +3790,7 @@ def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float,
     backward; outside the counted window."""
     gen = torch.Generator(device="cuda").manual_seed(40 + rank)
     hq, hkv = _rank_heads(cfg, mesh)
-    inputs = _bwd_inputs(gen, b_loc, hq, hkv, s, s, cfg.hd, cfg.hd, dtype)
+    inputs = _bwd_inputs(gen, b_loc, hq, hkv, s, s, *_attn_dims(cfg), dtype)
     err, _ = bwd_vs_plain(inputs, True, tol,
                           f"[lm-train-mesh] rank {rank} {cfg.name} flash_attention backward")
     del inputs
@@ -3739,9 +3799,30 @@ def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float,
 
 def _want_launches(cfg, micro: int) -> dict:
     """flash_attention's forward and backward launches of one train step:
-    a layer's attention once a microbatch, its forward again under remat."""
+    a layer's attention once a microbatch, its forward again under remat
+    (the hybrid's shared block, outside the reference's scan, is not
+    rematerialized)."""
+    from repro_torch.models import lm
+    if cfg.kind == "hybrid":
+        per = lm._n_attn(cfg) * micro
+        return {"flash_attention": per, "flash_attention_bwd": per}
     per = cfg.n_layers * micro
     return {"flash_attention": per * (2 if cfg.remat else 1), "flash_attention_bwd": per}
+
+
+def _blocks_on_first(w, spec: tuple, rank: int):
+    """Every rank's block of a leaf under ``spec`` (the training placement)
+    on rank 0, as (rank, block) pairs (None on the others): each rank sends
+    a host copy of its block to rank 0 alone (a gloo ``gather``). A leaf
+    that ``spec`` leaves whole is rank 0's own."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding
+    if not sharding.spec_axes(spec):
+        return [(0, w)] if rank == 0 else None
+    blk = w.detach().cpu().contiguous()
+    blocks = [torch.empty_like(blk) for _ in range(dist.get_world_size())] if rank == 0 else None
+    dist.gather(blk, blocks, dst=0)
+    return list(enumerate(blocks)) if rank == 0 else None
 
 
 def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
@@ -3750,15 +3831,62 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
     ``TRAIN_LOSS_TOL``; the updated params, gathered a leaf at a time, at
     ``TRAIN_GRAD_TOL`` of the leaf's largest |update|, and AdamW's moments
     (which hold the gradient itself: mu = 0.1 g, nu = 0.001 g^2) at
-    ``TRAIN_GRAD_TOL`` of the leaf's largest |value|; the MoE's drops; this
-    rank's launches; the backward kernel at the rank's shape."""
+    ``TRAIN_GRAD_TOL`` of the leaf's largest |value|; for ``F32_ULP_ARCHS``
+    each bar at least ``XLSTM_ULPS`` times the one-device step's own
+    response to a one-ulp move of the embeddings (``_ulp_moved``), as
+    ``lm_mesh_bar`` holds their logits: AdamW's first step divides each
+    gradient element by |g| + eps, so an element near eps turns a rounding
+    of the gradient into a larger change of the update; the MoE's drops;
+    this rank's launches; the backward kernel at the rank's shape. Rank 0
+    takes the one-device steps first and keeps their results on the host,
+    so that the card never holds them beside the four ranks' mesh state
+    (deepseek-v2's did not fit beside it), and holds each rank's block of
+    a leaf to the same block of one device's (``sharding.block_view``)."""
     import torch.distributed as dist
     from repro_torch.models import layers as L, lm, sharding
     from repro_torch.train.optim import AdamW
-    cfg = _family_cfg(arch, "float32", n_layers=layers)
-    params, specs = _train_mesh_params(cfg, mesh, rank, ways)
+    cfg = _train_mesh_cfg(arch, "float32", layers)
     (batch,) = _train_batch(cfg, b, s)
     opt = AdamW(lr=1e-2, eps=1e-3)
+    ref = None
+    t0 = time.perf_counter()
+
+    def ratio(blocks, tree, name, spec=()) -> float:
+        """max|block - one device's block| over the (rank, block) pairs of a
+        leaf under ``spec``, over the whole leaf's largest update (params)
+        or |value| (moments); the host's copy comes to the card a leaf at a
+        time."""
+        want, scale = ref[tree][name].cuda(), ref["scale"][tree][name]
+        axes = sharding.spec_axes(spec)
+        err = max(float((part.to(want.device)
+                         - sharding.block_view(want, spec, mesh, axes, r)).abs().max())
+                  for r, part in blocks)
+        r = err / max(scale, 1e-30)
+        return r if np.isfinite(r) else float("inf")
+
+    if rank == 0:
+        one = lm.make_train_step(cfg, opt)
+        p0 = lm.init_params(cfg, seed=0, device="cuda")
+        p1, s1, m1 = one(p0, opt.init(p0), batch)
+        trees = {"params": flat_tree(p1), "mu": flat_tree(s1.mu), "nu": flat_tree(s1.nu)}
+        base = flat_tree(p0)
+        ref = {t: {k: v.cpu() for k, v in leaves.items()} for t, leaves in trees.items()}
+        ref.update(loss=float(m1["loss"]), scale={t: {
+            k: float(((v - base[k]) if t == "params" else v).abs().max())
+            for k, v in leaves.items()} for t, leaves in trees.items()})
+        del p1, s1, trees, base
+        ref["response"] = None
+        if arch in F32_ULP_ARCHS:
+            moved = _ulp_moved(p0, seed=5)
+            p1, s1, _ = one(moved, opt.init(moved), batch)
+            ref["response"] = {
+                tree: max(ratio([(0, v)], tree, k) for k, v in flat_tree(t).items())
+                for tree, t in (("params", p1), ("mu", s1.mu), ("nu", s1.nu))}
+            del moved, p1, s1
+        del p0
+        _free()
+    t_ref = time.perf_counter() - t0
+    params, specs = _train_mesh_params(cfg, mesh, rank, ways)
     step = lm.make_train_step(cfg, opt, mesh=mesh)
     state = opt.init(params)
     torch.cuda.synchronize()
@@ -3770,42 +3898,38 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
     n_drops = int(sum(int(d) for d in drops))
     report = {"arch": arch, "mesh": list(shape), "rank": rank, "loss": float(m["loss"]),
               "launches": launched, "want": _want_launches(cfg, 1), "drops": n_drops}
-    ref = None
-    if rank == 0:
-        p0 = lm.init_params(cfg, seed=0, device="cuda")
-        p1, s1, m1 = lm.make_train_step(cfg, opt)(p0, opt.init(p0), batch)
-        ref = {"params": (flat_tree(p1), flat_tree(p0)), "mu": (flat_tree(s1.mu), None),
-               "nu": (flat_tree(s1.nu), None)}
-        del p0, p1, s1
+    t_step = time.perf_counter() - t0 - t_ref
     flat_specs = flat_tree(specs)
     worst = {}
     for tree, mine in (("params", params), ("mu", state.mu), ("nu", state.nu)):
         worst[tree] = (0.0, "")
         for name, w in flat_tree(mine).items():
-            # every rank gathers the leaf; rank 0 holds it to one device's
-            whole = sharding.whole_leaf(w, flat_specs[name], mesh)
+            # rank 0 gathers every rank's block and holds it to one device's
+            blocks = _blocks_on_first(w, flat_specs[name], rank)
             if ref is not None:
-                want, base = ref[tree][0][name], ref[tree][1]
-                scale = float(((want - base[name]) if base is not None else want).abs().max())
-                ratio = float((whole - want).abs().max()) / max(scale, 1e-30)
-                ratio = ratio if np.isfinite(ratio) else float("inf")
-                worst[tree] = max(worst[tree], (ratio, name))
-            del whole
+                worst[tree] = max(worst[tree],
+                                  (ratio(blocks, tree, name, flat_specs[name]), name))
+            del blocks
+    one_device = None if ref is None else {
+        "loss": ref["loss"], "worst": worst, "response": ref["response"] is not None,
+        "bar": {t: max(TRAIN_GRAD_TOL, XLSTM_ULPS * (ref["response"] or {}).get(t, 0.0))
+                for t in worst}}
     del params, state, ref
     _free()
-    box = [{"loss": float(m1["loss"]), "worst": worst} if rank == 0 else None]
+    box = [one_device]
     dist.broadcast_object_list(box, src=0)
-    report.update(one_device=box[0])
-    for tree, (ratio, name) in box[0]["worst"].items():
-        if not ratio <= TRAIN_GRAD_TOL:
+    report.update(one_device=box[0], secs=[t_ref, t_step, time.perf_counter() - t0 - t_ref - t_step])
+    for tree, (err, name) in box[0]["worst"].items():
+        if not err <= box[0]["bar"][tree]:
             raise AssertionError(f"[lm-train-mesh] {arch} {shape}: {tree} leaf {name} max|err| "
-                                 f"is {ratio:.3g} of its largest "
-                                 f"{'update' if tree == 'params' else '|value|'}")
+                                 f"is {err:.3g} of its largest "
+                                 f"{'update' if tree == 'params' else '|value|'} (bar "
+                                 f"{box[0]['bar'][tree]:.3g})")
     kernel_vs_plain(torch.tensor(report["loss"]), torch.tensor(box[0]["loss"]),
                     TRAIN_LOSS_TOL, f"[lm-train-mesh] rank {rank} {arch} f32 loss")
     rows = sharding.batch_rows(mesh, b)
     b_loc = b if rows is None else rows.stop - rows.start
-    report["bwd"] = {"shape": [b_loc, *_rank_heads(cfg, mesh), s, cfg.hd],
+    report["bwd"] = {"shape": [b_loc, *_rank_heads(cfg, mesh), s, *_attn_dims(cfg)],
                      "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL,
                                                 mesh)}
     return report
@@ -3821,7 +3945,7 @@ def _train_mesh_bf16(arch, layers, shape, b, s, micro, steps, mesh, rank, ways) 
     state bytes beside the whole state's, its launches."""
     from repro_torch.models import lm
     from repro_torch.train.optim import AdamW
-    cfg = _family_cfg(arch, "bfloat16", n_layers=layers)
+    cfg = _train_mesh_cfg(arch, "bfloat16", layers)
     params, _ = _train_mesh_params(cfg, mesh, rank, ways)
     opt = AdamW(lr=3e-4)
     state = opt.init(params)
@@ -3846,7 +3970,7 @@ def _train_mesh_bf16(arch, layers, shape, b, s, micro, steps, mesh, rank, ways) 
               "state_bytes": local, "whole_state_bytes": whole * (2 + 4 + 4),
               "peak_bytes": torch.cuda.max_memory_allocated()}
     rows = b // micro // shape[0] if (b // micro) % shape[0] == 0 else b // micro
-    report["bwd"] = {"shape": [rows, *_rank_heads(cfg, mesh), s, cfg.hd],
+    report["bwd"] = {"shape": [rows, *_rank_heads(cfg, mesh), s, *_attn_dims(cfg)],
                      "err": _rank_attention_bwd(cfg, rows, s, rank, torch.bfloat16,
                                                 BF16_TOL, mesh)}
     del params, state, step, batches
@@ -3877,10 +4001,15 @@ def phase_lm_train_mesh(card: str) -> None:
     time-slicing cuda:0 (``train_mesh_rank``). (a) f32 at full width, cut
     in depth: stablelm-12b (FSDP over data 4; head dim 160, the backward's
     (160, 160) pair in two passes; and on 2 x 2, FSDP over data and tensor
-    parallel over model) and granite-moe (experts over model 2, no token
-    dropped), each rank against one device. (b) stablelm-12b in bf16 at
-    full width, B 4 x 2048, FSDP over 4 data ranks and on 2 x 2 (FSDP and
-    tensor parallel); (c) granite-moe in bf16 on 2 x 2. Each rank's
+    parallel over model), granite-moe (experts over model 2, no token
+    dropped), deepseek-v2 (1 layer with ``MLA_F32_EXPERTS`` of its 160
+    experts on 2 x 2: FSDP over data, MLA's heads, shared experts and
+    experts over model; the backward at MLA's (192, 128) pair) and zamba2 (2
+    layers on 2 x 2: the Mamba-2 channels and the shared block over
+    model), each rank against one device. (b) stablelm-12b in bf16 at full
+    width (2 of 40 layers), B 4 x 2048, FSDP over 4 data ranks and on 2 x 2
+    (FSDP and tensor parallel); (c) granite-moe (6 of 24 layers) and zamba2
+    (6 of 38) in bf16 on 2 x 2. Each rank's
     flash_attention forward and backward launches must match its layers
     and microbatches; each rank holds the backward kernel at its own shape
     (its rows and heads) against the plain backward. The one-device loss
@@ -3924,16 +4053,24 @@ def phase_lm_train_mesh(card: str) -> None:
                 raise AssertionError(f"[lm-train-mesh] {arch} rank {r}: launches {got}, want "
                                      f"{rep['want']}; {rep['drops']} tokens dropped")
             one = rep["one_device"]
-            print(f"[lm-train-mesh] {arch} f32 full width, {layers} layer(s), mesh "
+            cut = _train_mesh_cfg(arch, "float32", layers)
+            experts = (f" and {cut.moe.n_experts} of {_family_cfg(arch).moe.n_experts} experts"
+                       if cut.moe else "")
+            print(f"[lm-train-mesh] {arch} f32 full width, {layers} layer(s){experts}, mesh "
                   f"{mesh_tag(shape)} rank {r}, B{b} x S{s}, one step (AdamW lr 1e-2, eps "
                   f"1e-3): loss {rep['loss']:.6f} vs one device {one['loss']:.6f} (bar "
                   f"{TRAIN_LOSS_TOL:g}); gathered leaves, worst max|err| / the leaf's largest "
                   f"update (params) or |value| (moments): params "
-                  f"{one['worst']['params'][0]:.3g}, mu {one['worst']['mu'][0]:.3g}, nu "
-                  f"{one['worst']['nu'][0]:.3g} (bar {TRAIN_GRAD_TOL:g}); "
+                  f"{one['worst']['params'][0]:.3g} ({one['worst']['params'][1]}), mu "
+                  f"{one['worst']['mu'][0]:.3g}, nu {one['worst']['nu'][0]:.3g} (bars "
+                  f"{', '.join(f'{t} {b:.3g}' for t, b in one['bar'].items())}"
+                  + (f": {TRAIN_GRAD_TOL:g} or {XLSTM_ULPS}x the one-device step's one-ulp "
+                     f"response" if one["response"] else "") + "); "
                   f"{rep['drops']} tokens dropped; launches {json.dumps(got)}; flash_attention "
-                  f"backward at the rank's shape (B, Hq, Hkv, S, D) = {rep['bwd']['shape']} == "
-                  f"plain, max|err|={rep['bwd']['err']:.3g} (bar {ATTN_TOL:g}); {card}, {limit}")
+                  f"backward at the rank's shape (B, Hq, Hkv, S, D, Dv) = {rep['bwd']['shape']} == "
+                  f"plain, max|err|={rep['bwd']['err']:.3g} (bar {ATTN_TOL:g}); seconds: one "
+                  f"device's steps {rep['secs'][0]:.1f}, the mesh's params and step "
+                  f"{rep['secs'][1]:.1f}, the gathers {rep['secs'][2]:.1f}; {card}, {limit}")
     n_f32 = len(TRAIN_MESH_F32)
     for i, (arch, layers, shape, b, s, micro, steps) in enumerate(TRAIN_MESH_BF16):
         reps = [reports[r][n_f32 + i] for r in range(MESH_RANKS)]

@@ -223,13 +223,19 @@ def all_gather_rows(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tens
 
 def all_reduce_sum(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:
     """The sum of every rank's ``x`` (``jax.lax.psum``); a mask sums as
-    int32 and comes back as ``count > 0``."""
-    w = x.to(torch.int32) if x.dtype == torch.bool else x.clone(
-        memory_format=torch.contiguous_format)
+    int32 and comes back as ``count > 0``. A bfloat16 or float16 ``x`` sums
+    in float32 and is rounded once to its type, as XLA promotes such an
+    all-reduce (gloo's own sum rounds after every add: a third of the
+    elements of a 4-rank sum of normal bf16 values differ)."""
+    if x.dtype == torch.bool:
+        w = x.to(torch.int32)
+    else:
+        w = x.to(torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype,
+                 memory_format=torch.contiguous_format, copy=True)
     for a in _axes(axis):
         dist.all_reduce(w, op=dist.ReduceOp.SUM, group=_group(mesh, a))
         _count("all-reduce", a, w.numel() * w.element_size())
-    return w > 0 if x.dtype == torch.bool else w
+    return w > 0 if x.dtype == torch.bool else w.to(x.dtype)
 
 
 def all_reduce_max(x: torch.Tensor, mesh, axis: Axis = DATA_AXIS) -> torch.Tensor:

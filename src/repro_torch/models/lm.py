@@ -45,25 +45,28 @@ each leaf's gradient once.
 that all run the same program. Params and the cache are each rank's
 (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
 ``init_cache(mesh=)`` and ``prefill(mesh=)`` allocate the rank's block of
-the cache). The GQA decoders (``sharding.tensor_parallel``: granite-3-2b,
-granite-moe, stablelm-12b, nemotron-4-15b, deepseek-67b, qwen2-vl-72b) are
+the cache). The decoders and the hybrid (``sharding.tensor_parallel``) are
 tensor parallel over ``model``, as the reference's ``param_pspecs``
 placement is under GSPMD (``_tp``, with Megatron's pair
 ``core.mesh.copy_to`` before a column-split product and ``sum_over``
-after a row-split one): each rank computes q for its query heads and k
-and v of every KV head, attends its heads to the KV heads they read, and
-sums its rows of ``wo``'s output over ``model``; the dense FFN takes the
-rank's ``d_ff`` block; the embedding is a masked lookup in the rank's
-vocab block summed over ``model``; prefill and decode gather the logits
-over ``model``, training's CE is vocab-parallel. Their ``prefill``
+after a row-split one, whose bf16 partials sum in float32 as XLA's do):
+GQA computes q for the rank's query heads and k and v of every KV head,
+attends its heads to the KV heads they read, and sums its rows of ``wo``'s
+output over ``model``; MLA computes its latent ``ckv``, ``k_pe`` and q
+projection whole and q, k_nope and v of its heads; the Mamba-2 layers run
+the channels of the rank's SSM heads (``ssm.mamba2_forward(heads=)``);
+the dense FFN, MLA's shared experts and the hybrid's shared MLP take the
+rank's block of their width; the embedding is a masked lookup in the
+rank's vocab block summed over ``model``; prefill and decode gather the
+logits over ``model``, training's CE is vocab-parallel. Their ``prefill``
 runs the rank's rows of the batch. The MoE splits its experts over
 ``model`` (``layers.moe_block``) in ``forward``, ``prefill`` and the decode
 step; the decode step attends over a cache whose slots are split over
 ``model`` and rows over the batch axes (``layers.sharded_decode_attention``
 for GQA and the hybrid's shared block, ``mla_latent_attention`` for MLA),
-the GQA decoders' q gathered whole over ``model`` for it. MLA, the hybrid's
-shared block and everything else the other families run stay whole and
-computed on every rank; the encoder-decoder and xLSTM decode on one
+q (MLA's ``q_c`` and ``q_pe``) gathered whole over ``model`` for it; the
+hybrid's Mamba-2 layers step the rank's rows of their states. xLSTM and
+the encoder-decoder compute everything on every rank and decode on one
 device, as in the reference.
 
 Training on a mesh (``loss_fn``, ``value_and_grad`` and ``make_train_step``
@@ -71,11 +74,12 @@ with ``mesh=``) runs data-parallel over the batch axes (``data``, or
 ``pod`` and ``data`` on a (pod, data, model) mesh) on each rank's rows of
 the batch, gathers FSDP weights over ``data`` at their use
 (``_gather_fsdp``, keeping a tensor-parallel leaf's ``model`` block),
-runs the GQA decoders tensor parallel and splits the experts over
-``model``; the collectives carry the gradients
+runs the decoders and the hybrid tensor parallel and splits the experts
+over ``model``; the collectives carry the gradients
 (``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``), and the partial
-gradients are summed once a step (``_sum_partial_grads``: ``wk`` and ``wv``
-over ``model`` too). Params and moments are the rank's training placement
+gradients are summed once a step (``_sum_partial_grads``: over ``model``
+too the whole leaves whose consumers split, ``sharding.partial_leaves``).
+Params and moments are the rank's training placement
 (``sharding.train_specs``).
 """
 from __future__ import annotations
@@ -306,16 +310,20 @@ def _remat(cfg: ModelConfig, fn, *args):
 
 class _TP(NamedTuple):
     """Tensor parallelism over ``model`` (``sharding.model_leaves``): this
-    rank's ``rank`` of ``ways`` on ``mesh``; ``heads``: ``wq``'s columns and
-    ``wo``'s rows are the rank's query heads; ``ffn``: ``w_gate``, ``w_in``
-    and ``w_out`` its block of ``d_ff``; ``vocab``: ``embed`` its block of
-    rows."""
+    rank's ``rank`` of ``ways`` on ``mesh``; ``heads``: the attention's
+    head-split leaves are the rank's query heads (``wq``'s or MLA's
+    ``wq_b``'s and ``wkv_b``'s columns, ``wo``'s rows); ``ffn``: the dense
+    FFN's ``w_gate``, ``w_in`` and ``w_out`` (MLA's shared experts, the
+    hybrid's shared MLP) its block of ``d_ff``; ``vocab``: ``embed`` its
+    block of rows; ``ssm``: the Mamba-2 layers' ``w_in``, ``w_z``,
+    ``conv_w`` and ``w_out`` its block of channels (its SSM heads)."""
     mesh: Any
     ways: int
     rank: int
     heads: bool
     ffn: bool
     vocab: bool
+    ssm: bool = False
 
 
 def _tp(cfg: ModelConfig, mesh):
@@ -327,10 +335,18 @@ def _tp(cfg: ModelConfig, mesh):
     ways = sharding.axis_size(mesh, "model")
     if ways == 1:
         return None
-    specs = sharding.serve_specs(cfg, param_shapes(cfg), mesh)
-    split = {k: ("model",) in sp for k, sp in specs["blocks"].items()}
-    return _TP(mesh, ways, mesh_util.rank_of(mesh, "model"), split["wq"],
-               split.get("w_in", False), ("model",) in specs["embed"])
+    keep = sharding.model_leaves(cfg, mesh)
+    heads = sharding.heads_split(cfg, mesh)
+    other = sharding.tp_leaves(cfg)[1]
+    return _TP(mesh, ways, mesh_util.rank_of(mesh, "model"), heads,
+               any(k in keep for k in other if k != "embed"), "embed" in keep,
+               heads and cfg.kind == "hybrid")
+
+
+def _heads(tp) -> Any:
+    """``tp`` where the attention's heads split over ``model``, else None:
+    what ``_block`` takes for a head-split leaf."""
+    return tp if tp is not None and tp.heads else None
 
 
 def _block(w: torch.Tensor, dim: int, whole: int, tp, name: str) -> torch.Tensor:
@@ -431,7 +447,7 @@ def _attn_prefill(x, blk, cfg: ModelConfig, positions, pos3, causal=True, tp=Non
     b, s, _ = x.shape
     hd = cfg.hd
     hq, kv0, nkv = _local_kv(cfg, tp)
-    heads = tp if tp is not None and tp.heads else None
+    heads = _heads(tp)
     if heads:
         x = mesh_util.copy_to(x, tp.mesh, "model")
     q = (x @ _block(blk["wq"], -1, cfg.n_heads * hd, heads, "wq")).view(b, s, hq, hd)
@@ -443,28 +459,41 @@ def _attn_prefill(x, blk, cfg: ModelConfig, positions, pos3, causal=True, tp=Non
     return (o if not heads else mesh_util.sum_over(o, tp.mesh, "model")), (k, v)
 
 
-def _mla_prefill(x, blk, cfg: ModelConfig, positions):
+def _mla_prefill(x, blk, cfg: ModelConfig, positions, tp=None):
     """MLA self-attention over x (``repro.models.lm._mla_prefill``): the
     decompressed K and V of all heads, the rotary part of K shared by the
     heads (broadcast and concatenated, as the reference does), through
     flash_attention at (D, Dv) = (nope + rope, v). Returns its output and
-    the cache's rows (the normed latent ``ckv`` and the rotated ``kpe``)."""
+    the cache's rows (the normed latent ``ckv`` and the rotated ``kpe``).
+    With the heads split over ``model`` (``tp.heads``) the rank computes q
+    of its heads from its columns of ``wq_b`` (the latent ``wq_a`` and
+    ``q_ln`` whole), k_nope and v of its heads from its columns of
+    ``wkv_b`` (the latent ``ckv`` and ``k_pe`` whole, as the cache keeps
+    them), attends its heads, applies its rows of ``wo`` and sums the
+    partial outputs over ``model``."""
     m = cfg.mla
     b, s, _ = x.shape
+    heads = _heads(tp)
     H = cfg.n_heads
-    q = (L.rms_norm(x @ blk["wq_a"], blk["q_ln"]) @ blk["wq_b"]).view(
-        b, s, H, m.nope_dim + m.rope_dim)
+    hq = H // (heads.ways if heads else 1)
+    if heads:
+        x = mesh_util.copy_to(x, tp.mesh, "model")
+    qk = m.nope_dim + m.rope_dim
+    q = (L.rms_norm(x @ blk["wq_a"], blk["q_ln"])
+         @ _block(blk["wq_b"], -1, H * qk, heads, "wq_b")).view(b, s, hq, qk)
     q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
     kv = x @ blk["wkv_a"]
     ckv = L.rms_norm(kv[..., :m.kv_lora], blk["kv_ln"])
     k_pe = kv[..., m.kv_lora:].reshape(b, s, 1, m.rope_dim)
     q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
     k_pe = L.apply_rope(k_pe, positions, cfg.rope_theta)
-    kvb = (ckv @ blk["wkv_b"]).view(b, s, H, m.nope_dim + m.v_dim)
+    kvb = (ckv @ _block(blk["wkv_b"], -1, H * (m.nope_dim + m.v_dim), heads, "wkv_b")).view(
+        b, s, hq, m.nope_dim + m.v_dim)
     k_nope, v = kvb[..., :m.nope_dim], kvb[..., m.nope_dim:]
-    k = torch.cat([k_nope, k_pe.expand(b, s, H, m.rope_dim)], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(b, s, hq, m.rope_dim)], dim=-1)
     qq = torch.cat([q_nope, q_pe], dim=-1)
-    return _attend(qq, k, v, causal=True) @ blk["wo"], (ckv, k_pe[:, :, 0])
+    o = _attend(qq, k, v, causal=True) @ _block(blk["wo"], -2, H * m.v_dim, heads, "wo")
+    return (o if not heads else mesh_util.sum_over(o, tp.mesh, "model")), (ckv, k_pe[:, :, 0])
 
 
 def _cross_attn(x, xblk, cfg: ModelConfig, enc_h):
@@ -527,24 +556,35 @@ def _use(train, tree, cfg: ModelConfig, group: str = ""):
     return tree if train is None else train.use(tree, cfg, group)
 
 
+def _mlp(x, blk, names: Tuple[str, str, str], width: int, act: str, tp=None):
+    """``layers.mlp`` of x through ``blk``'s leaves ``names`` (gate, in,
+    out) of hidden ``width``; where ``tp.ffn`` the rank's columns of the
+    gate and in leaves and its rows of the out leaf, the partial outputs
+    summed over ``model``."""
+    gate, w_in, w_out = (blk.get(n) for n in names)
+    if tp is None or not tp.ffn:
+        return L.mlp(x, gate, w_in, w_out, act)
+    x = mesh_util.copy_to(x, tp.mesh, "model")
+    cols = [None if w is None else _block(w, -1, width, tp, n)
+            for n, w in zip(names[:2], (gate, w_in))]
+    y = L.mlp(x, *cols, _block(w_out, -2, width, tp, names[2]), act)
+    return mesh_util.sum_over(y, tp.mesh, "model")
+
+
 def _ffn(x, blk, cfg: ModelConfig, mesh=None, local_rows: bool = False, tp=None):
-    """The dense FFN (its ``d_ff`` split over ``model`` where ``tp.ffn``:
-    the rank's columns of ``w_gate`` and ``w_in``, its rows of ``w_out``,
-    the partial outputs summed over ``model``) or the MoE (expert-parallel
-    on ``mesh``; ``local_rows``: x is the rank's rows already)."""
+    """The dense FFN (its ``d_ff`` split over ``model`` where ``tp.ffn``,
+    ``_mlp``) or the MoE (expert-parallel on ``mesh``; ``local_rows``: x is
+    the rank's rows already) plus its shared experts (split as the dense
+    FFN, beside the experts' own split)."""
     if cfg.moe is None:
-        if tp is None or not tp.ffn:
-            return L.mlp(x, blk.get("w_gate"), blk["w_in"], blk["w_out"], cfg.act)
-        x = mesh_util.copy_to(x, tp.mesh, "model")
-        cols = [None if w is None else _block(w, -1, cfg.d_ff, tp, n)
-                for n, w in (("w_gate", blk.get("w_gate")), ("w_in", blk["w_in"]))]
-        y = L.mlp(x, *cols, _block(blk["w_out"], -2, cfg.d_ff, tp, "w_out"), cfg.act)
-        return mesh_util.sum_over(y, tp.mesh, "model")
+        return _mlp(x, blk, ("w_gate", "w_in", "w_out"), cfg.d_ff, cfg.act, tp)
     flat = x.reshape(-1, x.shape[-1])
     y = L.moe_block(flat, blk["router"], blk.get("e_gate"), blk["e_in"],
                     blk["e_out"], cfg, mesh=mesh, local_rows=local_rows)
-    if cfg.moe.n_shared:
-        y = y + L.mlp(flat, blk.get("sh_gate"), blk["sh_in"], blk["sh_out"], cfg.act)
+    mo = cfg.moe
+    if mo.n_shared:
+        y = y + _mlp(flat, blk, ("sh_gate", "sh_in", "sh_out"), mo.n_shared * mo.d_shared,
+                     cfg.act, tp)
     return y.reshape(x.shape)
 
 
@@ -587,7 +627,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
         xblk = xblk if xblk is None else _use(train, xblk, cfg, "cross")
         h = L.rms_norm(x, blk["ln1"])
         if cfg.attn == "mla":
-            a, rows = _mla_prefill(h, blk, cfg, positions)
+            a, rows = _mla_prefill(h, blk, cfg, positions, tp)
         else:
             a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal, tp)
         if xblk is not None:
@@ -606,29 +646,60 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
     return x
 
 
-def _shared_block(x, sh, cfg: ModelConfig, positions):
+def _shared_block(x, sh, cfg: ModelConfig, positions, tp=None):
     """The hybrid's shared attention + SwiGLU block over x: (the block's
-    input plus its attention, the MLP's output, the rotated (k, v))."""
-    a, kv = _attn_prefill(L.rms_norm(x, sh["ln1"]), sh, cfg, positions, None)
+    input plus its attention, the MLP's output, the rotated (k, v)); tensor
+    parallel as a GQA decoder's layer (``tp``)."""
+    a, kv = _attn_prefill(L.rms_norm(x, sh["ln1"]), sh, cfg, positions, None, tp=tp)
     x, h = L.add_rms_norm(x, a, sh["ln2"])
-    return x, L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu"), kv
+    return x, _mlp(h, sh, ("w_gate", "w_in", "w_out"), cfg.d_ff, "swiglu", tp), kv
 
 
-def _hybrid(x, params, cfg: ModelConfig, positions, cache=None, train=None):
+def _mamba(h, blk, cfg: ModelConfig, tp=None, state=None, decode: bool = False,
+           mesh=None, rows=None):
+    """One Mamba-2 layer over the normed h (``ssm.mamba2_forward``). Where
+    its leaves split over ``model`` (``tp.ssm``) the rank runs the channels
+    of its SSM heads on h copied to ``model`` (``core.mesh.copy_to``), and
+    the partial outputs of its rows of ``w_out`` are summed over ``model``.
+    ``rows``: the rank's rows of h over the batch axes of ``mesh`` (a decode
+    step whose states are the rank's rows), the output gathered back whole.
+    Returns (out, (conv state, SSM state))."""
+    if rows is not None:
+        h = h[rows]
+    heads = None
+    if tp is not None and tp.ssm:
+        h = mesh_util.copy_to(h, tp.mesh, "model")
+        n = cfg.n_heads // tp.ways
+        heads = slice(tp.rank * n, (tp.rank + 1) * n)
+    out, st = ssm.mamba2_forward(h, blk, cfg, state=state, decode=decode, heads=heads)
+    if heads is not None:
+        out = mesh_util.sum_over(out, tp.mesh, "model")
+    return L.gather_batch(out, rows, mesh), st
+
+
+def _hybrid(x, params, cfg: ModelConfig, positions, cache=None, train=None, mesh=None,
+            cache_start: int = 0):
     """Mamba-2 layers, the shared block after every ``attn_every`` of them
     and after the last; returns (x, the last residual term) for the final
     norm. With ``cache``: each layer's conv and SSM states, each shared
-    application's K and V in its first S slots. In training each Mamba-2
-    layer is rematerialized, as the reference's scan body; the shared block
-    is not (the reference's sits outside the scan)."""
+    application's K and V in the slots that the prompt fills (the cache's
+    first slot is ``cache_start`` of the whole cache). On ``mesh`` (or
+    ``train``'s) the Mamba-2 layers and the shared block are tensor
+    parallel over ``model`` (``_tp``), x and the cache the rank's rows. In
+    training each Mamba-2 layer is rematerialized, as the reference's scan
+    body; the shared block is not (the reference's sits outside the
+    scan)."""
+    if train is not None:
+        mesh = train.mesh
+    tp = _tp(cfg, mesh)
     mp, sh = params["mamba"], params["shared_attn"]
-    layers, s = _layers(mp), x.shape[1]
+    layers = _layers(mp)
     n = len(layers)
     last = torch.zeros_like(x)
 
     def mamba(x, blk):
         blk = _use(train, blk, cfg, "mamba")
-        return ssm.mamba2_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+        return _mamba(L.rms_norm(x, blk["ln"]), blk, cfg, tp)
 
     for i, blk in enumerate(layers):
         x = x + last
@@ -638,10 +709,10 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None, train=None):
             cache["ssm"][i] = ssm_s
         if (i + 1) % cfg.attn_every == 0 or i + 1 == n:
             x, last, (k, v) = _shared_block(x + last, _use(train, sh, cfg, "shared_attn"),
-                                            cfg, positions)
+                                            cfg, positions, tp)
             if cache is not None:
-                cache["k"][i // cfg.attn_every, :, :s] = k
-                cache["v"][i // cfg.attn_every, :, :s] = v
+                _write_prompt(cache["k"][i // cfg.attn_every], k, cache_start)
+                _write_prompt(cache["v"][i // cfg.attn_every], v, cache_start)
     return x, last
 
 
@@ -709,7 +780,7 @@ def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=
     """The layers of any family over the embedded tokens x; returns (x,
     the last residual term or None) for ``_final_norm``."""
     if cfg.kind == "hybrid":
-        return _hybrid(x, params, cfg, positions, cache, train)
+        return _hybrid(x, params, cfg, positions, cache, train, mesh, cache_start)
     if cfg.kind == "xlstm":
         return _xlstm(x, params, cfg, cache, train)
     x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
@@ -866,36 +937,30 @@ def _leaf_grads(params, loss_of):
         [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)], spec)
 
 
-def _names(tree):
-    """``tree`` with each leaf replaced by its key."""
-    return {k: _names(v) if isinstance(v, dict) else k for k, v in tree.items()}
-
-
 def _sum_partial_grads(grads, cfg: ModelConfig, train: _Train):
     """A pass's gradients completed: each leaf's partial gradient summed
     over the axes whose ranks each computed a part of it (one all-reduce a
     dtype and set of axes, the leaves packed flat). Split over the batch
     axes: a leaf held whole over ``pod`` and ``data`` over both, an FSDP
     block over ``pod`` only (its gather's reduce-scatter summed it over
-    ``data``). With the heads split over ``model`` (``_tp``): ``wk`` and
-    ``wv`` over ``model`` too, since each rank reads only the KV heads of
-    its query heads; a leaf split over ``model`` holds its block's whole
-    gradient, and a leaf that every rank computes alike is whole."""
-    tp = _tp(cfg, train.mesh)
-    partial_kv = tp is not None and tp.heads
-    if not (train.split or partial_kv):
+    ``data``). Tensor parallel (``_tp``): the leaves of
+    ``sharding.partial_leaves`` over ``model`` too; a leaf split over ``model``
+    holds its block's whole gradient, and a leaf that every rank computes
+    alike is whole."""
+    partial = sharding.partial_leaves(cfg, train.mesh)
+    if not (train.split or partial):
         return grads
     leaves, spec = tree_flatten(grads)
     specs = tree_flatten(sharding._zip_map(lambda g, sp: sp, grads, train.specs),
                          is_leaf=lambda x: isinstance(x, tuple))[0]
-    names = tree_flatten(_names(grads))[0]
+    paths = tree_flatten(sharding._walk(lambda path, g: path, grads))[0]
     batch = sharding.batch_axes(train.mesh)
     out = list(leaves)
     groups: Dict[Any, list] = {}
-    for i, (g, sp, name) in enumerate(zip(leaves, specs, names)):
+    for i, (g, sp, path) in enumerate(zip(leaves, specs, paths)):
         axes = (tuple(a for a in batch if a not in sharding.spec_axes(sp))
                 if train.split else ())
-        if partial_kv and name in ("wk", "wv"):
+        if path in partial:
             axes += ("model",)
         if axes:
             groups.setdefault((str(g.dtype), axes), []).append(i)
@@ -1006,7 +1071,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     reference's server leaves it). With ``mesh=`` it is this rank's block,
     allocated as such (``sharding.serve_cache_specs``: K/V or MLA's rows
     over the batch axes where ``batch_spec`` shards them and by slot over
-    ``model``; raises where the slots do not divide over ``model``, as
+    ``model``, the hybrid's ``conv`` and ``ssm`` states over the batch axes
+    and by channel and head over ``model`` where its Mamba-2 layers split;
+    raises where the slots do not divide over ``model``, as
     ``sharding.shard_cache`` does), never the whole cache."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -1122,7 +1189,7 @@ def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
     rank's heads of its output through its rows of ``wo``, summed over
     ``model``; k and v of every KV head from the whole ``wk`` and ``wv``."""
     b, hd = h.shape[0], cfg.hd
-    heads = tp if tp is not None and tp.heads else None
+    heads = _heads(tp)
     hq = cfg.n_heads // (heads.ways if heads else 1)
     q = (h @ _block(blk["wq"], -1, cfg.n_heads * hd, heads, "wq")).view(b, 1, hq, hd)
     k = (h @ blk["wk"]).view(b, 1, cfg.n_kv_heads, hd)
@@ -1140,15 +1207,23 @@ def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
 
 
 def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions,
-                     mesh=None):
+                     mesh=None, tp=None):
     """One token's MLA (``repro.models.lm._mla_decode``): its latent and
     rotary key rows written at ``slot`` in place, then the absorbed
     attention: q_nope through ``w_uk`` into the latent space, attention over
-    the latent cache, back through ``w_uv``, all in float32."""
+    the latent cache, back through ``w_uv``, all in float32. With the heads
+    split over ``model`` (``tp.heads``): q of the rank's heads through its
+    block of ``w_uk``, ``q_c`` and ``q_pe`` all-gathered over ``model`` to
+    the whole ones that the slot-sharded attention takes, then the rank's
+    heads of its output through its ``w_uv`` and its rows of ``wo``, summed
+    over ``model``."""
     m = cfg.mla
     b, H = h.shape[0], cfg.n_heads
-    q = (L.rms_norm_of_product(h, blk["wq_a"], blk["q_ln"]) @ blk["wq_b"]).view(
-        b, H, m.nope_dim + m.rope_dim)
+    heads = _heads(tp)
+    hq = H // (heads.ways if heads else 1)
+    qk = m.nope_dim + m.rope_dim
+    q = (L.rms_norm_of_product(h, blk["wq_a"], blk["q_ln"])
+         @ _block(blk["wq_b"], -1, H * qk, heads, "wq_b")).view(b, hq, qk)
     q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
     q_pe = L.apply_rope(q_pe[:, None], positions, cfg.rope_theta)[:, 0]
     kv = h @ blk["wkv_a"]
@@ -1157,13 +1232,19 @@ def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positi
                        cfg.rope_theta)[:, 0, 0]
     _write_row(ckv_c, ckv[:, None], slot)
     _write_row(kpe_c, kpe[:, None], slot)
-    wkv_b = blk["wkv_b"].view(m.kv_lora, H, m.nope_dim + m.v_dim)
+    wkv_b = _block(blk["wkv_b"], -1, H * (m.nope_dim + m.v_dim), heads, "wkv_b").view(
+        m.kv_lora, hq, m.nope_dim + m.v_dim)
     w_uk, w_uv = wkv_b[..., :m.nope_dim], wkv_b[..., m.nope_dim:]
     q_c = torch.einsum("bhn,khn->bhk", q_nope.float(), w_uk.float())
-    ctx = mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid,
-                               (m.nope_dim + m.rope_dim) ** -0.5, mesh)
+    if heads:
+        q_c, q_pe = (mesh_util.all_gather_rows(t.movedim(1, 0), tp.mesh, "model").movedim(0, 1)
+                     for t in (q_c, q_pe))
+    ctx = mla_latent_attention(q_c, q_pe, ckv_c, kpe_c, valid, qk ** -0.5, mesh)
+    if heads:
+        ctx = ctx[:, tp.rank * hq:(tp.rank + 1) * hq]
     o = torch.einsum("bhk,khv->bhv", ctx, w_uv.float())
-    return o.reshape(b, H * m.v_dim).to(h.dtype) @ blk["wo"]
+    o = o.reshape(b, hq * m.v_dim).to(h.dtype) @ _block(blk["wo"], -2, H * m.v_dim, heads, "wo")
+    return mesh_util.sum_over(o, tp.mesh, "model") if heads else o
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None):
@@ -1181,9 +1262,10 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
 
     On ``mesh`` (GQA and MLA decoders, the hybrid) ``params`` and ``cache``
     are this rank's (``models.sharding``): the row goes to the rank that
-    holds the slot, attention runs over each rank's slots and merges, and
-    the MoE splits its experts. The encoder-decoder and xLSTM ignore
-    ``mesh``, as the reference's do."""
+    holds the slot, attention runs over each rank's slots and merges, the
+    layers are tensor parallel (``_tp``), the hybrid's Mamba-2 layers step
+    the rank's rows of their states, and the MoE splits its experts. The
+    encoder-decoder and xLSTM ignore ``mesh``, as the reference's do."""
     check_supported(cfg)
     hd = cfg.hd
     mesh = mesh if sharding.sharded_cache(cfg) else None
@@ -1198,7 +1280,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
             h = L.rms_norm(x, blk["ln1"])
             if cfg.attn == "mla":
                 a = _mla_decode_attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid,
-                                     positions, mesh)
+                                     positions, mesh, tp)
             else:
                 a = _gqa_decode_attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid,
                                      positions, mesh, tp)
@@ -1220,11 +1302,13 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         layers = _layers(mp)
         n = len(layers)
         last = torch.zeros_like(x)
+        # the conv and SSM states are the rank's rows over the batch axes
+        rows = None if mesh is None else sharding.batch_rows(mesh, x.shape[0])
         for i, blk in enumerate(layers):
             x = x + last
-            out, (conv_s, ssm_s) = ssm.mamba2_forward(
-                L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
-                state=(cache["conv"][i], cache["ssm"][i]), decode=True)
+            out, (conv_s, ssm_s) = _mamba(
+                L.rms_norm(x, blk["ln"])[:, None], blk, cfg, tp,
+                state=(cache["conv"][i], cache["ssm"][i]), decode=True, mesh=mesh, rows=rows)
             cache["conv"][i].copy_(conv_s)
             cache["ssm"][i].copy_(ssm_s)
             last = out[:, 0]
@@ -1232,9 +1316,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
                 ai = i // cfg.attn_every
                 x = x + last
                 a = _gqa_decode_attn(L.rms_norm(x, sh["ln1"]), sh, cfg, cache["k"][ai],
-                                     cache["v"][ai], slot, valid, positions, mesh)
+                                     cache["v"][ai], slot, valid, positions, mesh, tp)
                 x, h = L.add_rms_norm(x, a, sh["ln2"])
-                last = L.mlp(h, sh["w_gate"], sh["w_in"], sh["w_out"], "swiglu")
+                last = _mlp(h, sh, ("w_gate", "w_in", "w_out"), cfg.d_ff, "swiglu", tp)
         return x, last
 
     def xlstm(x, params, cache):
@@ -1300,16 +1384,16 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
     encoder-decoder also the encoder's memory of ``enc_embeds``).
 
     On ``mesh`` ``params`` are this rank's (``sharding.serve_specs``) and the
-    cache returned is this rank's block. The GQA decoders
+    cache returned is this rank's block. The decoders and the hybrid
     (``sharding.tensor_parallel``) run the rank's rows of the batch where
     ``batch_spec`` shards it (the MoE splits them no further), tensor
     parallel over ``model`` (``_tp``), into a cache allocated as the rank's
     block (``init_cache(mesh=)``: its rows, its slots over ``model``, the
-    prompt's rows that fall into those slots), and gather the last token's
-    logits over ``model`` and the batch axes: every rank returns the whole
-    [B, V]. The other families run the whole batch (the MoE splits its
-    experts and tokens) and cut the rank's block of the cache at the end
-    (``sharding.shard_cache``)."""
+    prompt's rows that fall into those slots; the hybrid's states of its
+    rows and heads), and gather the last token's logits over ``model`` and
+    the batch axes: every rank returns the whole [B, V]. xLSTM and the
+    encoder-decoder run the whole batch and keep their cache whole
+    (``sharding.shard_cache`` leaves it)."""
     check_supported(cfg)
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=emb.device)
@@ -1333,8 +1417,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
 
 
 def _prefill_mesh(params, cfg: ModelConfig, tokens, max_len: int, pos3, mesh):
-    """``prefill`` of a GQA decoder on ``mesh``: this rank's rows, its block
-    of the cache, the logits gathered whole."""
+    """``prefill`` of a ``tensor_parallel`` family (the decoders, the
+    hybrid) on ``mesh``: this rank's rows, its block of the cache, the
+    logits gathered whole."""
     b, s = tokens.shape
     rows = sharding.batch_rows(mesh, b)
     if rows is not None:
@@ -1343,9 +1428,11 @@ def _prefill_mesh(params, cfg: ModelConfig, tokens, max_len: int, pos3, mesh):
     tp = _tp(cfg, mesh)
     x = _embed(params, cfg, tokens, tp)
     cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh)
-    start = mesh_util.rank_of(mesh, "model") * cache["k"].shape[2]
-    x, _ = _body(params, cfg, x, _positions(x.shape[0], s, x.device), pos3, None, cache,
-                 mesh, local_rows=rows is not None, cache_start=start)
+    start = mesh_util.rank_of(mesh, "model") * cache[_cache_rows(cfg)[0]].shape[2]
+    x, last = _body(params, cfg, x, _positions(x.shape[0], s, x.device), pos3, None, cache,
+                    mesh, local_rows=rows is not None, cache_start=start)
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    if last is not None:
+        x = x + last
     logits = _logits(params, _final_norm(params, x[:, -1]), tp)
     return L.gather_batch(logits, rows, mesh), cache

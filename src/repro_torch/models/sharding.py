@@ -15,30 +15,46 @@ by its weight's placement. Here every rank of the mesh runs the same
 program (multi-controller), so placement is explicit and covers what the
 sharded bodies consume, nothing more (``model_leaves``):
 
-* the six GQA decoders (``tensor_parallel``: ``kind`` dense or moe with
-  ``attn`` gqa or mrope) take ``param_pspecs``'s ``model`` entries on
-  ``wq``, ``w_gate`` and ``w_in`` (columns), ``wo`` and ``w_out`` (rows)
-  and ``embed`` (vocab rows), and ``models.lm`` computes them tensor
-  parallel (Megatron's pair, ``core.mesh.copy_to`` before a column-split
-  product and ``sum_over`` after a row-split one); ``wk``, ``wv``, the
-  router and the norms stay whole, as in the reference. One difference
-  from the reference: where the query heads do not divide over ``model``
-  (``n_heads % model != 0``), ``wq`` and ``wo`` stay whole over ``model``
-  and the attention runs whole on every rank; the reference's ``_fit``
-  would cut their columns mid-head wherever ``n_heads * hd`` divides;
+* the decoders and the hybrid (``tensor_parallel``; ``tp_leaves`` names
+  the leaves as ``group/leaf`` paths) take ``param_pspecs``'s ``model``
+  entries, and ``models.lm`` computes them tensor parallel (Megatron's
+  pair, ``core.mesh.copy_to`` before a column-split product and
+  ``sum_over`` after a row-split one):
+  - GQA and M-RoPE: ``wq`` (columns) and ``wo`` (rows) by query head;
+    ``w_gate`` and ``w_in`` (columns), ``w_out`` (rows);
+  - MLA: ``wq_b`` and ``wkv_b`` (columns) and ``wo`` (rows) by head; the
+    shared experts ``sh_gate`` and ``sh_in`` (columns), ``sh_out`` (rows);
+  - the hybrid: the Mamba-2 layers' ``w_in``, ``w_z`` (columns) and
+    ``conv_w`` (channels) by SSM head, ``w_out`` by row; the shared
+    block's attention and MLP as a GQA decoder's;
+  - ``embed`` by vocab row.
+  Whole, as in the reference: ``wk``, ``wv``, MLA's ``wq_a``, ``q_ln``,
+  ``wkv_a`` and ``kv_ln``, the Mamba-2 layers' ``w_bc``, ``w_dt`` and the
+  per-head vectors ``A_log``, ``D_skip`` and ``dt_bias``, the router and
+  the norms. One difference from the reference: where the heads do not
+  divide over ``model`` (``n_heads % model != 0``), the leaves split by
+  head stay whole over ``model`` and their attention (or Mamba-2 layer)
+  runs whole on every rank, with the hybrid's ``conv`` and ``ssm`` states
+  whole over ``model`` too; the reference's ``_fit`` would cut them
+  mid-head wherever their width divides (the smoke configs on (1, 8): 4
+  heads, ``wq`` 64 columns, MLA's ``wq_b`` 96, the Mamba-2 ``d_in`` 128);
 * every family's experts (``e_gate``, ``e_in``, ``e_out``) take their block
   over ``model`` where ``moe_block`` splits them;
-* the other families (MLA, the hybrid, xLSTM, the encoder-decoder) keep
-  every other leaf whole and compute it replicated over ``model``.
+* xLSTM and the encoder-decoder keep every other leaf whole and compute
+  it replicated over ``model``.
 
-``serve_specs`` is that placement (no ``data`` entries: serving is the
-reference's "TP-only"); ``shard_params`` cuts it from whole leaves and
-``lm.init_params(mesh=)`` draws it. The attention cache is the rank's
-block (``serve_cache_specs``): K/V (MLA's ``ckv``/``kpe``) over the batch
-axes, ``data`` or (``pod``, ``data``), when ``batch_spec`` shards the batch,
-and over ``model`` by slot; ``lm.init_cache(mesh=)`` and
-``lm.prefill(mesh=)`` allocate only that block, ``shard_cache`` cuts it
-from a whole cache. The hybrid's ``conv`` and ``ssm`` states stay whole.
+``serve_specs`` is that placement (no ``data`` entries: serving holds whole
+weights over the batch axes; the reference's prefill does too but for
+deepseek-v2, and its decode keeps every FSDP config's ``data`` entries,
+``launch.specs``);
+``shard_params`` cuts it from whole leaves and ``lm.init_params(mesh=)``
+draws it. The cache is the rank's block (``serve_cache_specs``): K/V
+(MLA's ``ckv``/``kpe``) over the batch axes, ``data`` or (``pod``,
+``data``), when ``batch_spec`` shards the batch, and over ``model`` by
+slot; the hybrid's ``conv`` and ``ssm`` states over the batch axes, and
+over ``model`` by channel and by head where its Mamba-2 leaves split;
+``lm.init_cache(mesh=)`` and ``lm.prefill(mesh=)`` allocate only that
+block, ``shard_cache`` cuts it from a whole cache.
 
 Training on a mesh keeps its own placement (``train_specs``): the same
 ``model`` entries, and on every leaf but the experts its ``data`` entries
@@ -184,23 +200,27 @@ def cache_pspecs(cfg, cache: Dict[str, Any], mesh, batch: int) -> Dict[str, Any]
 # placement on the ranks
 # ---------------------------------------------------------------------------
 
-def block_index(mesh, axes: tuple) -> tuple:
-    """(this rank's block, the block count) over the mesh axes ``axes``,
-    row-major (the first axis is the slowest)."""
+def block_index(mesh, axes: tuple, rank: Optional[int] = None) -> tuple:
+    """(this rank's block, or that of the mesh's global rank ``rank``, the
+    block count) over the mesh axes ``axes``, row-major (the first axis is
+    the slowest)."""
+    at = None if rank is None else dict(
+        zip(mesh.mesh_dim_names, (mesh.mesh == rank).nonzero()[0].tolist()))
     idx, ways = 0, 1
     for a in axes:
         n = axis_size(mesh, a)
-        idx, ways = idx * n + mesh.get_local_rank(a), ways * n
+        idx, ways = idx * n + (mesh.get_local_rank(a) if at is None else at[a]), ways * n
     return idx, ways
 
 
-def block_view(x, spec: tuple, mesh, axes: tuple):
-    """A view of this rank's block of ``x`` along every dimension whose
-    spec entry names one of ``axes`` (the other entries are left whole)."""
+def block_view(x, spec: tuple, mesh, axes: tuple, rank: Optional[int] = None):
+    """A view of this rank's block of ``x`` (or of the global rank
+    ``rank``'s) along every dimension whose spec entry names one of
+    ``axes`` (the other entries are left whole)."""
     for dim, ax in enumerate(spec):
         names = tuple(a for a in (ax or ()) if a in axes)
         if names:
-            idx, ways = block_index(mesh, names)
+            idx, ways = block_index(mesh, names, rank)
             blk = x.shape[dim] // ways
             x = x.narrow(dim, idx * blk, blk)
     return x
@@ -222,31 +242,87 @@ def sharded_experts(cfg, mesh) -> bool:
 
 
 def tensor_parallel(cfg) -> bool:
-    """Whether the family's attention, dense FFN and vocabulary split over
-    ``model`` on a mesh: the GQA decoders (``kind`` dense or moe, ``attn``
-    gqa or mrope). MLA, the hybrid, xLSTM and the encoder-decoder keep
-    those leaves whole."""
-    return cfg.kind in ("dense", "moe") and cfg.attn in ("gqa", "mrope")
+    """Whether the family's dense leaves split over ``model`` on a mesh
+    (``tp_leaves``): the decoders (``kind`` dense or moe: GQA, M-RoPE and
+    MLA attention) and the hybrid. xLSTM and the encoder-decoder keep those
+    leaves whole."""
+    return cfg.kind in ("dense", "moe", "hybrid")
 
 
-HEAD_LEAVES = ("wq", "wo")  # split by query head: columns of wq, rows of wo
-TP_LEAVES = HEAD_LEAVES + ("w_gate", "w_in", "w_out", "embed")
+def tp_leaves(cfg) -> tuple:
+    """(the leaves split by head, the other leaves split, the whole leaves
+    whose gradient is partial) of a ``tensor_parallel`` family over
+    ``model``, as ``group/leaf`` paths (``embed`` at the top), with
+    ``param_pspecs``'s ``model`` entries: the one table of the split. By
+    head: the columns of ``wq`` (MLA: ``wq_b`` and ``wkv_b``) and the rows
+    of ``wo``; in the hybrid also the Mamba-2 layers' ``w_in``, ``w_z`` and
+    ``conv_w`` (channels) and ``w_out`` (rows), whose heads are
+    ``cfg.n_heads`` as the shared block's are. The others: the dense FFN
+    (``w_gate``, ``w_in`` by column, ``w_out`` by row), MLA's shared experts
+    (``sh_gate``, ``sh_in``, ``sh_out``), the shared block's MLP, and
+    ``embed`` by vocab row. Partial (``partial_leaves``): the leaves that
+    stay whole while the consumers of their outputs split by head, so that
+    each rank computes a part of their gradient: ``wk`` and ``wv`` (a rank
+    reads the KV heads of its query heads), MLA's latent projections
+    ``wq_a``, ``q_ln``, ``wkv_a`` and ``kv_ln``, and the Mamba-2 layers'
+    ``w_bc`` (B and C feed the rank's heads), ``w_dt``, ``dt_bias``,
+    ``A_log`` and ``D_skip`` (sliced to them)."""
+    if not tensor_parallel(cfg):
+        return (), (), ()
+    if cfg.kind == "hybrid":
+        return (("mamba/w_in", "mamba/w_z", "mamba/conv_w", "mamba/w_out",
+                 "shared_attn/wq", "shared_attn/wo"),
+                ("shared_attn/w_gate", "shared_attn/w_in", "shared_attn/w_out", "embed"),
+                ("mamba/w_bc", "mamba/w_dt", "mamba/dt_bias", "mamba/A_log", "mamba/D_skip",
+                 "shared_attn/wk", "shared_attn/wv"))
+    mla = cfg.attn == "mla"
+    heads = ("wq_b", "wkv_b", "wo") if mla else ("wq", "wo")
+    partial = ("wq_a", "q_ln", "wkv_a", "kv_ln") if mla else ("wk", "wv")
+    mo = cfg.moe
+    ffn = (() if mo is not None and not mo.n_shared else
+           ("gate", "in", "out") if cfg.act == "swiglu" else ("in", "out"))
+    prefix = "sh_" if mo is not None else "w_"
+    return (tuple(f"blocks/{n}" for n in heads),
+            tuple(f"blocks/{prefix}{n}" for n in ffn) + ("embed",),
+            tuple(f"blocks/{n}" for n in partial))
 
 
 def model_leaves(cfg, mesh) -> frozenset:
-    """The leaf names whose ``param_pspecs`` entry over ``model`` the port
-    keeps on ``mesh`` (where ``_fit`` leaves one): the experts where
-    ``moe_block`` splits them; for ``tensor_parallel`` configs ``wq`` and
-    ``wo`` where the query heads divide over ``model`` (never mid-head),
-    and ``w_gate``, ``w_in``, ``w_out`` and ``embed``."""
+    """The leaves (``group/leaf`` paths) whose ``param_pspecs`` entry over
+    ``model`` the port keeps on ``mesh`` (where ``_fit`` leaves one): the
+    experts where ``moe_block`` splits them; for ``tensor_parallel``
+    configs ``tp_leaves``'s, those split by head only where the heads
+    divide over ``model`` (never mid-head)."""
     if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
         return frozenset()
-    keep = set(EXPERTS) if sharded_experts(cfg, mesh) else set()
-    if tensor_parallel(cfg):
-        keep.update(TP_LEAVES)
-        if cfg.n_heads % axis_size(mesh, "model"):
-            keep.difference_update(HEAD_LEAVES)
+    keep = {f"blocks/{n}" for n in EXPERTS} if sharded_experts(cfg, mesh) else set()
+    heads, other, _ = tp_leaves(cfg)
+    keep.update(other)
+    if cfg.n_heads % axis_size(mesh, "model") == 0:
+        keep.update(heads)
     return frozenset(keep)
+
+
+def heads_split(cfg, mesh) -> bool:
+    """Whether the leaves split by head (``tp_leaves``) are blocks of more
+    than one ``model`` rank on ``mesh``."""
+    heads = tp_leaves(cfg)[0]
+    return (bool(heads) and heads[0] in model_leaves(cfg, mesh)
+            and axis_size(mesh, "model") > 1)
+
+
+def partial_leaves(cfg, mesh) -> frozenset:
+    """The whole leaves of ``tp_leaves`` whose gradient each ``model`` rank
+    computes a part of on ``mesh`` (where the heads split), to be summed
+    over ``model``."""
+    return frozenset(tp_leaves(cfg)[2]) if heads_split(cfg, mesh) else frozenset()
+
+
+def _walk(fn, tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``tree`` with each leaf ``v`` at path ``p`` (``group/leaf``) replaced
+    by ``fn(p, v)``."""
+    return {k: _walk(fn, v, f"{prefix}{k}/") if isinstance(v, dict) else fn(prefix + k, v)
+            for k, v in tree.items()}
 
 
 def _check_block(name: str, w, spec: tuple, mesh, whole: tuple) -> None:
@@ -300,9 +376,11 @@ def check_slots(slots: int, mesh) -> None:
 
 
 def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
-    """Whole cache -> this rank's: K/V (MLA's ``ckv``/``kpe``) cut to the
-    rank's rows over ``data`` when ``batch_spec`` shards them and to its
-    slots over ``model``; every other entry the same tensor. Raises
+    """Whole cache -> this rank's block under ``serve_cache_specs``: K/V
+    (MLA's ``ckv``/``kpe``) cut to the rank's rows over the batch axes when
+    ``batch_spec`` shards them and to its slots over ``model``, the hybrid's
+    ``conv`` and ``ssm`` states to its rows and (where its Mamba-2 layers
+    split) its channels or heads; every other entry the same tensor. Raises
     ValueError when the slots do not divide over ``model``, as the
     reference's ``shard_map`` refuses such a cache."""
     if mesh is None or not sharded_cache(cfg):
@@ -310,38 +388,48 @@ def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
     rows = [k for k in CACHE_ROWS if k in cache]
     batch, slots = cache[rows[0]].shape[1:3]
     check_slots(slots, mesh)
-    specs = cache_pspecs(cfg, {k: cache[k] for k in rows}, mesh, batch)
-    return dict(cache, **{k: local_block(cache[k], specs[k], mesh, ("pod", "data", "model"))
-                          for k in rows})
+    specs = serve_cache_specs(cfg, cache, mesh, batch)
+    return {k: local_block(v, specs[k], mesh, ("pod", "data", "model"))
+            if spec_axes(specs[k]) else v for k, v in cache.items()}
 
 
 def serve_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
     """Where prefill, decode and ``Server(mesh=)`` keep each leaf of the
     params (``shard_params``, ``lm.init_params(mesh=)``): ``param_pspecs``'s
     ``model`` entries on the leaves of ``model_leaves`` (the experts where
-    ``moe_block`` splits them; for the GQA decoders the columns of ``wq``,
-    ``w_gate`` and ``w_in``, the rows of ``wo`` and ``w_out`` and the vocab
-    of ``embed``, ``wq`` and ``wo`` only where the heads divide), every other
-    dim whole. No ``data`` entries: serving holds whole weights over the
-    batch axes, the reference's TP-only serving."""
+    ``moe_block`` splits them; the tensor-parallel leaves of the decoders
+    and the hybrid, ``tp_leaves``, those split by head only where the heads
+    divide), every other dim whole. No ``data`` entries: serving holds
+    whole weights over the batch axes (the reference's prefill keeps
+    deepseek-v2's FSDP ``data`` entries and its decode every FSDP config's,
+    ``launch.specs``)."""
     keep = model_leaves(cfg, mesh)
-
-    def walk(specs):
-        return {k: walk(v) if isinstance(v, dict) else
-                tuple(ax if k in keep and ax and "model" in ax else None for ax in v)
-                for k, v in specs.items()}
-
-    return walk(param_pspecs(cfg, shapes, mesh))
+    return _walk(lambda path, sp: tuple(ax if path in keep and ax and "model" in ax else None
+                                        for ax in sp), param_pspecs(cfg, shapes, mesh))
 
 
 def serve_cache_specs(cfg, cache: Dict[str, Any], mesh, batch: int) -> Dict[str, Any]:
     """Where a decode step on ``mesh`` keeps each entry of the cache
-    (``shard_cache``): ``cache_pspecs``'s on K/V (MLA's ``ckv``/``kpe``) of
-    the families whose decode takes the mesh, every other entry whole."""
+    (``shard_cache``, ``lm.init_cache(mesh=)``), for the families whose
+    decode takes the mesh: ``cache_pspecs``'s on K/V (MLA's ``ckv`` and
+    ``kpe``); the hybrid's ``conv`` and ``ssm`` states by rows as
+    ``cache_pspecs`` places them, and over ``model`` by channel (``conv``)
+    and head (``ssm``) where its Mamba-2 leaves split (``model_leaves``;
+    whole over ``model`` where the heads do not divide, with the leaves);
+    every other entry whole."""
     specs = cache_pspecs(cfg, cache, mesh, batch)
-    keep = sharded_cache(cfg)
-    return {k: sp if keep and k in CACHE_ROWS else (None,) * len(sp)
-            for k, sp in specs.items()}
+    if not sharded_cache(cfg):
+        return {k: (None,) * len(sp) for k, sp in specs.items()}
+    ssm = "mamba/w_in" in model_leaves(cfg, mesh)
+
+    def keep(k, sp):
+        if k in CACHE_ROWS:
+            return sp
+        if k in ("conv", "ssm"):
+            return tuple(None if ax == ("model",) and not ssm else ax for ax in sp)
+        return (None,) * len(sp)
+
+    return {k: keep(k, sp) for k, sp in specs.items()}
 
 
 def block_shape(shape, spec: tuple, mesh) -> tuple:
@@ -373,27 +461,24 @@ def train_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
     """Where training on ``mesh`` keeps each leaf of the params (and of
     the AdamW moments, which take the params' placement, as the
     reference's ``AdamWState`` takes ``pspecs``): ``serve_specs``'s
-    ``model`` entries (the GQA decoders' tensor-parallel leaves, the
-    experts where ``moe_block`` splits them) and ``param_pspecs``'s
-    ``data`` entries on every leaf but the experts (a ``cfg.fsdp`` leaf
-    holds the rank's block of the dim it puts on ``data``, ``embed`` and
-    the stacked blocks included). A leaf split both ways (FSDP and tensor
-    parallel) holds one block of each dim; ``lm`` gathers the ``data`` dim
-    at its use and keeps the ``model`` block."""
+    ``model`` entries (the tensor-parallel leaves, the experts where
+    ``moe_block`` splits them) and ``param_pspecs``'s ``data`` entries on
+    every leaf but the experts (a ``cfg.fsdp`` leaf holds the rank's block
+    of the dim it puts on ``data``, ``embed`` and the stacked blocks
+    included). A leaf split both ways (FSDP and tensor parallel) holds one
+    block of each dim; ``lm`` gathers the ``data`` dim at its use and keeps
+    the ``model`` block."""
     keep = model_leaves(cfg, mesh)
 
-    def entry(name, ax):
+    def entry(path, ax):
         if ax is None:
             return None
         if "model" in ax:
-            return ax if name in keep else None
-        return ax if "data" in ax and name not in EXPERTS else None
+            return ax if path in keep else None
+        return ax if "data" in ax and path.rsplit("/", 1)[-1] not in EXPERTS else None
 
-    def walk(specs):
-        return {k: walk(v) if isinstance(v, dict) else tuple(entry(k, ax) for ax in v)
-                for k, v in specs.items()}
-
-    return walk(param_pspecs(cfg, shapes, mesh))
+    return _walk(lambda path, sp: tuple(entry(path, ax) for ax in sp),
+                 param_pspecs(cfg, shapes, mesh))
 
 
 def spec_axes(spec: tuple) -> tuple:

@@ -136,18 +136,35 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mamba2_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False):
+def mamba2_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False,
+                   heads: Optional[slice] = None):
     """x: [B,S,D] (S = 1 when decoding); p: one layer's params. state:
     (conv_state [B,W-1,d_in], ssm_state [B,H,dstate,dh]), read when decoding.
-    Returns (out [B,S,D], (conv_state, ssm_state))."""
+    Returns (out [B,S,D], (conv_state, ssm_state)).
+
+    ``heads``: only these SSM heads (a contiguous block, a rank's under
+    tensor parallelism): ``w_in``, ``w_z`` and ``conv_w`` hold their
+    channels' columns and ``w_out`` their rows, the states theirs; ``dt`` of
+    every head from the whole ``w_dt`` is sliced to them, as are ``dt_bias``,
+    ``A_log`` and ``D_skip``; B and C are whole (one group shared by the
+    heads). ``out`` is then these heads' part of the output, to be summed
+    over the blocks. A leaf of any other width raises ValueError."""
     b, s, _ = x.shape
     d_in = cfg.ssm_expand * cfg.d_model
     h = cfg.n_heads
     dh = d_in // h
+    sel = slice(None) if heads is None else heads
+    if heads is not None:
+        h = len(range(h)[heads])
+        d_in = h * dh
+        for name, dim in (("w_in", -1), ("w_z", -1), ("conv_w", -1), ("w_out", -2)):
+            if p[name].shape[dim] != d_in:
+                raise ValueError(f"mamba2_forward: {name} of {p[name].shape[dim]} channels "
+                                 f"on dim {dim}, {h} heads want {d_in}")
     xz = x @ p["w_in"]                                     # [B,S,d_in]
     z = x @ p["w_z"]
     bc = x @ p["w_bc"]                                     # [B,S,2*dstate]
-    dt = softplus(x @ p["w_dt"] + p["dt_bias"])            # [B,S,H]
+    dt = softplus(x @ p["w_dt"] + p["dt_bias"])[..., sel]  # [B,S,H]
     B_, C_ = bc.chunk(2, dim=-1)
     w = cfg.conv_width
     if decode:
@@ -159,7 +176,7 @@ def mamba2_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = Fals
         new_conv_state = (xz[:, -(w - 1):] if s >= w - 1
                           else F.pad(xz, (0, 0, w - 1 - s, 0)))
     xh = silu(xc).reshape(b, -1, h, dh)                    # [B,S,H,dh]
-    log_a = -dt * torch.exp(p["A_log"])                    # [B,S,H]
+    log_a = -dt * torch.exp(p["A_log"][sel])               # [B,S,H]
     # B_ and C_ shared across heads (one group)
     k = B_[:, :, None, :].expand(b, xh.shape[1], h, B_.shape[-1])
     q = C_[:, :, None, :].expand(k.shape)
@@ -169,7 +186,7 @@ def mamba2_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = Fals
         y = y[:, None]
     else:
         y, ssm_state = chunked_gla(q, k, xh, log_a, dt)
-    y = y + xh.float() * p["D_skip"][None, None, :, None]
+    y = y + xh.float() * p["D_skip"][sel][None, None, :, None]
     y = y.reshape(b, -1, d_in).to(x.dtype) * silu(z)
     return y @ p["w_out"], (new_conv_state, ssm_state)
 

@@ -16,8 +16,10 @@ In subprocesses, started together: the fake process-group backend
 relies on, and ``make_production_mesh`` on fake worlds of 256 and 512
 ranks; the reference's ``make_production_mesh`` on 512 forced host
 devices; ``python -m repro_torch.launch.dryrun`` for every shape of
-granite-3-2b on (16, 16), its decode on (2, 16, 16) and granite-moe's
-prefill_32k on (16, 16), tensor parallel. Each record has
+granite-3-2b on (16, 16), its decode on (2, 16, 16), granite-moe's
+prefill_32k on (16, 16), tensor parallel, and deepseek-v2's prefill_32k and
+zamba2's decode_32k on (16, 16), tensor parallel over ``model`` (GB a
+rank below the earlier sweep's, when they were not). Each record has
 every key that ``benchmarks/roofline.py`` reads, and that module renders
 them unchanged.
 """
@@ -51,6 +53,10 @@ TP_ARCH = "granite-moe-1b-a400m"
 # split and tensor parallelism (the whole batch and cache on every rank):
 # FLOPs a rank and GB a rank (PERF.md §6)
 TP_BEFORE = {"hlo_flops": 3.539634761807936e15, "per_device_total_gb": 77.723}
+# MLA's and the hybrid's cells on (16, 16) as the dry run priced them before
+# their tensor parallelism (PERF.md §6): FLOPs a rank and GB a rank
+MLA_HYBRID_BEFORE = {("deepseek-v2-236b", "prefill_32k"): (1.94e17, 447.0),
+                     ("zamba2-1.2b", "decode_32k"): (3.93e11, 8.9)}
 
 
 class _Mesh:
@@ -369,6 +375,9 @@ def runs(tmp_path_factory):
              "tp": ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", TP_ARCH,
                      "--shape", "prefill_32k", "--mesh", "single", "--out", str(out / "tp")],
                     _env())}
+    for arch, shape in MLA_HYBRID_BEFORE:
+        procs[arch] = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                        "--shape", shape, "--mesh", "single", "--out", str(out / "tp")], _env())
     started = {n: subprocess.Popen(c, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                    text=True) for n, (c, e) in procs.items()}
     t0, outputs = time.monotonic(), {}
@@ -499,3 +508,26 @@ def test_tensor_parallel_prefill_falls_as_predicted(runs):
     assert rec["memory"]["per_device_total_gb"] < TP_BEFORE["per_device_total_gb"]
     assert rec["collectives_by_axis"]["model"] > 0
 
+
+
+@pytest.mark.parametrize("arch,shape", sorted(MLA_HYBRID_BEFORE))
+def test_mla_and_hybrid_cells_fall_with_tensor_parallelism(runs, arch, shape):
+    """deepseek-v2's prefill_32k and zamba2's decode_32k on (16, 16), now
+    tensor parallel over ``model``: every key ``benchmarks/roofline.py``
+    reads, and GB a rank below ``MLA_HYBRID_BEFORE``'s (and deepseek-v2's
+    prefill below 80 GB, at most 1/16 of its FLOPs a rank: its rows split
+    over ``data`` and its heads over ``model``); the activations' sums and
+    the decode's merges run over ``model``."""
+    out, _, _ = runs
+    with open(out / "tp" / f"{arch}_{shape}_single.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec.get("traceback")
+    for k in ROOFLINE_KEYS + ("hlo_flops", "hlo_bytes", "collectives", "collectives_by_axis"):
+        assert k in rec, k
+    flops, gb = MLA_HYBRID_BEFORE[(arch, shape)]
+    assert rec["memory"]["per_device_total_gb"] < gb, rec["memory"]
+    assert rec["hlo_flops"] <= flops, rec["hlo_flops"]
+    assert rec["collectives_by_axis"]["model"] > 0
+    if shape == "prefill_32k":
+        assert rec["memory"]["per_device_total_gb"] < 80
+        assert rec["hlo_flops"] <= flops / 16, rec["hlo_flops"]

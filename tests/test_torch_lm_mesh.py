@@ -21,14 +21,19 @@ and 300 tokens a rank, past the dropless 256) and whole (4 experts on 8
 model ranks), MLA's sharded latent attention, ``prefill(mesh=)`` and 3
 decode steps through ``Server(mesh=)`` for granite-3-2b, granite-moe,
 deepseek-v2 and zamba2 (and granite-3-2b writing the last slot twice), and
-the serve loop of 6 requests; on a (2, 2, 2) (pod, data, model) mesh,
+the serve loop of 6 requests (the reference's params placed under
+``param_pspecs`` for the LM cases, so that GSPMD runs its tensor-parallel
+program, as the port's mesh path is); on a (2, 2, 2) (pod, data, model) mesh,
 whose batch rows split over pod and data, ``prefill(mesh=)`` and 3 decode
 steps of granite-3-2b (float32 and bfloat16) and granite-moe (float32). Each rank's results are held to JAX's
 ``jax.jit`` of the reference under ``shard_map`` at the port's LM bars:
 2e-4 in float32 and 3e-2 in bfloat16 (``tests/test_torch_lm_families.py``'s
 for these families); the served tokens exactly. The ranks also hold each
 result to their own one-device run at the same bars (one ``OK`` line a
-case), and ``_gather_fsdp`` over ``data`` gives the whole weights back.
+case; zamba2 in bfloat16, ``testing.spread_case``, here at ``lm_tol``
+more than the reference's own mesh-to-one-device spread: its
+tensor-parallel program rounds its partial sums otherwise, as the port's
+does), and ``_gather_fsdp`` over ``data`` gives the whole weights back.
 """
 import os
 import subprocess
@@ -41,7 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import AbstractMesh
+from jax.sharding import AbstractMesh, NamedSharding
 
 from repro.configs import ARCHS as J_ARCHS, get_config as j_config
 from repro.configs import get_smoke_config as j_smoke
@@ -52,9 +57,11 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import lm, sharding
 
 SRC = Path(__file__).resolve().parent.parent / "src"
-CLAMPED, ONE_DEVICE = "/clamped", "#one-device"
+CLAMPED, ONE_DEVICE = "/clamped", T.ONE_DEVICE
 SHAPES = T.LM_MESH_SHAPES
-RUN_TIMEOUT_S = 2 * T.GROUP_TIMEOUT_S + 60  # each subprocess's, above the group's
+# each subprocess's, above the group's: run beside the tensor-parallel
+# suite's sixteen processes on 8 cores, the JAX side took over 300 s
+RUN_TIMEOUT_S = 900
 
 
 def _names(shape) -> tuple:
@@ -245,6 +252,12 @@ def _jax_case(case, cfg, inp, jmesh):
     params = jax.tree.map(lambda a: jnp.asarray(a, dt), inp["params"])
     if kind == "serve":
         return _jax_serve(cfg, params, inp, jmesh)
+    # the port's prefill and decode on a mesh are tensor parallel where the
+    # family is (sharding.tensor_parallel): the reference's program for them
+    # is its GSPMD partitioning of params placed under param_pspecs
+    if jmesh is not None:
+        specs = jsharding.param_pspecs(cfg, jlm.param_shapes(cfg), jmesh)
+        params = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(jmesh, s), specs))
     logits, cache = jax.jit(lambda p, t: jlm.prefill(p, cfg, t, T.LM_MESH_MAX_LEN,
                                                      mesh=jmesh))(params, inp["prompt"])
     step = jax.jit(jlm.make_decode_step(cfg, mesh=jmesh))
@@ -269,7 +282,7 @@ def jax_side(shape, out_dir) -> None:
         cfg = T.lm_mesh_config(case, j_smoke)
         inp = T.lm_mesh_inputs(case, cfg)
         res[case["label"]] = np.asarray(_jax_case(case, cfg, inp, jmesh), np.float32)
-        if case["label"].endswith(CLAMPED):
+        if case["label"].endswith(CLAMPED) or T.spread_case(case):
             res[case["label"] + ONE_DEVICE] = np.asarray(_jax_case(case, cfg, inp, None),
                                                          np.float32)
     np.savez(Path(out_dir) / f"jax_{T.mesh_tag(shape)}.npz", **res)
@@ -369,6 +382,31 @@ def test_every_rank_matches_jax_shard_map(runs, shape, label):
         else:
             np.testing.assert_allclose(got, want, rtol=tol, atol=tol,
                                        err_msg=f"{label} rank {rank}")
+
+
+SPREAD = [(shape, case["label"]) for shape in SHAPES for case in T.lm_mesh_cases(shape)
+          if T.spread_case(case)]
+
+
+@pytest.mark.parametrize("shape,label", SPREAD, ids=[c[1] for c in SPREAD])
+def test_spread_case_holds_to_one_device(runs, shape, label):
+    """zamba2 in bfloat16 (``testing.spread_case``): each rank's mesh
+    logits against its own one-device run at ``testing.spread_bar``,
+    ``lm_tol`` more than the reference's own mesh-to-one-device spread in
+    the same case, which is past ``lm_tol``: the reference's
+    tensor-parallel program rounds its partial sums otherwise than its
+    one-device program, as the port's does."""
+    out, _ = runs
+    with np.load(out / f"jax_{T.mesh_tag(shape)}.npz") as z:
+        spread = float(np.abs(z[label] - z[label + ONE_DEVICE]).max())
+    dtype = label.split("/")[2]
+    assert spread > T.lm_tol(dtype), spread
+    bar = T.spread_bar(dtype, spread)
+    for rank in range(8):
+        with np.load(out / f"rank{rank}.npz") as z:
+            got, one = z[label], z[label + ONE_DEVICE]
+        np.testing.assert_allclose(got, one, rtol=bar, atol=bar,
+                                   err_msg=f"{label} rank {rank} against its one device")
 
 
 if __name__ == "__main__":

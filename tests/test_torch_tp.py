@@ -1,20 +1,22 @@
-"""Tensor parallelism over ``model`` for the port's GQA decoders on a mesh,
-against the JAX package's ``param_pspecs`` placement under GSPMD, on the
-CPU.
+"""Tensor parallelism over ``model`` for the port's decoders (GQA, M-RoPE
+and MLA) and the Mamba-2 hybrid on a mesh, against the JAX package's
+``param_pspecs`` and ``cache_pspecs`` placement under GSPMD, on the CPU.
 
 In process: the serving and training placements (``sharding.serve_specs``,
-``sharding.train_specs``) of the six GQA decoders, full and smoke, give
-every leaf the block that ``NamedSharding(mesh, param_pspecs)`` gives it on
-an ``AbstractMesh`` of (2, 4), (2, 2, 2), (1, 8), (16, 16) and (2, 16, 16)
+``sharding.train_specs``) of the eight archs, full and smoke, give every
+leaf the block that ``NamedSharding(mesh, param_pspecs)`` gives it on an
+``AbstractMesh`` of (2, 4), (2, 2, 2), (1, 8), (16, 16) and (2, 16, 16)
 (serving without the ``data`` entries; the experts without theirs, as the
-port's training keeps them), but for the one documented difference:
-where the query heads do not divide over ``model`` the port keeps ``wq``
-and ``wo`` whole, where the reference's ``_fit`` cuts their columns
-mid-head. ``init_params(mesh=)`` draws each rank's blocks of the whole
-init; the other four families keep today's placement.
+port's training keeps them), and ``init_cache(mesh=)`` every cache entry
+the block of ``cache_pspecs``, but for the one documented difference:
+where the heads do not divide over ``model`` the port keeps the leaves
+split by head whole (and the hybrid's ``conv`` and ``ssm`` states), where
+the reference's ``_fit`` cuts them mid-head. ``init_params(mesh=)`` draws
+each rank's blocks of the whole init; xLSTM and the encoder-decoder keep
+their placement.
 
 In subprocesses, started together: ``python -m repro_torch.testing tp``
-on an 8-rank gloo group (every case of ``testing.tp_cases``: the six
+on an 8-rank gloo group (every case of ``testing.tp_cases``: the eight
 archs' smoke configs in float32 and bfloat16 on (2, 4), (2, 2, 2) and
 (1, 8); each rank holds each result to its own one-device run), and this
 file run as a script once an arch on 8 forced host devices
@@ -25,12 +27,16 @@ to ``jax.jit`` of the reference: ``prefill(mesh=)``'s logits and 3 decode
 steps through ``Server(mesh=)`` at ``testing.lm_tol`` (2e-4 in float32,
 3e-2 in bfloat16); the loss of ``value_and_grad(mesh=)`` and the rank's
 block of every gradient leaf at ``testing.tp_bar`` (2e-4 in float32 of the
-leaf's largest |g|, 3e-2 in bfloat16; the MoE's bfloat16 gradients are not
+leaf's largest |g|, 3e-2 in bfloat16; the MoEs' bfloat16 gradients are not
 held, ``testing.tp_holds_grads``); in float32 the serve loop's tokens
-exactly on (2, 4), against the reference's server and one device. Where
-granite-moe's experts split over ``model`` the gradient is held to the
-reference's one-device gradient: its ``shard_map`` gradient is not its
-loss's there (ROADMAP §3).
+exactly on (2, 4), against the reference's server and one device. zamba2
+in bfloat16 (``testing.spread_case``), whose reference moves past those
+bars between its own mesh program and one device: its logits against the
+rank's one-device run at ``lm_tol`` more than the reference's spread, its
+gradients at the larger of ``tp_bar`` and that spread. Where the MoE's
+experts split over ``model`` the gradient is held to the reference's
+one-device gradient: its ``shard_map`` gradient is not its loss's there
+(ROADMAP §3).
 """
 import os
 import subprocess
@@ -51,10 +57,12 @@ from repro.launch import serve as jserve
 from repro.models import lm as jlm, sharding as jsharding
 from repro_torch import testing as T
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models import lm, sharding
+from repro_torch.models import lm, sharding, ssm
 
 SRC = Path(__file__).resolve().parent.parent / "src"
-RUN_TIMEOUT_S = 2 * T.GROUP_TIMEOUT_S + 60  # each subprocess's, above the group's
+# each subprocess's: eight JAX processes share the CPU with the ranks (about
+# 215 s together on 8 idle cores), and a loaded machine runs them slower
+RUN_TIMEOUT_S = 900
 CASES = T.tp_cases()
 SPEC_SHAPES = T.TP_SHAPES + ((16, 16), (2, 16, 16))
 
@@ -70,6 +78,7 @@ class _Mesh:
     def __init__(self, shape, rank=0):
         self.shape, self.rank = shape, rank
         self.mesh_dim_names = _names(shape)
+        self.mesh = torch.arange(int(np.prod(shape))).reshape(shape)  # the ranks, row-major
 
     def size(self, dim):
         return self.shape[dim]
@@ -98,13 +107,13 @@ def _configs(arch, which):
 
 def _want_spec(name, p, cfg, shape, train: bool):
     """The reference's spec of a leaf as the port keeps it: its ``model``
-    entries (where the heads divide, for ``wq`` and ``wo``), and in
+    entries (where the heads divide, for the leaves split by head), and in
     training its ``data`` entries but on the experts."""
     heads = cfg.n_heads % shape[-1] == 0
     leaf = name.rsplit("/", 1)[-1]
     out = []
     for e in p:
-        if e is None or (e == "model" and leaf in sharding.HEAD_LEAVES and not heads):
+        if e is None or (e == "model" and name in sharding.tp_leaves(cfg)[0] and not heads):
             out.append(None)
         elif e == "model" or (train and leaf not in sharding.EXPERTS):
             out.append(e)
@@ -120,13 +129,15 @@ def test_blocks_are_param_pspecs_shard_shapes(arch, which, shape):
     """Each leaf's block under ``serve_specs`` and ``train_specs`` is
     ``NamedSharding(mesh, spec).shard_shape`` of the reference's
     ``param_pspecs`` entry as the port keeps it (``_want_spec``); every
-    leaf that the reference splits over ``model`` is split, but ``wq`` and
-    ``wo`` where the heads do not divide."""
+    leaf that the reference splits over ``model`` is split, but the leaves
+    split by head (``sharding.tp_leaves``) where the heads do not
+    divide."""
     jcfg, tcfg = _configs(arch, which)
     amesh = AbstractMesh(shape, _names(shape))
     jspecs = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg), amesh)))
     shapes = dict(_flat(jlm.param_shapes(jcfg)))
     mesh = _Mesh(shape)
+    heads, other, _ = sharding.tp_leaves(tcfg)
     for train, fn in ((False, sharding.serve_specs), (True, sharding.train_specs)):
         got = dict(_flat(fn(tcfg, lm.param_shapes(tcfg), mesh)))
         assert set(got) == set(jspecs)
@@ -134,38 +145,86 @@ def test_blocks_are_param_pspecs_shard_shapes(arch, which, shape):
             want = _want_spec(k, p, tcfg, shape, train)
             assert sharding.block_shape(shapes[k], got[k], mesh) == tuple(
                 NamedSharding(amesh, want).shard_shape(tuple(shapes[k]))), (k, got[k], want)
-            leaf = k.rsplit("/", 1)[-1]
-            if "model" in tuple(p) and leaf in sharding.TP_LEAVES:
-                kept = leaf not in sharding.HEAD_LEAVES or tcfg.n_heads % shape[-1] == 0
+            if "model" in tuple(p) and k in heads + other:
+                kept = k not in heads or tcfg.n_heads % shape[-1] == 0
                 assert (("model",) in got[k]) == kept, (k, got[k])
+
+
+@pytest.mark.parametrize("shape", SPEC_SHAPES, ids=T.mesh_tag)
+@pytest.mark.parametrize("batch", [4, 1])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-1.2b"])
+def test_cache_blocks_are_cache_pspecs_shard_shapes(arch, batch, shape):
+    """The cache's blocks under ``serve_cache_specs``: ``init_cache(mesh=)``
+    allocates ``NamedSharding(mesh, cache_pspecs).shard_shape`` of every
+    entry of the reference's cache (MLA's ``ckv`` and ``kpe`` by rows and
+    slots; the hybrid's K/V by rows and slots, its ``conv`` by rows and
+    channels, its ``ssm`` by rows and heads), full and smoke, but for the
+    hybrid's ``conv`` where the SSM heads do not divide over ``model``
+    (the smoke config on (1, 8), 4 heads): whole over ``model``, as its
+    Mamba-2 leaves are, where the reference's ``_fit`` cuts the 128
+    channels mid-head. ``shard_cache`` cuts the same blocks."""
+    mesh, amesh = _Mesh(shape), AbstractMesh(shape, _names(shape))
+    for which in ("full", "smoke"):
+        jcfg, tcfg = _configs(arch, which)
+        jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, 64))
+        jspecs = jsharding.cache_pspecs(jcfg, jcache, amesh, batch)
+        made = lm.init_cache(tcfg, batch, 64, device="meta", mesh=mesh)
+        assert set(made) == set(jcache)
+        heads = tcfg.n_heads % shape[-1] == 0
+        for k, p in jspecs.items():
+            if k == "conv" and not heads:
+                p = jax.sharding.PartitionSpec(*(None if e == "model" else e for e in p))
+            want = NamedSharding(amesh, p).shard_shape(tuple(jcache[k].shape))
+            assert tuple(made[k].shape) == tuple(want), (which, k, made[k].shape, want)
+        if which == "smoke":
+            whole = lm.init_cache(tcfg, batch, 64, device="cpu")
+            cut = sharding.shard_cache(whole, tcfg, mesh)
+            assert {k: tuple(v.shape) for k, v in cut.items()} == {
+                k: tuple(v.shape) for k, v in made.items()}
 
 
 @pytest.mark.parametrize("arch", T.TP_ARCHS)
 def test_mid_head_cut_is_refused(arch):
     """The one difference from the reference, pinned: on (1, 8) the smoke
-    config's 4 query heads of 16 dims give ``wq`` 64 columns, which the
-    reference's ``_fit`` splits 8 ways (half a head a rank); the port keeps
-    ``wq`` and ``wo`` whole and still splits ``d_ff`` and the vocab."""
+    config's 4 heads do not divide, yet the widths of the leaves split by
+    head do (``wq`` 64 columns; MLA's ``wq_b`` 96, ``wkv_b`` 128; the
+    Mamba-2 layers' 128 channels), which the reference's ``_fit`` splits 8
+    ways (half a head a rank); the port keeps those leaves whole (and the
+    hybrid's ``conv`` and ``ssm`` states over ``model``) and still splits
+    the FFN and the vocab."""
     jcfg, tcfg = _configs(arch, "smoke")
     amesh = AbstractMesh((1, 8), ("data", "model"))
     jspecs = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg), amesh)))
     got = dict(_flat(sharding.serve_specs(tcfg, lm.param_shapes(tcfg), _Mesh((1, 8)))))
-    assert tcfg.n_heads * tcfg.hd % 8 == 0 and tcfg.n_heads % 8
-    for k in ("blocks/wq", "blocks/wo"):
+    assert tcfg.n_heads % 8
+    heads, other, _ = sharding.tp_leaves(tcfg)
+    for k in heads:
         assert "model" in tuple(jspecs[k]) and not sharding.spec_axes(got[k]), k
     assert got["embed"][0] == ("model",)
-    if tcfg.moe is None:
-        assert got["blocks/w_in"][-1] == ("model",) and got["blocks/w_out"][-2] == ("model",)
+    ffn = [k for k in other if k.endswith(("/w_in", "/sh_in")) and k in got]
+    assert bool(ffn) == (tcfg.moe is None or tcfg.moe.n_shared > 0), ffn
+    assert all(got[k][-1] == ("model",) for k in ffn), ffn
+    if tcfg.kind == "hybrid":
+        cache = lm.init_cache(tcfg, 4, 64, device="meta")
+        jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, 4, 64))
+        jc = jsharding.cache_pspecs(jcfg, jcache, amesh, 4)
+        tc = sharding.serve_cache_specs(tcfg, cache, _Mesh((1, 8)), 4)
+        assert "model" in tuple(jc["conv"]) and ("model",) not in tc["conv"]
+        assert ("model",) not in tc["ssm"] and tc["k"][2] == ("model",)
 
 
 @pytest.mark.parametrize("arch", sorted(set(J_ARCHS) - set(T.TP_ARCHS)))
 def test_other_families_keep_their_placement(arch):
-    """MLA, the hybrid, xLSTM and the encoder-decoder split only the
-    experts over ``model``, as before."""
+    """xLSTM and the encoder-decoder split only the experts over
+    ``model``, as before (they have none), and keep their caches whole."""
     tcfg = get_config(arch)
+    assert not sharding.tensor_parallel(tcfg) and sharding.tp_leaves(tcfg) == ((), (), ())
     for shape in ((2, 4), (16, 16)):
         for k, sp in _flat(sharding.serve_specs(tcfg, lm.param_shapes(tcfg), _Mesh(shape))):
             assert not sharding.spec_axes(sp) or k.rsplit("/", 1)[-1] in sharding.EXPERTS, k
+        cache = lm.init_cache(tcfg, 4, 64, enc_len=8, device="meta")
+        for k, sp in sharding.serve_cache_specs(tcfg, cache, _Mesh(shape), 4).items():
+            assert not sharding.spec_axes(sp), k
 
 
 @pytest.mark.parametrize("shape", T.TP_SHAPES, ids=T.mesh_tag)
@@ -197,13 +256,59 @@ def test_tp_split_reads_the_placement(monkeypatch):
     monkeypatch.setattr(mesh_util, "rank_of", lambda mesh, axis="data": 1)
     cfg = get_smoke_config("granite-3-2b")
     assert lm._tp(cfg, None) is None
-    assert lm._tp(get_smoke_config("zamba2-1.2b"), _Mesh((2, 4))) is None
+    assert lm._tp(get_smoke_config("xlstm-1.3b"), _Mesh((2, 4))) is None
+    assert lm._tp(get_smoke_config("seamless-m4t-medium"), _Mesh((2, 4))) is None
     assert lm._tp(cfg, _Mesh((8, 1))) is None
     tp = lm._tp(cfg, _Mesh((1, 8)))
-    assert (tp.ways, tp.heads, tp.ffn, tp.vocab) == (8, False, True, True)
+    assert (tp.ways, tp.heads, tp.ffn, tp.vocab, tp.ssm) == (8, False, True, True, False)
     tp = lm._tp(cfg, _Mesh((2, 4)))
     assert (tp.ways, tp.rank, tp.heads, tp.ffn, tp.vocab) == (4, 1, True, True, True)
     assert lm._local_kv(cfg, tp) == (1, 0, 1)  # head 1 of 4 reads KV head 0 of 2
+    # MLA: heads and the shared experts; the hybrid: the Mamba-2 channels,
+    # the shared block's heads and MLP (mid-head on (1, 8): only the MLP)
+    mla, hybrid = get_smoke_config("deepseek-v2-236b"), get_smoke_config("zamba2-1.2b")
+    tp = lm._tp(mla, _Mesh((2, 4)))
+    assert (tp.heads, tp.ffn, tp.vocab, tp.ssm) == (True, True, True, False)
+    assert sharding.partial_leaves(mla, _Mesh((2, 4))) == {
+        "blocks/wq_a", "blocks/q_ln", "blocks/wkv_a", "blocks/kv_ln"}
+    tp = lm._tp(hybrid, _Mesh((2, 4)))
+    assert (tp.heads, tp.ffn, tp.vocab, tp.ssm) == (True, True, True, True)
+    assert sharding.partial_leaves(hybrid, _Mesh((2, 4))) == {
+        "shared_attn/wk", "shared_attn/wv", "mamba/w_bc", "mamba/w_dt", "mamba/dt_bias",
+        "mamba/A_log", "mamba/D_skip"}
+    tp = lm._tp(hybrid, _Mesh((1, 8)))
+    assert (tp.heads, tp.ffn, tp.vocab, tp.ssm) == (False, True, True, False)
+    assert sharding.partial_leaves(hybrid, _Mesh((1, 8))) == frozenset()
+
+
+@pytest.mark.parametrize("shape", T.TP_SHAPES, ids=T.mesh_tag)
+def test_block_view_of_another_rank_is_its_own_block(shape):
+    """``sharding.block_view(..., rank=r)`` is the block that rank ``r``
+    cuts for itself (``place_leaf``): one indexing places the blocks,
+    whether each rank cuts its own or one rank holds every rank's."""
+    x = torch.arange(8 * 8 * 3).reshape(8, 8, 3)
+    mesh = _Mesh(shape)
+    spec = (sharding.batch_axes(mesh), ("model",), None)
+    axes = sharding.spec_axes(spec)
+    for r in range(int(np.prod(shape))):
+        own = sharding.place_leaf(x, spec, _Mesh(shape, r))
+        assert torch.equal(sharding.block_view(x, spec, mesh, axes, r), own), r
+
+
+def test_block_refuses_a_leaf_the_compute_does_not_want():
+    """No fallback: a rank whose Mamba-2 or MLA leaf is not the block its
+    heads want raises; nothing gathers the leaf whole."""
+    cfg = get_smoke_config("zamba2-1.2b")
+    blk = {k: w[0] for k, w in lm.init_params(cfg, seed=0, device="cpu")["mamba"].items()}
+    x = torch.zeros(2, 3, cfg.d_model, dtype=lm._dt(cfg))
+    with pytest.raises(ValueError, match="w_in"):
+        ssm.mamba2_forward(x, blk, cfg, heads=slice(0, 1))  # whole leaves, one head
+    mla = get_smoke_config("deepseek-v2-236b")
+    layer = {k: w[0] for k, w in lm.init_params(mla, seed=0, device="cpu")["blocks"].items()}
+    tp = lm._TP(None, 4, 0, True, True, True)
+    with pytest.raises(ValueError, match="wq_b"):
+        lm._mla_prefill(torch.zeros(1, 2, mla.d_model, dtype=lm._dt(mla)), layer, mla,
+                        torch.zeros(1, 2, dtype=torch.long), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -247,14 +352,20 @@ def _jax_case(case) -> dict:
     whole = jax.tree.map(lambda a: jnp.asarray(a, dt), inp["params"])
     params = _placed(whole, cfg, jmesh)
     label = case["label"]
-    logits, cache = jax.jit(lambda p, t: jlm.prefill(p, cfg, t, T.LM_MESH_MAX_LEN,
-                                                     mesh=jmesh))(params, inp["prompt"])
     step = jax.jit(jlm.make_decode_step(cfg, mesh=jmesh))
-    out = [logits]
-    for tok in inp["steps"]:
-        lg, cache = step(params, cache, jnp.asarray(tok))
-        out.append(lg)
-    res = {f"{label}/lm": np.asarray(jnp.stack(out), np.float32)}
+
+    def run(params, mesh, step):
+        logits, cache = jax.jit(lambda p, t: jlm.prefill(p, cfg, t, T.LM_MESH_MAX_LEN,
+                                                         mesh=mesh))(params, inp["prompt"])
+        out = [logits]
+        for tok in inp["steps"]:
+            lg, cache = step(params, cache, jnp.asarray(tok))
+            out.append(lg)
+        return np.asarray(jnp.stack(out), np.float32)
+
+    res = {f"{label}/lm": run(params, jmesh, step)}
+    if T.spread_case(case):  # the reference on one device
+        res[f"{label}/lm{T.ONE_DEVICE}"] = run(whole, None, jax.jit(jlm.make_decode_step(cfg)))
     if case["serve"]:
         res[f"{label}/serve"] = _jax_serve(cfg, params, inp, jmesh, step)
     mesh = jmesh if case["ref"] == "mesh" else None
@@ -264,6 +375,12 @@ def _jax_case(case) -> dict:
     res[f"{label}/loss"] = np.asarray(loss, np.float64)
     for path, v in jax.tree_util.tree_leaves_with_path(grads):
         res[f"{label}/grad/" + "/".join(str(p.key) for p in path)] = np.asarray(v, np.float32)
+    if T.spread_case(case):  # the reference's own gradient: mesh against one device
+        one = jax.jit(jax.grad(lambda p, b: jlm.loss_fn(p, cfg, b)))(whole, batch)
+        res[f"{label}/grad-spread"] = np.float64(max(
+            float(np.abs(np.asarray(g, np.float32) - np.asarray(o, np.float32)).max())
+            / max(float(np.abs(np.asarray(o, np.float32)).max()), 1e-30)
+            for g, o in zip(jax.tree.leaves(grads), jax.tree.leaves(one))))
     return res
 
 
@@ -339,21 +456,46 @@ def test_ranks_hold_each_case_to_one_device(runs):
         assert line is not None and line.endswith(": OK"), case["label"]
         assert ("requests served == one device" in line) == case["serve"], line
     assert stdout.rstrip().endswith("tp suite: OK")
+    assert "bf16 all-reduce over 4 model ranks == the float32 sum rounded once" in stdout
+    for case in CASES:  # the bf16 MoEs route every token as one device does
+        if case["arch"] in T.TP_MOE and case["dtype"] == "bfloat16":
+            line = next(ln for ln in stdout.splitlines() if ln.startswith(case["label"] + ":"))
+            assert "every token's experts as one device's" in line, line
 
 
 IDS = [c["label"] for c in CASES]
 
 
+def _logit_spread(want, label) -> float:
+    """The reference's own max |mesh - one device| of a case's logits."""
+    return float(np.abs(want[f"{label}/lm"] - want[f"{label}/lm{T.ONE_DEVICE}"]).max())
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_prefill_and_decode_match_jax(runs, case):
     """Each rank's prefill logits and 3 steps of ``Server(mesh=)`` against
-    the reference's jitted prefill and decode step on placed params."""
+    the reference's jitted prefill and decode step on placed params, at
+    ``lm_tol``; for ``testing.spread_case`` (zamba2 in bfloat16) also the
+    rank's logits against its own one-device run at ``testing.spread_bar``
+    (``lm_tol`` more than the reference's own mesh-to-one-device spread),
+    which the ranks keep for this test, and at that bar against the
+    reference where its heads do not divide over ``model``: there the port
+    runs its Mamba-2 layers whole, as one device does, and the reference
+    cuts them mid-head (``test_mid_head_cut_is_refused``)."""
     _, want, ranks = runs
-    key, tol = f"{case['label']}/lm", T.lm_tol(case["dtype"])
+    key, spread = f"{case['label']}/lm", T.spread_case(case)
+    bar = T.spread_bar(case["dtype"], _logit_spread(want, case["label"])) if spread else None
+    cfg = T.lm_mesh_config(case, get_smoke_config)
+    mid_head = spread and not sharding.heads_split(cfg, _Mesh(case["shape"]))
+    tol = bar if mid_head else T.lm_tol(case["dtype"])
     for r, got in enumerate(ranks):
         assert got[key].shape == want[key].shape, (r, got[key].shape)
         np.testing.assert_allclose(got[key], want[key], rtol=tol, atol=tol,
                                    err_msg=f"{key} rank {r}")
+        assert (key + T.ONE_DEVICE in got) == spread, (key, r)
+        if spread:
+            np.testing.assert_allclose(got[key], got[key + T.ONE_DEVICE], rtol=bar, atol=bar,
+                                       err_msg=f"{key} rank {r} against its one device")
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -361,9 +503,12 @@ def test_loss_and_gradients_match_jax(runs, case):
     """Each rank's loss and its block of every gradient leaf (the training
     placement) against the reference's: JAX's whole leaf cut to the rank's
     block, at ``tp_bar`` of the whole leaf's largest |g| (the MoE in
-    bfloat16: the loss, ``testing.tp_holds_grads``)."""
+    bfloat16: the loss, ``testing.tp_holds_grads``; ``testing.spread_case``
+    at the larger of ``tp_bar`` and the reference's own mesh-to-one-device
+    spread, relative to the leaf's largest |g| as the bar)."""
     _, want, ranks = runs
     label, bar = case["label"], T.tp_bar(case["dtype"])
+    gbar = max(bar, float(want[f"{label}/grad-spread"])) if T.spread_case(case) else bar
     cfg = T.lm_mesh_config(case, get_smoke_config)
     specs = dict(_flat(sharding.train_specs(cfg, lm.param_shapes(cfg), _Mesh(case["shape"]))))
     for r, got in enumerate(ranks):
@@ -377,9 +522,26 @@ def test_loss_and_gradients_match_jax(runs, case):
             blk = sharding.place_leaf(torch.from_numpy(w), spec, mesh).numpy()
             g = got[f"{label}/grad/{k}"]
             assert g.shape == blk.shape, (label, r, k, g.shape, blk.shape)
-            np.testing.assert_allclose(g, blk, rtol=bar,
-                                       atol=bar * max(float(np.abs(w).max()), 1e-30),
+            np.testing.assert_allclose(g, blk, rtol=gbar,
+                                       atol=gbar * max(float(np.abs(w).max()), 1e-30),
                                        err_msg=f"{label} rank {r} {k}")
+
+
+SPREAD = [c for c in CASES if T.spread_case(c)]
+
+
+@pytest.mark.parametrize("case", SPREAD, ids=[c["label"] for c in SPREAD])
+def test_reference_bf16_hybrid_gradient_moves_past_the_bar(runs, case):
+    """Why zamba2's bfloat16 bars against one device take the reference's
+    own spread (``testing.spread_case``): the reference's gradient on the
+    mesh (its tensor-parallel program) is further from its one-device
+    gradient than ``tp_bar`` of the leaf's largest |g| in some leaf, and its
+    logits further than ``lm_tol`` from its one device's, so no port could
+    meet those bars but by rounding as XLA does, op for op."""
+    _, want, _ = runs
+    assert T.tp_holds_grads(case)
+    assert float(want[f"{case['label']}/grad-spread"]) > T.tp_bar(case["dtype"])
+    assert _logit_spread(want, case["label"]) > T.lm_tol(case["dtype"])
 
 
 SERVED = [c for c in CASES if c["serve"]]
