@@ -123,24 +123,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    12 of 40 layers, tensor parallel), granite-moe-1b-a400m (bf16, 12 of
    24 layers, 32 experts over 4 ranks), deepseek-v2-236b at full width (160 experts over 4 ranks,
    the latent cache S-sharded; f32 at 2 and bf16 at 6 of its 60 layers)
-   and zamba2-1.2b (f32 and bf16), all 1x4 but the 2x2; granite-3-2b at 4
+   and zamba2-1.2b (f32 and bf16), xlstm-1.3b (f32 at 2, f64 at 8 and
+   bf16 at 16 of its 48 layers, a 512-token prompt; one mLSTM head a
+   rank) and
+   seamless-m4t-medium (f32 and bf16, 12 + 12 layers over 2,048 frames; 4
+   of 16 heads a rank), all 1x4 but the 2x2; granite-3-2b at 4
    layers in f32 on a 2x1x2 (pod, data, model) mesh, its batch rows over
    pod and data. Every rank makes
    its own params (``init_params(mesh=)``, one rank at a time), steps once
    from an empty cache (every slice but the first rank's empty), prefills
    with ``prefill(mesh=)`` and decodes 2 steps through ``Server(mesh=)``
    (eager); its logits against the one rank's at ``lm_mesh_bar`` (2e-4 in
-   f32, 3e-2 in bf16; in bf16 and for zamba2 in f32, ``F32_ULP_ARCHS``, 4x
+   f32, 3e-2 in bf16, 1e-6 in f64; in bf16 and in f32 for ``F32_ULP_ARCHS``, 4x
    the one-rank run's response to a one-ulp move of the embeddings, if
    larger; the rows past 2e-4 or 3e-2 are printed);
    the flash_decode kernel on its own slice of the cache against its plain
-   version (2e-4; an empty slice: m -1e30, finite acc and l), and
-   flash_attention at the q/k/v shapes each rank's prefill gave it (its
-   rows and heads: MLA 32 of 128 heads at (192, 128), zamba2 8 of 32).
+   version (2e-4; an empty slice: m -1e30, finite acc and l; seamless's
+   cross-attention too, at its rows and heads), and flash_attention at
+   the (q, k, v, causal) each rank's prefill gave it (its rows and heads:
+   MLA 32 of 128 heads at (192, 128), zamba2 8 of 32, seamless 4 of 16).
    Launches are zeroed just before the prefill, the steps and the empty
-   step and read just after each: flash_attention once a layer in the
-   prefill, flash_decode once an attention layer a step on every rank
-   (none for MLA). Per rank: launches, errors, seconds, ms per eager step,
+   step and read just after each (``mesh_launches``): flash_attention once
+   an attention layer in the prefill, flash_decode once an attention layer
+   a step on every rank (none for MLA and xLSTM; the encoder-decoder's
+   empty encoder memory none). Per rank: launches, errors, seconds, ms per eager step,
    peak memory, all of ranks time-slicing one card.
 6. LM path, granite-3-2b at full width and depth (40 layers, d 2048, 32
    query heads over 8 KV heads, random weights from a seed):
@@ -268,8 +274,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    d. [lm-train-mesh] on 4 gloo ranks sharing cuda:0 (``phase_lm_train_mesh``):
       f32 steps held to one device (stablelm-12b on 4x1 and 2x2,
       granite-moe on 2x2 and on a 2x1x2 (pod, data, model) mesh,
-      deepseek-v2 (1 layer, 16 of 160 experts) and zamba2 (2 layers) on
-      2x2, tensor parallel), 2-step bf16 runs of stablelm-12b (2 of 40
+      deepseek-v2 (1 layer, 16 of 160 experts), zamba2 (2 layers),
+      xlstm-1.3b (2 layers) and seamless (1 + 1 layers) on 2x2, tensor
+      parallel), 2-step bf16 runs of stablelm-12b (2 of 40
       layers), granite-moe (6 of 24) and zamba2 (6 of 38); rank 0 gathers each rank's block of
       every leaf and holds it to the same block of one device's.
    Each phase's wall seconds follow it on a ``[phase]`` line.
@@ -1926,11 +1933,53 @@ LM_MESH_CONFIGS = (
     ("zamba2-1.2b", None, "bfloat16", ((1, MESH_RANKS),)),
     # rows over pod and data, slots over model
     ("granite-3-2b", 4, "float32", ((2, 1, MESH_RANKS // 2),)),
+    # tensor parallel: one of xLSTM's 4 mLSTM heads a rank and the sLSTM
+    # gates over model, on a shorter prompt (LM_MESH_PROMPTS); in float32
+    # one mLSTM and one sLSTM layer (at one segment of 8 the logits move
+    # 0.0179 when the embeddings move one ulp, and the mesh's other
+    # association moved them 0.0375 on an H100), that segment of 8 in
+    # float64 (the float32 program under ``Float64``, at ``F64_TOL``: the
+    # witness that the float32 gap there is rounding), in bfloat16 two of
+    # its 6 segments; 4 of the encoder-decoder's 16 heads a rank in the
+    # encoder, the decoder and the cross-attention
+    ("xlstm-1.3b", 2, "float32", ((1, MESH_RANKS),)),
+    ("xlstm-1.3b", 8, "float64", ((1, MESH_RANKS),)),
+    ("xlstm-1.3b", 16, "bfloat16", ((1, MESH_RANKS),)),
+    ("seamless-m4t-medium", None, "float32", ((1, MESH_RANKS),)),
+    ("seamless-m4t-medium", None, "bfloat16", ((1, MESH_RANKS),)),
 )
+# prompts shorter than FAMILY_PROMPT: xLSTM's sLSTM scan runs eagerly, a
+# token at a time, on each of the ranks that time-slice the card
+LM_MESH_PROMPTS = {"xlstm-1.3b": 512}
 
 
 def _lm_mesh_cfg(arch: str, layers, dtype: str):
-    return _family_cfg(arch, dtype, **({} if layers is None else {"n_layers": layers}))
+    """A ``[lm-mesh]`` config: full width, ``layers`` deep (the
+    encoder-decoder's encoder too); float32 for ``dtype`` "float64", whose
+    runs take ``_lm_mesh_mode``."""
+    dtype = "float32" if dtype == "float64" else dtype
+    if layers is None:
+        return _family_cfg(arch, dtype)
+    return _family_cfg(arch, dtype, **_depth(_family_cfg(arch), layers))
+
+
+def _depth(cfg, layers: int) -> dict:
+    """The fields that cut ``cfg`` to ``layers`` layers: the
+    encoder-decoder's encoder as deep, xLSTM's segments no longer than the
+    cut."""
+    kw = {"n_layers": layers}
+    if cfg.kind == "encdec":
+        kw["enc_layers"] = layers
+    if cfg.kind == "xlstm":
+        kw["slstm_every"] = min(cfg.slstm_every, layers)
+    return kw
+
+
+def _lm_mesh_mode(dtype: str):
+    """The context a ``[lm-mesh]`` run of ``dtype`` takes, its params made
+    inside: ``Float64`` for "float64", so that the float32 program runs
+    with no float32 rounding left."""
+    return Float64() if dtype == "float64" else contextlib.nullcontext()
 
 
 def _lm_mesh_name(arch: str, layers, dtype: str) -> str:
@@ -1938,23 +1987,31 @@ def _lm_mesh_name(arch: str, layers, dtype: str) -> str:
 
 
 def _lm_mesh_inputs(cfg, seed: int = 21):
-    """The prompt [B, 2048] and each step's tokens [steps, B], from a CPU
-    generator: the same in every process."""
+    """The prompt [B, 2048] (``LM_MESH_PROMPTS``' length where it names the
+    arch), each step's tokens [steps, B] and prefill's other arguments (the
+    encoder-decoder's frames [B, 2048, D]), from a CPU generator: the same
+    in every process."""
+    from repro_torch.models import lm
     gen = torch.Generator().manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT), generator=gen)
+    s = LM_MESH_PROMPTS.get(cfg.name, FAMILY_PROMPT)
+    prompt = torch.randint(0, cfg.vocab, (FAMILY_BATCH, s), generator=gen)
     steps = torch.randint(0, cfg.vocab, (LM_MESH_STEPS, FAMILY_BATCH), generator=gen)
-    return prompt.cuda(), steps.cuda()
+    kw = {}
+    if cfg.kind == "encdec":
+        kw["enc_embeds"] = torch.randn((FAMILY_BATCH, FAMILY_PROMPT, cfg.d_model),
+                                       generator=gen).to(lm._dt(cfg)).cuda()
+    return prompt.cuda(), steps.cuda(), kw
 
 
 def _one_rank_logits(cfg, params: dict) -> tuple:
     """(the empty-cache step's logits [B, vocab], prefill's and each step's
     [1 + steps, B, vocab]) on one rank, float32 on the host."""
     from repro_torch.models import lm
-    prompt, steps = _lm_mesh_inputs(cfg)
+    prompt, steps, kw = _lm_mesh_inputs(cfg)
     step = lm.make_decode_step(cfg)
     empty = step(params, lm.init_cache(cfg, FAMILY_BATCH, FAMILY_MAX_LEN, device="cuda"),
                  steps[0])[0]
-    logits, cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN)
+    logits, cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, **kw)
     outs = [logits]
     for tok in steps:
         lg, cache = step(params, cache, tok)
@@ -1963,19 +2020,20 @@ def _one_rank_logits(cfg, params: dict) -> tuple:
             torch.stack(outs)[..., :cfg.vocab].float().cpu())
 
 
-def lm_mesh_one_rank(name: str, cfg, out_dir: str, ulp: bool) -> tuple:
+def lm_mesh_one_rank(name: str, cfg, dtype: str, out_dir: str, ulp: bool) -> tuple:
     """A config's run on one rank, in this process: prefill, then
     ``LM_MESH_STEPS`` decode steps on the seeded tokens, and one step from
     an empty cache. Where ``ulp`` (``lm_mesh_bar`` reads it) it runs again
     with every embedding element moved one ulp of its type (``_ulp_moved``):
     the largest change of the logits is the run's response to one rounding
-    at its input. Saves the logits (the real vocabulary, float32) and the
-    response to ``out_dir/<name>.npz`` and frees the rest. Returns (seconds,
-    response)."""
+    at its input. Saves the logits (the real vocabulary, float32; float64
+    under ``_lm_mesh_mode``) and the response to ``out_dir/<name>.npz`` and
+    frees the rest. Returns (seconds, response)."""
     from repro_torch.models import lm
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    empty, steps = _one_rank_logits(cfg, params)
+    with _lm_mesh_mode(dtype):
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        empty, steps = _one_rank_logits(cfg, params)
     response = 0.0
     if ulp:
         moved = _one_rank_logits(cfg, _ulp_moved(params, seed=5))[1]
@@ -1991,7 +2049,9 @@ def _lm_mesh_partials(cache: dict, cfg, mesh, rank: int) -> dict:
     """The flash_decode kernel on this rank's slice of the first attention
     layer's cache (its filled slots, a seeded query) against its plain
     version. A slice with no filled slot is held to what the merge needs of
-    it: m = -1e30 and finite acc and l in both, so that it weighs zero."""
+    it: m = -1e30 and finite acc and l in both, so that it weighs zero. The
+    encoder-decoder's cross-attention too, at the rank's shape: its rows of
+    the encoder's memory, its query heads and the KV heads they read."""
     from repro_torch.core import mesh as mesh_util
     from repro_torch.kernels.flash_decode import ops as fdec
     from repro_torch.kernels.flash_decode.ref import decode_partials_plain
@@ -2013,11 +2073,24 @@ def _lm_mesh_partials(cache: dict, cfg, mesh, rank: int) -> dict:
         if not (bool((got[1] == -1e30).all()) and bool((want[1] == -1e30).all())):
             raise AssertionError(f"[lm-mesh] rank {rank}: empty slice, m is not -1e30")
         err = 0.0
-    return {"shape": [list(q.shape), list(k.shape)], "valid": valid, "err": err,
-            "empty_l": [float(got[2].max()), float(want[2].max())] if not valid else None}
+    out = {"shape": [list(q.shape), list(k.shape)], "valid": valid, "err": err,
+           "empty_l": [float(got[2].max()), float(want[2].max())] if not valid else None}
+    if cfg.kind == "encdec":
+        from repro_torch.models import lm
+        hq, _, nkv = lm._local_kv(cfg, lm._tp(cfg, mesh))
+        b_loc, frames = cache["enc_h"].shape[:2]
+        q = _normal(gen, (b_loc, hq, cfg.hd), dtype=k.dtype)
+        ke, ve = (_normal(gen, (b_loc, frames, nkv, cfg.hd), dtype=k.dtype) for _ in range(2))
+        n = torch.tensor(frames, dtype=torch.int32, device="cuda")
+        out["cross"] = {"shape": [list(q.shape), list(ke.shape)], "err": max(
+            kernel_vs_plain(x, y, ATTN_TOL, f"[lm-mesh] rank {rank} cross flash_decode {part}")
+            for x, y, part in zip(fdec.gqa_decode_partials(q, ke, ve, n),
+                                  decode_partials_plain(q, ke, ve, n, cfg.hd ** -0.5),
+                                  ("acc", "m", "l")))}
+    return out
 
 
-def _rank_flash_attention(shapes, dtype, rank: int) -> float:
+def _rank_flash_attention(shapes, causal: bool, dtype, rank: int) -> float:
     """flash_attention at the shape the rank's prefill gave it (its rows,
     its query heads, the KV heads they read; ``shapes`` = q's, k's and v's
     [B, S, H, D]), on inputs seeded by the rank, against its plain version;
@@ -2026,12 +2099,12 @@ def _rank_flash_attention(shapes, dtype, rank: int) -> float:
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(50 + rank)
     q, k, v = (_normal(gen, sh, dtype=dtype).transpose(1, 2) for sh in shapes)
-    got = fa.flash_attention(q, k, v, True)
+    got = fa.flash_attention(q, k, v, causal)
     want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 causal=True).transpose(1, 2)
+                                 causal=causal).transpose(1, 2)
     tol = BF16_TOL if dtype == torch.bfloat16 else ATTN_TOL
     err = kernel_vs_plain(got, want, tol, f"[lm-mesh] rank {rank} flash_attention at "
-                          f"{list(shapes)}")
+                          f"{list(shapes)}, causal {causal}")
     del q, k, v, got, want
     return err
 
@@ -2043,14 +2116,22 @@ def _rank_flash_attention(shapes, dtype, rank: int) -> float:
 # one-ulp response of 2.84e-4; its 2-layer f32 step on 2x2 updated
 # ``shared_attn/ln1`` 4.49e-4 of its largest update off one device's
 # against 2e-4 (AdamW's first step divides each gradient element by
-# |g| + eps), with a one-ulp response of 4.5e-4 (a bar of 1.8e-3).
-F32_ULP_ARCHS = ("zamba2-1.2b",)
+# |g| + eps), with a one-ulp response of 4.5e-4 (a bar of 1.8e-3). The
+# same division in the encoder-decoder's and xLSTM's f32 steps on 2x2:
+# seamless updated ``enc_blocks/ln1`` 2.11e-4 of its largest update off
+# one device's with a one-ulp response of 2.12e-4, xLSTM ``slstm/ln``
+# 5.84e-4 with 5.85e-4. Only the params take this bar: the moments hold
+# the gradient itself and stay at 2e-4 (``mu`` 3.05e-6 and 4.67e-5, ``nu``
+# 4.06e-6 and 9.07e-5; zamba2's 8.97e-6 and 1.53e-5). Their ``[lm-mesh]``
+# logits keep 2e-4 where their own response is smaller (xLSTM's at 2
+# layers: 4.33e-6).
+F32_ULP_ARCHS = ("seamless-m4t-medium", "xlstm-1.3b", "zamba2-1.2b")
 
 
 def ulp_bar(arch: str, dtype: str) -> bool:
     """Whether a config's bars take its one-ulp response (bfloat16, and
     ``F32_ULP_ARCHS`` in float32)."""
-    return dtype == "bfloat16" or arch in F32_ULP_ARCHS
+    return dtype == "bfloat16" or (dtype == "float32" and arch in F32_ULP_ARCHS)
 
 
 def lm_mesh_bar(arch: str, dtype: str, response: float) -> float:
@@ -2061,24 +2142,26 @@ def lm_mesh_bar(arch: str, dtype: str, response: float) -> float:
     amplifies rounding. The ranks sum the MoE's combine and the
     tensor-parallel products' partials in another association than one
     device (the reference's psum does too), and a top-6-of-160 router can
-    flip a near tie on one rounding."""
+    flip a near tie on one rounding. ``F64_TOL`` in float64."""
     from repro_torch.testing import lm_tol
+    if dtype == "float64":
+        return F64_TOL
     return max(lm_tol(dtype), XLSTM_ULPS * response if ulp_bar(arch, dtype) else 0.0)
 
 
-def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict:
+def _lm_mesh_run(arch: str, cfg, dtype: str, mesh, want: dict, rank: int,
+                 ways: int) -> dict:
     """One config on this rank of ``mesh``: the params made one rank at a
     time (each draws whole layers and keeps its experts), an empty-cache
     step, prefill(mesh=) and ``LM_MESH_STEPS`` steps through
     ``Server(mesh=)``, each held to the one-rank logits at ``lm_mesh_bar``;
     launches zeroed just before the prefill and the steps and read just
-    after each; the kernel against its plain version on this rank's slice."""
+    after each; the kernel against its plain version on this rank's slice.
+    ``lm_mesh_rank`` runs it under ``_lm_mesh_mode``."""
     import torch.distributed as dist
     from repro_torch.launch import serve
     from repro_torch.models import lm, sharding
-    bar = lm_mesh_bar(arch, cfg.dtype, float(want["response"]))
-    # the tensor-parallel families hand flash_attention shapes of their own
-    tp = sharding.tensor_parallel(cfg)
+    bar = lm_mesh_bar(arch, dtype, float(want["response"]))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for r in range(ways):
@@ -2087,7 +2170,7 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
             torch.cuda.synchronize()
         dist.barrier()
     init_s = time.perf_counter() - t0
-    prompt, steps = _lm_mesh_inputs(cfg)
+    prompt, steps, kw = _lm_mesh_inputs(cfg)
     server = serve.Server(cfg, FAMILY_BATCH, FAMILY_MAX_LEN, device="cuda", params=params,
                           mesh=mesh)
     v = cfg.vocab
@@ -2100,7 +2183,7 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     attend, fa_shapes = lm._attend, set()
 
     def recording(q, k, v, causal):  # the shapes the prefill hands the kernel
-        fa_shapes.add((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        fa_shapes.add(((tuple(q.shape), tuple(k.shape), tuple(v.shape)), causal))
         return attend(q, k, v, causal)
 
     reset_launches()
@@ -2108,7 +2191,7 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     t1 = time.perf_counter()
     lm._attend = recording
     try:
-        logits, server.cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, mesh=mesh)
+        logits, server.cache = lm.prefill(params, cfg, prompt, FAMILY_MAX_LEN, mesh=mesh, **kw)
     finally:
         lm._attend = attend
     torch.cuda.synchronize()
@@ -2130,12 +2213,12 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
     got, ref = torch.stack(got), torch.from_numpy(want["steps"])
     rows = (got - ref).abs().amax(-1)  # [1 + steps, B]
     worst = divmod(int(rows.argmax()), rows.shape[1])
-    over = int((rows > lm_mesh_bar(arch, cfg.dtype, 0.0)).sum())
-    err = kernel_vs_plain(got, ref, bar, f"[lm-mesh] rank {rank} {arch} {cfg.dtype} logits "
+    over = int((rows > lm_mesh_bar(arch, dtype, 0.0)).sum())
+    err = kernel_vs_plain(got, ref, bar, f"[lm-mesh] rank {rank} {arch} {dtype} logits "
                           f"against one rank (worst at step {worst[0]}, row {worst[1]}; "
                           f"{over} of {rows.numel()} rows past "
-                          f"{lm_mesh_bar(arch, cfg.dtype, 0.0):g})")
-    rows = "k" if "k" in server.cache else "ckv"
+                          f"{lm_mesh_bar(arch, dtype, 0.0):g})")
+    rows = next(k for k in ("k", "ckv", "mS") if k in server.cache)
     report = {
         "arch": arch, "mesh": list(mesh.mesh.shape), "rank": rank, "bar": bar,
         "worst": list(worst), "over": over,
@@ -2146,12 +2229,28 @@ def _lm_mesh_run(arch: str, cfg, mesh, want: dict, rank: int, ways: int) -> dict
         "init_s": init_s, "prefill_s": prefill_s, "step_ms": ms,
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "partials": _lm_mesh_partials(server.cache, cfg, mesh, rank) if rows == "k" else None,
-        "fa_shapes": sorted(fa_shapes) if tp else [],
-        "fa_err": [_rank_flash_attention(sh, lm._dt(cfg), rank)
-                   for sh in sorted(fa_shapes)] if tp else []}
-    del params, server, logits, prompt, steps
+        "fa_shapes": sorted(fa_shapes),
+        "fa_err": [_rank_flash_attention(sh, causal, lm._dt(cfg), rank)
+                   for sh, causal in sorted(fa_shapes)]}
+    del params, server, logits, prompt, steps, kw
     _free()
     return report
+
+
+def mesh_launches(cfg) -> tuple:
+    """(flash_attention launches of a prefill, flash_decode of a decode
+    step, flash_decode of a step from an empty cache) on each rank: a layer
+    of attention each (the hybrid's shared-block applications; the
+    encoder-decoder's encoder, self- and cross-attention, whose empty
+    encoder memory launches none); MLA's decode attends in its latent
+    space, xLSTM has no attention."""
+    from repro_torch.models import lm
+    if cfg.kind == "xlstm":
+        return 0, 0, 0
+    if cfg.kind == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers, cfg.n_layers
+    n = lm._n_attn(cfg) if cfg.kind == "hybrid" else cfg.n_layers
+    return (n, 0, 0) if cfg.attn == "mla" else (n, n, n)
 
 
 def lm_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
@@ -2168,7 +2267,8 @@ def lm_mesh_rank(rank: int, ways: int, out_dir: str) -> None:
             want = {k: z[k] for k in z.files}
         for shape in shapes:
             mesh = host_mesh(shape, device="cuda")
-            reports.append(_lm_mesh_run(arch, cfg, mesh, want, rank, ways))
+            with _lm_mesh_mode(dtype):
+                reports.append(_lm_mesh_run(arch, cfg, dtype, mesh, want, rank, ways))
     Path(out_dir, f"lm-rank{rank}.json").write_text(json.dumps(reports))
 
 
@@ -2190,12 +2290,15 @@ def phase_lm_mesh() -> None:
         for arch, layers, dtype, shapes in LM_MESH_CONFIGS:
             cfg = _lm_mesh_cfg(arch, layers, dtype)
             ulp = ulp_bar(arch, dtype)
-            secs, response = lm_mesh_one_rank(_lm_mesh_name(arch, layers, dtype), cfg, out,
-                                              ulp)
+            secs, response = lm_mesh_one_rank(_lm_mesh_name(arch, layers, dtype), cfg, dtype,
+                                              out, ulp)
             full = _family_cfg(arch)
+            enc = (f" (and {cfg.enc_layers} of {full.enc_layers} encoder layers over "
+                   f"{FAMILY_PROMPT} frames)" if cfg.kind == "encdec" else "")
             print(f"[lm-mesh] {arch} {dtype} full width, {cfg.n_layers} of {full.n_layers} "
-                  f"layers ({cfg.param_count() / 1e9:.2f} B params): one rank, prefill "
-                  f"B{FAMILY_BATCH} x {FAMILY_PROMPT} (max_len {FAMILY_MAX_LEN}), "
+                  f"layers{enc} ({cfg.param_count() / 1e9:.2f} B params): one rank, prefill "
+                  f"B{FAMILY_BATCH} x {LM_MESH_PROMPTS.get(arch, FAMILY_PROMPT)} (max_len "
+                  f"{FAMILY_MAX_LEN}), "
                   f"{LM_MESH_STEPS} steps and an empty-cache step, {secs:.1f} s"
                   + (f"; response to a one-ulp move of the embeddings {response:.3g}, bar "
                      f"{lm_mesh_bar(arch, dtype, response):.3g}" if ulp else "")
@@ -2209,26 +2312,31 @@ def phase_lm_mesh() -> None:
     for i, (arch, layers, dtype) in enumerate(
             (a, ly, dt) for a, ly, dt, shapes in LM_MESH_CONFIGS for _ in shapes):
         cfg = _lm_mesh_cfg(arch, layers, dtype)
-        gqa = cfg.attn != "mla"
-        n_attn = lm._n_attn(cfg) if cfg.kind == "hybrid" else cfg.n_layers
+        n_fa, n_fd, n_empty = mesh_launches(cfg)
         for r in range(MESH_RANKS):
             rep = reports[r][i]
             fa, fd = rep["prefill_launches"], rep["step_launches"]
-            want = {"flash_attention": n_attn, "flash_decode": n_attn * LM_MESH_STEPS * gqa}
+            want = {"flash_attention": n_fa, "flash_decode": n_fd * LM_MESH_STEPS}
             got = {"flash_attention": fa["flash_attention"], "flash_decode": fd["flash_decode"]}
-            if got != want or (gqa and rep["empty_launches"]["flash_decode"] != n_attn):
+            if got != want or rep["empty_launches"]["flash_decode"] != n_empty:
                 raise AssertionError(f"[lm-mesh] rank {r} {arch} {rep['mesh']}: launches "
                                      f"{got} (empty step {rep['empty_launches']}), want {want}")
             p = rep["partials"]
-            part = ("no kernel: MLA attends in its latent space" if p is None else
+            part = ("no attention kernel: xLSTM" if cfg.kind == "xlstm" else
+                    "no kernel: MLA attends in its latent space" if p is None else
                     f"flash_decode on its slice (q {p['shape'][0]}, k/v {p['shape'][1]}, "
                     f"{p['valid']} filled) == plain, max|err|={p['err']:.3g} (bar {ATTN_TOL:g})"
                     + ("" if p["valid"] else
                        f"; empty slice: m -1e30 in both, l {p['empty_l'][0]:g} (kernel) / "
-                       f"{p['empty_l'][1]:g} (plain), weight 0 in the merge"))
+                       f"{p['empty_l'][1]:g} (plain), weight 0 in the merge")
+                    + ("" if "cross" not in p else
+                       f"; cross-attention on its rows and heads (q {p['cross']['shape'][0]}, "
+                       f"k/v {p['cross']['shape'][1]}) == plain, "
+                       f"max|err|={p['cross']['err']:.3g}"))
             steps = sorted(rep["step_ms"])
-            fa_at = "; ".join(f"q {q}, k {k}, v {v}: == plain, max|err|={e:.3g}"
-                              for (q, k, v), e in zip(rep["fa_shapes"], rep["fa_err"]))
+            fa_at = "; ".join(f"q {q}, k {k}, v {v}{' causal' if causal else ''}: == plain, "
+                              f"max|err|={e:.3g}"
+                              for ((q, k, v), causal), e in zip(rep["fa_shapes"], rep["fa_err"]))
             print(f"[lm-mesh] {arch} {dtype} {cfg.n_layers} layers, mesh "
                   f"{mesh_tag(rep['mesh'])} rank {r}: experts "
                   f"{'split over model' if rep['experts_split'] else 'whole' if cfg.moe else '-'}"
@@ -2708,7 +2816,8 @@ class Float64(torch.overrides.TorchFunctionMode):
     """The port's float32 arithmetic in float64: inside, a tensor made or
     cast as float32 (``dtype=torch.float32``, ``.float()``,
     ``.to(torch.float32)``) is made float64 instead, and an op that still
-    returns a float32 tensor raises, so no float32 rounding is left."""
+    returns a float32 tensor raises, so no float32 rounding is left (a
+    tensor on the meta device holds no values: only its shape is read)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.Tensor.float:
@@ -2716,7 +2825,7 @@ class Float64(torch.overrides.TorchFunctionMode):
         f64 = (lambda a: torch.float64 if a is torch.float32 else a)
         out = func(*map(f64, args), **{k: f64(v) for k, v in (kwargs or {}).items()})
         for t in out if isinstance(out, (tuple, list)) else (out,):
-            if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+            if isinstance(t, torch.Tensor) and t.dtype == torch.float32 and not t.is_meta:
                 raise AssertionError(f"{func} returned float32 under Float64")
         return out
 
@@ -3723,6 +3832,12 @@ TRAIN_MESH_F32 = (
     # the Mamba-2 channels and the shared block over model 2: 2 layers, the
     # shared block after the last
     ("zamba2-1.2b", 2, (2, MESH_RANKS // 2), 4, 128),
+    # 2 of xLSTM's 4 mLSTM heads a rank and its gates over model 2: one
+    # mLSTM and one sLSTM layer
+    ("xlstm-1.3b", 2, (2, MESH_RANKS // 2), 4, 128),
+    # the encoder-decoder's heads and FFN over model 2: one encoder and one
+    # decoder layer over 128 frames
+    ("seamless-m4t-medium", 1, (2, MESH_RANKS // 2), 4, 128),
 )
 TRAIN_MESH_BF16 = (  # arch, layers kept, (data, model), B, S, microbatches, steps
     # 2 steps each, the first against one device, the second after an update;
@@ -3736,9 +3851,9 @@ TRAIN_MESH_BF16_TOL = 3e-2  # a bf16 rank's first loss against one device's
 
 
 def _train_mesh_cfg(arch: str, dtype: str, layers: int):
-    """A ``[lm-train-mesh]`` config: full width, ``layers`` deep;
+    """A ``[lm-train-mesh]`` config: full width, ``layers`` deep (``_depth``);
     deepseek-v2 in float32 with ``MLA_F32_EXPERTS`` of its experts."""
-    cfg = _family_cfg(arch, dtype, n_layers=layers)
+    cfg = _family_cfg(arch, dtype, **_depth(_family_cfg(arch), layers))
     if cfg.attn == "mla" and dtype == "float32":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                n_experts=MLA_F32_EXPERTS))
@@ -3762,10 +3877,18 @@ def _train_mesh_params(cfg, mesh, rank: int, ways: int) -> tuple:
 
 
 def _train_batch(cfg, b: int, s: int, steps: int = 1) -> list:
+    """``steps`` batches of ``TokenPipeline``'s tokens, with the
+    encoder-decoder's frames [b, s, D] from a seeded CPU generator."""
     from repro_torch.data.tokens import TokenPipeline
     pipe = TokenPipeline(vocab=cfg.vocab, batch=b, seq=s, seed=0)
-    return [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
-            for _ in range(steps)]
+    gen = torch.Generator().manual_seed(9)
+    out = []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()}
+        if cfg.kind == "encdec":
+            batch["enc_embeds"] = torch.randn((b, s, cfg.d_model), generator=gen).cuda()
+        out.append(batch)
+    return out
 
 
 def _rank_heads(cfg, mesh) -> tuple:
@@ -3799,14 +3922,15 @@ def _rank_attention_bwd(cfg, b_loc: int, s: int, rank: int, dtype, tol: float,
 
 def _want_launches(cfg, micro: int) -> dict:
     """flash_attention's forward and backward launches of one train step:
-    a layer's attention once a microbatch, its forward again under remat
-    (the hybrid's shared block, outside the reference's scan, is not
+    a layer's attention once a microbatch (the encoder-decoder's encoder,
+    self- and cross-attention; none in xLSTM), its forward again under
+    remat (the hybrid's shared block, outside the reference's scan, is not
     rematerialized)."""
     from repro_torch.models import lm
     if cfg.kind == "hybrid":
         per = lm._n_attn(cfg) * micro
         return {"flash_attention": per, "flash_attention_bwd": per}
-    per = cfg.n_layers * micro
+    per = mesh_launches(cfg)[0] * micro
     return {"flash_attention": per * (2 if cfg.remat else 1), "flash_attention_bwd": per}
 
 
@@ -3832,11 +3956,12 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
     ``TRAIN_GRAD_TOL`` of the leaf's largest |update|, and AdamW's moments
     (which hold the gradient itself: mu = 0.1 g, nu = 0.001 g^2) at
     ``TRAIN_GRAD_TOL`` of the leaf's largest |value|; for ``F32_ULP_ARCHS``
-    each bar at least ``XLSTM_ULPS`` times the one-device step's own
-    response to a one-ulp move of the embeddings (``_ulp_moved``), as
-    ``lm_mesh_bar`` holds their logits: AdamW's first step divides each
-    gradient element by |g| + eps, so an element near eps turns a rounding
-    of the gradient into a larger change of the update; the MoE's drops;
+    the params' bar (not the moments') at least ``XLSTM_ULPS`` times the
+    one-device step's own response to a one-ulp move of the embeddings
+    (``_ulp_moved``), as ``lm_mesh_bar`` holds their logits: AdamW's first
+    step divides each gradient element by |g| + eps, so an element near eps
+    turns a rounding of the gradient into a larger change of the update,
+    while the moments hold the gradient itself; the MoE's drops;
     this rank's launches; the backward kernel at the rank's shape. Rank 0
     takes the one-device steps first and keeps their results on the host,
     so that the card never holds them beside the four ranks' mesh state
@@ -3879,9 +4004,8 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
         if arch in F32_ULP_ARCHS:
             moved = _ulp_moved(p0, seed=5)
             p1, s1, _ = one(moved, opt.init(moved), batch)
-            ref["response"] = {
-                tree: max(ratio([(0, v)], tree, k) for k, v in flat_tree(t).items())
-                for tree, t in (("params", p1), ("mu", s1.mu), ("nu", s1.nu))}
+            ref["response"] = max(ratio([(0, v)], "params", k)
+                                  for k, v in flat_tree(p1).items())
             del moved, p1, s1
         del p0
         _free()
@@ -3912,8 +4036,8 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
             del blocks
     one_device = None if ref is None else {
         "loss": ref["loss"], "worst": worst, "response": ref["response"] is not None,
-        "bar": {t: max(TRAIN_GRAD_TOL, XLSTM_ULPS * (ref["response"] or {}).get(t, 0.0))
-                for t in worst}}
+        "bar": dict(params=max(TRAIN_GRAD_TOL, XLSTM_ULPS * (ref["response"] or 0.0)),
+                    mu=TRAIN_GRAD_TOL, nu=TRAIN_GRAD_TOL)}
     del params, state, ref
     _free()
     box = [one_device]
@@ -3929,9 +4053,9 @@ def _train_mesh_f32(arch, layers, shape, b, s, mesh, rank, ways) -> dict:
                     TRAIN_LOSS_TOL, f"[lm-train-mesh] rank {rank} {arch} f32 loss")
     rows = sharding.batch_rows(mesh, b)
     b_loc = b if rows is None else rows.stop - rows.start
-    report["bwd"] = {"shape": [b_loc, *_rank_heads(cfg, mesh), s, *_attn_dims(cfg)],
-                     "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL,
-                                                mesh)}
+    report["bwd"] = None if cfg.kind == "xlstm" else {
+        "shape": [b_loc, *_rank_heads(cfg, mesh), s, *_attn_dims(cfg)],
+        "err": _rank_attention_bwd(cfg, b_loc, s, rank, torch.float32, ATTN_TOL, mesh)}
     return report
 
 
@@ -4004,9 +4128,12 @@ def phase_lm_train_mesh(card: str) -> None:
     parallel over model), granite-moe (experts over model 2, no token
     dropped), deepseek-v2 (1 layer with ``MLA_F32_EXPERTS`` of its 160
     experts on 2 x 2: FSDP over data, MLA's heads, shared experts and
-    experts over model; the backward at MLA's (192, 128) pair) and zamba2 (2
+    experts over model; the backward at MLA's (192, 128) pair), zamba2 (2
     layers on 2 x 2: the Mamba-2 channels and the shared block over
-    model), each rank against one device. (b) stablelm-12b in bf16 at full
+    model), xlstm-1.3b (one mLSTM and one sLSTM layer on 2 x 2: 2 of 4
+    heads a rank, the gates gathered at use) and seamless-m4t-medium (one
+    encoder and one decoder layer on 2 x 2, 128 frames), each rank against
+    one device. (b) stablelm-12b in bf16 at full
     width (2 of 40 layers), B 4 x 2048, FSDP over 4 data ranks and on 2 x 2
     (FSDP and tensor parallel); (c) granite-moe (6 of 24 layers) and zamba2
     (6 of 38) in bf16 on 2 x 2. Each rank's
@@ -4064,11 +4191,14 @@ def phase_lm_train_mesh(card: str) -> None:
                   f"{one['worst']['params'][0]:.3g} ({one['worst']['params'][1]}), mu "
                   f"{one['worst']['mu'][0]:.3g}, nu {one['worst']['nu'][0]:.3g} (bars "
                   f"{', '.join(f'{t} {b:.3g}' for t, b in one['bar'].items())}"
-                  + (f": {TRAIN_GRAD_TOL:g} or {XLSTM_ULPS}x the one-device step's one-ulp "
-                     f"response" if one["response"] else "") + "); "
-                  f"{rep['drops']} tokens dropped; launches {json.dumps(got)}; flash_attention "
-                  f"backward at the rank's shape (B, Hq, Hkv, S, D, Dv) = {rep['bwd']['shape']} == "
-                  f"plain, max|err|={rep['bwd']['err']:.3g} (bar {ATTN_TOL:g}); seconds: one "
+                  + (f"; params' {TRAIN_GRAD_TOL:g} or {XLSTM_ULPS}x the one-device step's "
+                     f"one-ulp response" if one["response"] else "") + "); "
+                  f"{rep['drops']} tokens dropped; launches {json.dumps(got)}; "
+                  + ("no attention kernel; " if rep["bwd"] is None else
+                     f"flash_attention backward at the rank's shape (B, Hq, Hkv, S, D, Dv) = "
+                     f"{rep['bwd']['shape']} == plain, max|err|={rep['bwd']['err']:.3g} (bar "
+                     f"{ATTN_TOL:g}); ")
+                  + f"seconds: one "
                   f"device's steps {rep['secs'][0]:.1f}, the mesh's params and step "
                   f"{rep['secs'][1]:.1f}, the gathers {rep['secs'][2]:.1f}; {card}, {limit}")
     n_f32 = len(TRAIN_MESH_F32)

@@ -66,8 +66,8 @@ class Server:
     ``logits`` the last step's [B, V] logits (overwritten by the next).
 
     On ``mesh`` the given ``params`` are whole (or this rank's already) and
-    the server keeps this rank's (``sharding.shard_params``: the experts,
-    and the GQA decoders' tensor-parallel leaves; without them
+    the server keeps this rank's (``sharding.shard_params``: the experts
+    and the tensor-parallel leaves; without them
     ``init_params(mesh=)`` makes this rank's directly), and ``cache`` is
     this rank's block (``lm.init_cache(mesh=)``, or ``lm.prefill(mesh=)``'s).
     The step is never captured there."""

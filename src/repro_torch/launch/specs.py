@@ -12,12 +12,12 @@ Shapes (the reference's):
 
 Every leaf is this rank's block under the placement the port's step runs
 with: training keeps ``sharding.train_specs`` (FSDP blocks over ``data``,
-the experts and the tensor-parallel leaves of the decoders and the hybrid
-over ``model``, the reference's ``param_pspecs`` but for the experts'
+the experts and every family's tensor-parallel leaves over ``model``, the reference's ``param_pspecs`` but for the experts'
 ``data`` entries and a mid-head cut), prefill and decode
 ``sharding.serve_specs`` (the same ``model`` entries and no ``data``
-ones) and ``sharding.serve_cache_specs`` (K/V over the batch axes and
-``model``, the hybrid's states over the batch axes and by head). The
+ones) and ``sharding.serve_cache_specs`` (every entry over the batch
+axes, K/V also over ``model``, the hybrid's states and xLSTM's ``mS`` by
+head where their layers split). The
 port serves without ``data`` entries in both. The reference does so in
 prefill only where the weights fit one ``model`` group (``param_count *
 2 / model < 10e9``): deepseek-v2's 236 B params do not, so its prefill
@@ -25,8 +25,8 @@ keeps the FSDP ``data`` entries, and its decode keeps ``param_pspecs`` as
 they are for every FSDP config. There each of the reference's ranks holds
 its block of the FSDP leaves over ``data`` as well (deepseek-v2 on 16x16:
 1/16 of the port's weights a rank). The port's entry points take the
-whole batch on every rank, so the token inputs are whole; the decoders'
-and the hybrid's prefill runs its rows of them.
+whole batch on every rank, so the token inputs are whole; the prefill
+runs its rows of them.
 """
 from __future__ import annotations
 

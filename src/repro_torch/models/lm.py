@@ -45,8 +45,8 @@ each leaf's gradient once.
 that all run the same program. Params and the cache are each rank's
 (``models.sharding``: ``init_params(mesh=)`` or ``shard_params``;
 ``init_cache(mesh=)`` and ``prefill(mesh=)`` allocate the rank's block of
-the cache). The decoders and the hybrid (``sharding.tensor_parallel``) are
-tensor parallel over ``model``, as the reference's ``param_pspecs``
+the cache). Every family is tensor parallel over ``model`` on the leaves
+of ``sharding.tp_leaves``, as the reference's ``param_pspecs``
 placement is under GSPMD (``_tp``, with Megatron's pair
 ``core.mesh.copy_to`` before a column-split product and ``sum_over``
 after a row-split one, whose bf16 partials sum in float32 as XLA's do):
@@ -54,28 +54,34 @@ GQA computes q for the rank's query heads and k and v of every KV head,
 attends its heads to the KV heads they read, and sums its rows of ``wo``'s
 output over ``model``; MLA computes its latent ``ckv``, ``k_pe`` and q
 projection whole and q, k_nope and v of its heads; the Mamba-2 layers run
-the channels of the rank's SSM heads (``ssm.mamba2_forward(heads=)``);
-the dense FFN, MLA's shared experts and the hybrid's shared MLP take the
+the channels of the rank's SSM heads (``ssm.mamba2_forward(heads=)``),
+the mLSTM layers the rank's heads (``ssm.mlstm_forward(heads=)``); the
+encoder-decoder's encoder and decoder layers are GQA's, its
+cross-attention computes q for the rank's query heads and k and v of the
+KV heads they read; the sLSTM layers gather their gates' weights (a
+decode step its token's gates) whole and scan alike on every rank; the
+dense FFN, MLA's shared experts and the hybrid's shared MLP take the
 rank's block of their width; the embedding is a masked lookup in the
 rank's vocab block summed over ``model``; prefill and decode gather the
-logits over ``model``, training's CE is vocab-parallel. Their ``prefill``
-runs the rank's rows of the batch. The MoE splits its experts over
+logits over ``model``, training's CE is vocab-parallel. ``prefill`` runs
+the rank's rows of the batch. The MoE splits its experts over
 ``model`` (``layers.moe_block``) in ``forward``, ``prefill`` and the decode
 step; the decode step attends over a cache whose slots are split over
 ``model`` and rows over the batch axes (``layers.sharded_decode_attention``
-for GQA and the hybrid's shared block, ``mla_latent_attention`` for MLA),
-q (MLA's ``q_c`` and ``q_pe``) gathered whole over ``model`` for it; the
-hybrid's Mamba-2 layers step the rank's rows of their states. xLSTM and
-the encoder-decoder compute everything on every rank and decode on one
-device, as in the reference.
+for GQA, the encoder-decoder's self-attention and the hybrid's shared
+block, ``mla_latent_attention`` for MLA), q (MLA's ``q_c`` and ``q_pe``)
+gathered whole over ``model`` for it; the encoder-decoder's
+cross-attention runs the rank's rows of q over its rows of the encoder's
+memory; the hybrid's Mamba-2 layers and xLSTM's layers step the rank's
+rows of their states.
 
 Training on a mesh (``loss_fn``, ``value_and_grad`` and ``make_train_step``
 with ``mesh=``) runs data-parallel over the batch axes (``data``, or
 ``pod`` and ``data`` on a (pod, data, model) mesh) on each rank's rows of
 the batch, gathers FSDP weights over ``data`` at their use
 (``_gather_fsdp``, keeping a tensor-parallel leaf's ``model`` block),
-runs the decoders and the hybrid tensor parallel and splits the experts
-over ``model``; the collectives carry the gradients
+runs every family tensor parallel and splits the experts over
+``model``; the collectives carry the gradients
 (``core.mesh.{sum_over,copy_to,gather_rows,split_rows}``), and the partial
 gradients are summed once a step (``_sum_partial_grads``: over ``model``
 too the whole leaves whose consumers split, ``sharding.partial_leaves``).
@@ -239,7 +245,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None) -> Dict
     the float32 transient is one layer's (5 GB for deepseek-v2's ``e_in``).
     With ``mesh=`` each leaf is this rank's block under
     ``sharding.serve_specs`` (``sharding.shard_params``'s cut of the whole
-    leaf: the experts, and the GQA decoders' tensor-parallel leaves): each
+    leaf: the experts and the tensor-parallel leaves): each
     layer is drawn whole, as without a mesh, and only the block is kept.
     On the ``meta``
     device the leaves have their shapes and types and no values
@@ -316,7 +322,10 @@ class _TP(NamedTuple):
     FFN's ``w_gate``, ``w_in`` and ``w_out`` (MLA's shared experts, the
     hybrid's shared MLP) its block of ``d_ff``; ``vocab``: ``embed`` its
     block of rows; ``ssm``: the Mamba-2 layers' ``w_in``, ``w_z``,
-    ``conv_w`` and ``w_out`` its block of channels (its SSM heads)."""
+    ``conv_w`` and ``w_out`` its block of channels (its SSM heads);
+    ``keep``: the leaves split over ``model`` (``sharding.model_leaves``).
+    In xLSTM ``heads`` are the mLSTM layers' heads (``w_q``, ``w_k``,
+    ``w_v``, ``w_o`` by column, ``w_out`` by row)."""
     mesh: Any
     ways: int
     rank: int
@@ -324,13 +333,14 @@ class _TP(NamedTuple):
     ffn: bool
     vocab: bool
     ssm: bool = False
+    keep: frozenset = frozenset()
 
 
 def _tp(cfg: ModelConfig, mesh):
     """The tensor-parallel split of ``cfg`` on ``mesh`` (``_TP``), or None
-    off a mesh, for a family that keeps those leaves whole, and on a
-    ``model`` axis of one rank (whose blocks are whole)."""
-    if mesh is None or not sharding.tensor_parallel(cfg):
+    off a mesh and on a ``model`` axis of one rank (whose blocks are
+    whole)."""
+    if mesh is None:
         return None
     ways = sharding.axis_size(mesh, "model")
     if ways == 1:
@@ -340,7 +350,7 @@ def _tp(cfg: ModelConfig, mesh):
     other = sharding.tp_leaves(cfg)[1]
     return _TP(mesh, ways, mesh_util.rank_of(mesh, "model"), heads,
                any(k in keep for k in other if k != "embed"), "embed" in keep,
-               heads and cfg.kind == "hybrid")
+               heads and cfg.kind == "hybrid", keep)
 
 
 def _heads(tp) -> Any:
@@ -359,6 +369,21 @@ def _block(w: torch.Tensor, dim: int, whole: int, tp, name: str) -> torch.Tensor
                          f"{want} of {whole}" + ("" if tp is None else
                                                  f" ({tp.ways} model ranks)"))
     return w
+
+
+def _whole_over_model(w: torch.Tensor, tp, name: str, sum_grads: bool) -> torch.Tensor:
+    """The leaf ``name`` (``group/leaf``) whole over ``model``: all-gathered
+    from its column blocks where the placement splits it (``tp.keep``),
+    else ``w`` itself. xLSTM's gates, whose column blocks are no rank's
+    heads or units. Under autograd the gather's gradient is the rank's
+    block of the whole one: summed over ``model`` first (``sum_grads``)
+    where each rank's compute reads only its heads' columns, taken as it is
+    where every rank computes alike (the trap of ROADMAP §3: a sum there
+    would multiply it by the ``model`` ranks)."""
+    if tp is None or name not in tp.keep:
+        return w
+    return mesh_util.gather_rows(w.movedim(-1, 0), tp.mesh, "model",
+                                 sum_grads).movedim(0, -1)
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
@@ -496,14 +521,32 @@ def _mla_prefill(x, blk, cfg: ModelConfig, positions, tp=None):
     return (o if not heads else mesh_util.sum_over(o, tp.mesh, "model")), (ckv, k_pe[:, :, 0])
 
 
-def _cross_attn(x, xblk, cfg: ModelConfig, enc_h):
-    """Cross-attention of x over the encoder's memory (no rotary, no mask)."""
+def _cross_kv(enc_h, xblk, cfg: ModelConfig, kv0: int, nkv: int):
+    """K and V of the KV heads ``[kv0, kv0 + nkv)`` over the encoder's
+    memory, from their columns of the whole ``xk`` and ``xv``: [B, S_src,
+    nkv, hd] each."""
+    cols = slice(kv0 * cfg.hd, (kv0 + nkv) * cfg.hd)
+    b = enc_h.shape[0]
+    return ((enc_h @ xblk["xk"][:, cols]).view(b, -1, nkv, cfg.hd),
+            (enc_h @ xblk["xv"][:, cols]).view(b, -1, nkv, cfg.hd))
+
+
+def _cross_attn(x, xblk, cfg: ModelConfig, enc_h, tp=None):
+    """Cross-attention of x over the encoder's memory (no rotary, no
+    mask). With the heads split over ``model`` (``tp.heads``) the rank
+    computes q for its query heads, k and v of the KV heads they read (from
+    the whole ``xk`` and ``xv``, as ``_attn_prefill``), applies its rows of
+    ``xo`` and sums the partial outputs over ``model``."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = (x @ xblk["xq"]).view(b, s, cfg.n_heads, hd)
-    k = (enc_h @ xblk["xk"]).view(b, -1, cfg.n_kv_heads, hd)
-    v = (enc_h @ xblk["xv"]).view(b, -1, cfg.n_kv_heads, hd)
-    return _attend(q, k, v, causal=False) @ xblk["xo"]
+    hq, kv0, nkv = _local_kv(cfg, tp)
+    heads = _heads(tp)
+    if heads:
+        x, enc_h = (mesh_util.copy_to(t, tp.mesh, "model") for t in (x, enc_h))
+    q = (x @ _block(xblk["xq"], -1, cfg.n_heads * hd, heads, "xq")).view(b, s, hq, hd)
+    k, v = _cross_kv(enc_h, xblk, cfg, kv0, nkv)
+    o = _attend(q, k, v, causal=False) @ _block(xblk["xo"], -2, cfg.n_heads * hd, heads, "xo")
+    return mesh_util.sum_over(o, tp.mesh, "model") if heads else o
 
 
 def _gather_fsdp(blk, cfg: ModelConfig, mesh, specs, sum_grads: bool = True):
@@ -609,9 +652,9 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
            local_rows: bool = False, cache_start: int = 0):
     """The stacked layers of ``blocks`` over x: self-attention (GQA or
     MLA), then (with ``cross``) cross-attention over ``enc_h``, then the
-    FFN (expert-parallel on ``mesh``; the GQA decoders' attention and dense
-    FFN tensor-parallel over its ``model`` axis, ``_tp``). With ``cache``
-    each layer's rows go to the cache's slots that the prompt fills (its
+    FFN (expert-parallel on ``mesh``; the attention, the cross-attention
+    and the dense FFN tensor-parallel over its ``model`` axis, ``_tp``).
+    With ``cache`` each layer's rows go to the cache's slots that the prompt fills (its
     first slot is ``cache_start`` of the whole cache). In training each
     layer is rematerialized (``_remat``), as the reference's scan body; on a
     mesh (``train``) the layer gathers its FSDP weights inside that body, so
@@ -620,7 +663,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
     no further)."""
     if train is not None:
         mesh, local_rows = train.mesh, train.split
-    tp = _tp(cfg, mesh) if group == "blocks" else None
+    tp = _tp(cfg, mesh)
 
     def layer(x, blk, xblk):
         blk = _use(train, blk, cfg, group)
@@ -632,7 +675,7 @@ def _stack(x, blocks, cfg: ModelConfig, positions, pos3, causal=True,
             a, rows = _attn_prefill(h, blk, cfg, positions, pos3, causal, tp)
         if xblk is not None:
             x, h = L.add_rms_norm(x, a, xblk["ln_x"])
-            a = _cross_attn(h, xblk, cfg, enc_h)
+            a = _cross_attn(h, xblk, cfg, enc_h, tp)
         x, h = L.add_rms_norm(x, a, blk["ln2"])
         return x + _ffn(h, blk, cfg, mesh, local_rows, tp), rows
 
@@ -716,18 +759,74 @@ def _hybrid(x, params, cfg: ModelConfig, positions, cache=None, train=None, mesh
     return x, last
 
 
-def _xlstm(x, params, cfg: ModelConfig, cache=None, train=None):
+def _mlstm(h, blk, cfg: ModelConfig, tp=None, state=None, decode: bool = False):
+    """One mLSTM layer over the normed h (``ssm.mlstm_forward``). Where its
+    heads split over ``model`` (``tp.heads``) the rank runs its heads on h
+    copied to ``model``, and the partial outputs of its rows of ``w_out``
+    are summed over ``model``; ``w_gates`` is whole at its use
+    (``_whole_over_model``). Returns (out, (S,))."""
+    heads = None
+    if tp is not None and tp.heads:
+        h = mesh_util.copy_to(h, tp.mesh, "model")
+        n = cfg.n_heads // tp.ways
+        heads = slice(tp.rank * n, (tp.rank + 1) * n)
+    blk = dict(blk, w_gates=_whole_over_model(blk["w_gates"], tp, "mlstm/w_gates",
+                                              heads is not None))
+    out, st = ssm.mlstm_forward(h, blk, cfg, state=state, decode=decode, heads=heads)
+    if heads is not None:
+        out = mesh_util.sum_over(out, tp.mesh, "model")
+    return out, st
+
+
+def _over_model_last(fn, tp):
+    """``fn`` (a collective on dim 0 over ``model``) applied to the last
+    dim of its argument."""
+    return lambda t: fn(t.movedim(-1, 0), tp.mesh, "model").movedim(0, -1)
+
+
+def _slstm(h, sl, cfg: ModelConfig, tp=None, state=None, decode: bool = False):
+    """One sLSTM layer over h (``ssm.slstm_forward``). Where its gates split
+    over ``model`` the scan runs alike on every ``model`` rank, its states
+    whole: a prefill gathers ``w_gates`` and ``r_gates`` whole at their use
+    (one all-gather each; the gradient is every rank's alike, so the
+    gather's takes the rank's block), a decode step computes its block of
+    the token's gates and all-gathers them (one small all-gather, no
+    weights moved). Where ``w_out`` splits by row the rank applies its rows
+    to its units of the hidden states (``core.mesh.split_rows``: their
+    gradient all-gathered back) and the partial outputs are summed over
+    ``model``. Returns (out, (h, c, n))."""
+    gather = cut = None
+    if tp is not None and "slstm/w_gates" in tp.keep:
+        if decode:
+            gather = _over_model_last(mesh_util.all_gather_rows, tp)
+        else:
+            sl = dict(sl, **{n: _whole_over_model(sl[n], tp, f"slstm/{n}", False)
+                             for n in ("w_gates", "r_gates")})
+    if tp is not None and "slstm/w_out" in tp.keep:
+        cut = _over_model_last(mesh_util.split_rows, tp)
+    out, st = ssm.slstm_forward(h, sl, cfg, state=state, decode=decode, gather=gather, cut=cut)
+    if cut is not None:
+        out = mesh_util.sum_over(out, tp.mesh, "model")
+    return out, st
+
+
+def _xlstm(x, params, cfg: ModelConfig, cache=None, train=None, mesh=None):
     """Each segment's mLSTM layers, then its sLSTM layer; returns (x, the
     last residual term) for the final norm. With ``cache``: the memories
-    each layer ends with. In training the mLSTM layers are rematerialized,
-    as the reference's scan body; the sLSTM layers are not."""
+    each layer ends with. On ``mesh`` (or ``train``'s) the layers are tensor
+    parallel over ``model`` (``_mlstm``, ``_slstm``), x and the cache the
+    rank's rows. In training the mLSTM layers are rematerialized, as the
+    reference's scan body; the sLSTM layers are not."""
+    if train is not None:
+        mesh = train.mesh
+    tp = _tp(cfg, mesh)
     n_seg, per = _xlstm_layout(cfg)
     mlstm, slstm = _layers(params["mlstm"]), _layers(params["slstm"])
     last = torch.zeros_like(x)
 
     def m_body(x, blk):
         blk = _use(train, blk, cfg, "mlstm")
-        return ssm.mlstm_forward(L.rms_norm(x, blk["ln"]), blk, cfg)
+        return _mlstm(L.rms_norm(x, blk["ln"]), blk, cfg, tp)
 
     for si in range(n_seg):
         for li in range(si * per, (si + 1) * per):
@@ -737,7 +836,7 @@ def _xlstm(x, params, cfg: ModelConfig, cache=None, train=None):
                 cache["mS"][li] = S
         x = x + last
         sl = _use(train, slstm[si], cfg, "slstm")
-        last, state = ssm.slstm_forward(L.rms_norm(x, sl["ln"]), sl, cfg)
+        last, state = _slstm(L.rms_norm(x, sl["ln"]), sl, cfg, tp)
         if cache is not None:
             for name, t in zip(("sh", "sc", "sn"), state):
                 cache[name][si] = t
@@ -764,14 +863,16 @@ def encode(params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     return _encode(params, cfg, enc_embeds)
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds, train=None) -> torch.Tensor:
+def _encode(params, cfg: ModelConfig, enc_embeds, train=None, mesh=None) -> torch.Tensor:
+    """``encode``; on ``mesh`` (or ``train``'s) tensor parallel over
+    ``model``, as the decoder's layers."""
     check_supported(cfg)
     if cfg.kind != "encdec" or enc_embeds is None:
         raise ValueError(f"{cfg.name}: encode needs an encoder-decoder and enc_embeds")
     e = torch.as_tensor(enc_embeds, device=params["embed"].device).to(_dt(cfg))
     b, s = e.shape[:2]
     e = _stack(e, params["enc_blocks"], cfg, _positions(b, s, e.device), None,
-               causal=False, train=train, group="enc_blocks")
+               causal=False, mesh=mesh, train=train, group="enc_blocks")
     return L.rms_norm(e, params["enc_norm"])
 
 
@@ -782,7 +883,7 @@ def _body(params, cfg: ModelConfig, x, positions, pos3, enc_h, cache=None, mesh=
     if cfg.kind == "hybrid":
         return _hybrid(x, params, cfg, positions, cache, train, mesh, cache_start)
     if cfg.kind == "xlstm":
-        return _xlstm(x, params, cfg, cache, train)
+        return _xlstm(x, params, cfg, cache, train, mesh)
     x = _stack(x, params["blocks"], cfg, positions, _pos3(cfg, positions, pos3),
                cross=params.get("cross"), enc_h=enc_h, cache=cache, mesh=mesh, train=train,
                local_rows=local_rows, cache_start=cache_start)
@@ -794,8 +895,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
     """Returns final hidden states [B, S, D]. tokens: [B, S] int (the
     decoder's input); enc_embeds: [B, S_src, D] for the encoder-decoder;
     pos3: [3, B, S] for M-RoPE; ``mesh``: the MoE's experts split over its
-    ``model`` axis and the GQA decoders tensor parallel over it
-    (``params`` are this rank's, ``sharding.serve_specs``)."""
+    ``model`` axis and the layers tensor parallel over it (``params`` are
+    this rank's, ``sharding.serve_specs``)."""
     return _forward(params, cfg, tokens, positions, pos3, enc_embeds, mesh)
 
 
@@ -806,7 +907,7 @@ def _forward(params, cfg: ModelConfig, tokens, positions=None, pos3=None,
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
-    enc_h = _encode(params, cfg, enc_embeds, train) if cfg.kind == "encdec" else None
+    enc_h = _encode(params, cfg, enc_embeds, train, mesh) if cfg.kind == "encdec" else None
     return _final_norm(params, *_body(params, cfg, x, positions, pos3, enc_h, mesh=mesh,
                                       train=train))
 
@@ -826,9 +927,9 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None) -> torch.Tensor:
 
     On ``mesh`` (training on a (data, model) mesh) ``params`` are this
     rank's placement (``sharding.train_specs``: FSDP blocks over ``data``,
-    the experts and the GQA decoders' tensor-parallel leaves over
-    ``model``) and ``batch`` is the whole batch; every rank
-    returns the whole batch's loss (``_train_loss``)."""
+    the experts and the tensor-parallel leaves over ``model``) and
+    ``batch`` is the whole batch; every rank returns the whole batch's loss
+    (``_train_loss``)."""
     if mesh is None:
         tot, cnt = _ce_sums(params, cfg, batch)
         return tot / torch.clamp(cnt, min=1.0)
@@ -1069,10 +1170,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     ``sc``, ``sn`` [L_s,B,D]. The encoder-decoder's also holds an encoder
     memory ``enc_h`` of ``enc_len`` frames (zero by default, as the
     reference's server leaves it). With ``mesh=`` it is this rank's block,
-    allocated as such (``sharding.serve_cache_specs``: K/V or MLA's rows
-    over the batch axes where ``batch_spec`` shards them and by slot over
-    ``model``, the hybrid's ``conv`` and ``ssm`` states over the batch axes
-    and by channel and head over ``model`` where its Mamba-2 layers split;
+    allocated as such (``sharding.serve_cache_specs``: every entry's rows
+    over the batch axes where ``batch_spec`` shards them; K/V or MLA's rows
+    by slot over ``model``, the hybrid's ``conv`` and ``ssm`` states by
+    channel and head and xLSTM's ``mS`` by head where their layers split;
     raises where the slots do not divide over ``model``, as
     ``sharding.shard_cache`` does), never the whole cache."""
     check_supported(cfg)
@@ -1099,8 +1200,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
         if cfg.kind == "encdec":
             shapes["enc_h"] = ((batch, enc_len, cfg.d_model), dt)
     shapes["len"] = ((), torch.int32)
-    if mesh is not None and sharding.sharded_cache(cfg):
-        sharding.check_slots(max_len, mesh)
+    if mesh is not None:
+        if cfg.kind != "xlstm":
+            sharding.check_slots(max_len, mesh)
         specs = sharding.serve_cache_specs(cfg, {k: sh for k, (sh, _) in shapes.items()},
                                            mesh, batch)
         shapes = {k: (sharding.block_shape(sh, specs[k], mesh), t)
@@ -1206,6 +1308,27 @@ def _gqa_decode_attn(h, blk, cfg: ModelConfig, k_cache, v_cache, slot, valid,
     return mesh_util.sum_over(o, tp.mesh, "model") if heads else o
 
 
+def _cross_decode_attn(h, xblk, cfg: ModelConfig, enc_h, mesh=None, tp=None):
+    """One token's cross-attention over the encoder's memory ``enc_h``,
+    its K and V recomputed every step, as the reference does. On ``mesh``
+    ``enc_h`` is the rank's rows of the batch (as the cache holds it), and
+    the rank attends its rows of q over them; with the heads split over
+    ``model`` (``tp.heads``) its query heads over the KV heads they read,
+    then its rows of ``xo``, summed over ``model``."""
+    b, hd = h.shape[0], cfg.hd
+    hq, kv0, nkv = _local_kv(cfg, tp)
+    heads = _heads(tp)
+    rows = None if mesh is None else sharding.batch_rows(mesh, b)
+    if rows is not None:
+        h = h[rows]
+    q = (h @ _block(xblk["xq"], -1, cfg.n_heads * hd, heads, "xq")).view(-1, hq, hd)
+    ke, ve = _cross_kv(enc_h, xblk, cfg, kv0, nkv)
+    o = _decode_attn(q, ke, ve, ke.shape[1])
+    o = L.gather_batch(o.reshape(-1, hq * hd), rows, mesh)
+    o = o @ _block(xblk["xo"], -2, cfg.n_heads * hd, heads, "xo")
+    return mesh_util.sum_over(o, tp.mesh, "model") if heads else o
+
+
 def _mla_decode_attn(h, blk, cfg: ModelConfig, ckv_c, kpe_c, slot, valid, positions,
                      mesh=None, tp=None):
     """One token's MLA (``repro.models.lm._mla_decode``): its latent and
@@ -1260,15 +1383,15 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     ``enc_h``, by default the cache's, and recomputes its K and V every
     step, as the reference does.
 
-    On ``mesh`` (GQA and MLA decoders, the hybrid) ``params`` and ``cache``
-    are this rank's (``models.sharding``): the row goes to the rank that
-    holds the slot, attention runs over each rank's slots and merges, the
-    layers are tensor parallel (``_tp``), the hybrid's Mamba-2 layers step
-    the rank's rows of their states, and the MoE splits its experts. The
-    encoder-decoder and xLSTM ignore ``mesh``, as the reference's do."""
+    On ``mesh`` ``params`` and ``cache`` are this rank's
+    (``models.sharding``): the row goes to the rank that holds the slot,
+    attention runs over each rank's slots and merges, the layers are
+    tensor parallel (``_tp``), the hybrid's Mamba-2 layers and xLSTM's
+    layers step the rank's rows of their states (and the rank's heads where
+    they split), the encoder-decoder's cross-attention runs the rank's rows
+    over its rows of the encoder's memory, and the MoE splits its experts.
+    ``enc_h``, where given, is as the cache holds it (the rank's rows)."""
     check_supported(cfg)
-    hd = cfg.hd
-    mesh = mesh if sharding.sharded_cache(cfg) else None
     tp = _tp(cfg, mesh)
 
     def decoder(x, params, cache, slot, valid, positions, enc_h):
@@ -1285,14 +1408,8 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
                 a = _gqa_decode_attn(h, blk, cfg, rows[0][i], rows[1][i], slot, valid,
                                      positions, mesh, tp)
             if cross is not None:
-                xblk = xlayers[i]
-                x, h = L.add_rms_norm(x, a, xblk["ln_x"])
-                b = x.shape[0]
-                q = (h @ xblk["xq"]).view(b, cfg.n_heads, hd)
-                ke = (enc_h @ xblk["xk"]).view(b, -1, cfg.n_kv_heads, hd)
-                ve = (enc_h @ xblk["xv"]).view(b, -1, cfg.n_kv_heads, hd)
-                o = _decode_attn(q, ke, ve, ke.shape[1])
-                a = o.reshape(b, cfg.n_heads * hd) @ xblk["xo"]
+                x, h = L.add_rms_norm(x, a, xlayers[i]["ln_x"])
+                a = _cross_decode_attn(h, xlayers[i], cfg, enc_h, mesh, tp)
             x, h = L.add_rms_norm(x, a, blk["ln2"])
             x = x + _ffn(h, blk, cfg, mesh, tp=tp)
         return x, None
@@ -1329,8 +1446,8 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
             for li in range(si * per, (si + 1) * per):
                 x = x + last
                 blk = mlstm[li]
-                out, (S,) = ssm.mlstm_forward(L.rms_norm(x, blk["ln"])[:, None], blk, cfg,
-                                              state=(cache["mS"][li],), decode=True)
+                out, (S,) = _mlstm(L.rms_norm(x, blk["ln"])[:, None], blk, cfg, tp,
+                                   state=(cache["mS"][li],), decode=True)
                 cache["mS"][li].copy_(S)
                 last = out[:, 0]
             x = x + last
@@ -1339,9 +1456,8 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
             # the reference casts the norm's output to float32 for the gates;
             # XLA computes its last op, the product with ``ln``, in float32
             xn = L.rms_norm(x, torch.ones_like(sl["ln"])).float() * sl["ln"].float()
-            out, state = ssm.slstm_forward(xn[:, None], sl, cfg,
-                                           state=tuple(cache[n][si] for n in names),
-                                           decode=True)
+            out, state = _slstm(xn[:, None], sl, cfg, tp,
+                                state=tuple(cache[n][si] for n in names), decode=True)
             for n, t in zip(names, state):
                 cache[n][si].copy_(t)
             last = out[:, 0]
@@ -1353,18 +1469,22 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         clen = torch.as_tensor(cache["len"], dtype=torch.int32, device=dev)
         positions = clen.reshape(1, 1).expand(x.shape[0], 1)
         valid = clen + 1
+        rows = None
         if cfg.kind == "xlstm":
-            x, last = xlstm(x, params, cache)
+            # the memories are the rank's rows over the batch axes: the step
+            # runs those rows, as prefill does, and gathers the logits
+            rows = None if mesh is None else sharding.batch_rows(mesh, x.shape[0])
+            x, last = xlstm(x if rows is None else x[rows], params, cache)
         else:
-            rows = cache["k"] if cfg.kind == "hybrid" else cache[_cache_rows(cfg)[0]]
-            slot = (torch.clamp(clen, max=rows.shape[2] - 1).reshape(1).long()
-                    if mesh is None else _mesh_slot(clen, rows.shape[2], x.shape[0], mesh))
+            kv = cache["k"] if cfg.kind == "hybrid" else cache[_cache_rows(cfg)[0]]
+            slot = (torch.clamp(clen, max=kv.shape[2] - 1).reshape(1).long()
+                    if mesh is None else _mesh_slot(clen, kv.shape[2], x.shape[0], mesh))
             if cfg.kind == "hybrid":
                 x, last = hybrid(x, params, cache, slot, valid, positions)
             else:
                 x, last = decoder(x, params, cache, slot, valid, positions,
                                   cache.get("enc_h") if enc_h is None else enc_h)
-        logits = _logits(params, _final_norm(params, x, last), tp)
+        logits = L.gather_batch(_logits(params, _final_norm(params, x, last), tp), rows, mesh)
         cols = torch.arange(cfg.padded_vocab, device=dev)
         logits = torch.where(cols[None, :] < cfg.vocab, logits, L.NEG)
         return logits, dict(cache, len=valid)
@@ -1383,56 +1503,39 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, enc_embeds=None,
     latent rows, the hybrid's K/V and states, xLSTM's memories; for the
     encoder-decoder also the encoder's memory of ``enc_embeds``).
 
-    On ``mesh`` ``params`` are this rank's (``sharding.serve_specs``) and the
-    cache returned is this rank's block. The decoders and the hybrid
-    (``sharding.tensor_parallel``) run the rank's rows of the batch where
-    ``batch_spec`` shards it (the MoE splits them no further), tensor
-    parallel over ``model`` (``_tp``), into a cache allocated as the rank's
-    block (``init_cache(mesh=)``: its rows, its slots over ``model``, the
-    prompt's rows that fall into those slots; the hybrid's states of its
-    rows and heads), and gather the last token's logits over ``model`` and
-    the batch axes: every rank returns the whole [B, V]. xLSTM and the
-    encoder-decoder run the whole batch and keep their cache whole
-    (``sharding.shard_cache`` leaves it)."""
+    On ``mesh`` ``params`` are this rank's (``sharding.serve_specs``), the
+    prefill runs the rank's rows of the batch (and of ``enc_embeds`` and
+    ``pos3``) where ``batch_spec`` shards it (the MoE splits them no
+    further), tensor parallel over ``model`` (``_tp``), into a cache
+    allocated as the rank's block (``init_cache(mesh=)``: its rows, its
+    slots over ``model`` and the prompt's rows that fall into those slots;
+    the hybrid's states of its rows and heads, xLSTM's memories of its rows
+    and heads, the encoder's memory of its rows), and gathers the last
+    token's logits over ``model`` and the batch axes: every rank returns
+    the whole [B, V]."""
     check_supported(cfg)
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=emb.device)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prefill: prompt of {s} tokens exceeds max_len {max_len}")
-    if mesh is not None and sharding.tensor_parallel(cfg):
-        return _prefill_mesh(params, cfg, tokens, max_len, pos3, mesh)
-    x = _embed(params, cfg, tokens)
-    positions = _positions(b, s, x.device)
-    cache = init_cache(cfg, b, max_len, device=x.device)
-    enc_h = None
-    if cfg.kind == "encdec":
-        enc_h = cache["enc_h"] = encode(params, cfg, enc_embeds)
-    x, last = _body(params, cfg, x, positions, pos3, enc_h, cache, mesh)
-    cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    cache = sharding.shard_cache(cache, cfg, mesh)
-    if last is not None:  # the last token's slice keeps XLA from fusing the add
-        x = x + last
-    return _logits(params, _final_norm(params, x[:, -1])), cache
-
-
-def _prefill_mesh(params, cfg: ModelConfig, tokens, max_len: int, pos3, mesh):
-    """``prefill`` of a ``tensor_parallel`` family (the decoders, the
-    hybrid) on ``mesh``: this rank's rows, its block of the cache, the
-    logits gathered whole."""
-    b, s = tokens.shape
-    rows = sharding.batch_rows(mesh, b)
+    rows = None if mesh is None else sharding.batch_rows(mesh, b)
     if rows is not None:
         tokens = tokens[rows]
         pos3 = None if pos3 is None else torch.as_tensor(pos3, device=tokens.device)[:, rows]
+        enc_embeds = None if enc_embeds is None else torch.as_tensor(enc_embeds)[rows]
     tp = _tp(cfg, mesh)
     x = _embed(params, cfg, tokens, tp)
     cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh)
-    start = mesh_util.rank_of(mesh, "model") * cache[_cache_rows(cfg)[0]].shape[2]
-    x, last = _body(params, cfg, x, _positions(x.shape[0], s, x.device), pos3, None, cache,
+    enc_h = None
+    if cfg.kind == "encdec":
+        enc_h = cache["enc_h"] = _encode(params, cfg, enc_embeds, mesh=mesh)
+    slots = next((cache[k].shape[2] for k in sharding.CACHE_ROWS if k in cache), 0)
+    start = 0 if mesh is None else mesh_util.rank_of(mesh, "model") * slots
+    x, last = _body(params, cfg, x, _positions(x.shape[0], s, x.device), pos3, enc_h, cache,
                     mesh, local_rows=rows is not None, cache_start=start)
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    if last is not None:
+    if last is not None:  # the last token's slice keeps XLA from fusing the add
         x = x + last
     logits = _logits(params, _final_norm(params, x[:, -1]), tp)
     return L.gather_batch(logits, rows, mesh), cache

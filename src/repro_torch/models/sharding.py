@@ -15,11 +15,10 @@ by its weight's placement. Here every rank of the mesh runs the same
 program (multi-controller), so placement is explicit and covers what the
 sharded bodies consume, nothing more (``model_leaves``):
 
-* the decoders and the hybrid (``tensor_parallel``; ``tp_leaves`` names
-  the leaves as ``group/leaf`` paths) take ``param_pspecs``'s ``model``
-  entries, and ``models.lm`` computes them tensor parallel (Megatron's
-  pair, ``core.mesh.copy_to`` before a column-split product and
-  ``sum_over`` after a row-split one):
+* every family takes ``param_pspecs``'s ``model`` entries on the leaves
+  that ``tp_leaves`` names (as ``group/leaf`` paths), and ``models.lm``
+  computes them tensor parallel (Megatron's pair, ``core.mesh.copy_to``
+  before a column-split product and ``sum_over`` after a row-split one):
   - GQA and M-RoPE: ``wq`` (columns) and ``wo`` (rows) by query head;
     ``w_gate`` and ``w_in`` (columns), ``w_out`` (rows);
   - MLA: ``wq_b`` and ``wkv_b`` (columns) and ``wo`` (rows) by head; the
@@ -27,34 +26,43 @@ sharded bodies consume, nothing more (``model_leaves``):
   - the hybrid: the Mamba-2 layers' ``w_in``, ``w_z`` (columns) and
     ``conv_w`` (channels) by SSM head, ``w_out`` by row; the shared
     block's attention and MLP as a GQA decoder's;
+  - the encoder-decoder: the encoder's and the decoder's layers as a GQA
+    decoder's, the cross block's ``xq`` (columns) and ``xo`` (rows) by
+    head;
+  - xLSTM: the mLSTM layers' ``w_q``, ``w_k``, ``w_v``, ``w_o`` (columns)
+    and ``w_out`` (rows) by head; the mLSTM gates ``w_gates`` and the
+    sLSTM layers' ``w_gates`` and ``r_gates`` by column, gathered whole at
+    their use (their column blocks are no rank's heads or units), and the
+    sLSTM ``w_out`` by row;
   - ``embed`` by vocab row.
-  Whole, as in the reference: ``wk``, ``wv``, MLA's ``wq_a``, ``q_ln``,
-  ``wkv_a`` and ``kv_ln``, the Mamba-2 layers' ``w_bc``, ``w_dt`` and the
-  per-head vectors ``A_log``, ``D_skip`` and ``dt_bias``, the router and
-  the norms. One difference from the reference: where the heads do not
-  divide over ``model`` (``n_heads % model != 0``), the leaves split by
-  head stay whole over ``model`` and their attention (or Mamba-2 layer)
-  runs whole on every rank, with the hybrid's ``conv`` and ``ssm`` states
-  whole over ``model`` too; the reference's ``_fit`` would cut them
-  mid-head wherever their width divides (the smoke configs on (1, 8): 4
-  heads, ``wq`` 64 columns, MLA's ``wq_b`` 96, the Mamba-2 ``d_in`` 128);
+  Whole, as in the reference: ``wk``, ``wv``, ``xk``, ``xv``, MLA's
+  ``wq_a``, ``q_ln``, ``wkv_a`` and ``kv_ln``, the Mamba-2 layers' ``w_bc``,
+  ``w_dt`` and the per-head vectors ``A_log``, ``D_skip`` and ``dt_bias``,
+  the router and the norms. One difference from the reference: where the
+  heads do not divide over ``model`` (``n_heads % model != 0``), the
+  leaves split by head stay whole over ``model`` and their attention (or
+  Mamba-2 or mLSTM layer) runs whole on every rank, with the hybrid's
+  ``conv`` and ``ssm`` states and xLSTM's ``mS`` whole over ``model`` too;
+  the reference's ``_fit`` would cut them mid-head wherever their width
+  divides (the smoke configs on (1, 8): 4 heads, ``wq`` 64 columns, MLA's
+  ``wq_b`` 96, the Mamba-2 ``d_in`` 128; xlstm-1.3b's 4 heads on a
+  16-wide ``model``);
 * every family's experts (``e_gate``, ``e_in``, ``e_out``) take their block
-  over ``model`` where ``moe_block`` splits them;
-* xLSTM and the encoder-decoder keep every other leaf whole and compute
-  it replicated over ``model``.
+  over ``model`` where ``moe_block`` splits them.
 
 ``serve_specs`` is that placement (no ``data`` entries: serving holds whole
 weights over the batch axes; the reference's prefill does too but for
 deepseek-v2, and its decode keeps every FSDP config's ``data`` entries,
 ``launch.specs``);
 ``shard_params`` cuts it from whole leaves and ``lm.init_params(mesh=)``
-draws it. The cache is the rank's block (``serve_cache_specs``): K/V
-(MLA's ``ckv``/``kpe``) over the batch axes, ``data`` or (``pod``,
-``data``), when ``batch_spec`` shards the batch, and over ``model`` by
-slot; the hybrid's ``conv`` and ``ssm`` states over the batch axes, and
-over ``model`` by channel and by head where its Mamba-2 leaves split;
-``lm.init_cache(mesh=)`` and ``lm.prefill(mesh=)`` allocate only that
-block, ``shard_cache`` cuts it from a whole cache.
+draws it. The cache is the rank's block (``serve_cache_specs``): every
+entry over the batch axes, ``data`` or (``pod``, ``data``), when
+``batch_spec`` shards the batch; K/V (MLA's ``ckv``/``kpe``) also over
+``model`` by slot, the hybrid's ``conv`` and ``ssm`` states by channel and
+by head where its Mamba-2 leaves split, and xLSTM's ``mS`` by head where
+its mLSTM leaves split (a second difference: ``cache_pspecs`` keeps ``mS``
+whole over ``model``); ``lm.init_cache(mesh=)`` and ``lm.prefill(mesh=)``
+allocate only that block, ``shard_cache`` cuts it from a whole cache.
 
 Training on a mesh keeps its own placement (``train_specs``): the same
 ``model`` entries, and on every leaf but the experts its ``data`` entries
@@ -241,40 +249,40 @@ def sharded_experts(cfg, mesh) -> bool:
             and cfg.moe.n_experts % axis_size(mesh, "model") == 0)
 
 
-def tensor_parallel(cfg) -> bool:
-    """Whether the family's dense leaves split over ``model`` on a mesh
-    (``tp_leaves``): the decoders (``kind`` dense or moe: GQA, M-RoPE and
-    MLA attention) and the hybrid. xLSTM and the encoder-decoder keep those
-    leaves whole."""
-    return cfg.kind in ("dense", "moe", "hybrid")
-
-
 def tp_leaves(cfg) -> tuple:
     """(the leaves split by head, the other leaves split, the whole leaves
-    whose gradient is partial) of a ``tensor_parallel`` family over
-    ``model``, as ``group/leaf`` paths (``embed`` at the top), with
-    ``param_pspecs``'s ``model`` entries: the one table of the split. By
-    head: the columns of ``wq`` (MLA: ``wq_b`` and ``wkv_b``) and the rows
-    of ``wo``; in the hybrid also the Mamba-2 layers' ``w_in``, ``w_z`` and
-    ``conv_w`` (channels) and ``w_out`` (rows), whose heads are
-    ``cfg.n_heads`` as the shared block's are. The others: the dense FFN
-    (``w_gate``, ``w_in`` by column, ``w_out`` by row), MLA's shared experts
-    (``sh_gate``, ``sh_in``, ``sh_out``), the shared block's MLP, and
-    ``embed`` by vocab row. Partial (``partial_leaves``): the leaves that
-    stay whole while the consumers of their outputs split by head, so that
-    each rank computes a part of their gradient: ``wk`` and ``wv`` (a rank
-    reads the KV heads of its query heads), MLA's latent projections
-    ``wq_a``, ``q_ln``, ``wkv_a`` and ``kv_ln``, and the Mamba-2 layers'
-    ``w_bc`` (B and C feed the rank's heads), ``w_dt``, ``dt_bias``,
-    ``A_log`` and ``D_skip`` (sliced to them)."""
-    if not tensor_parallel(cfg):
-        return (), (), ()
+    whose gradient is partial) of ``cfg``'s family over ``model``, as
+    ``group/leaf`` paths (``embed`` at the top), with ``param_pspecs``'s
+    ``model`` entries: the one table of the split. By head: the columns of
+    ``wq`` (MLA: ``wq_b`` and ``wkv_b``; the cross block's ``xq``) and the
+    rows of ``wo`` (``xo``); in the hybrid also the Mamba-2 layers'
+    ``w_in``, ``w_z`` and ``conv_w`` (channels) and ``w_out`` (rows), whose
+    heads are ``cfg.n_heads`` as the shared block's are; in xLSTM the mLSTM
+    layers' ``w_q``, ``w_k``, ``w_v``, ``w_o`` (columns) and ``w_out``
+    (rows). The others: the dense FFN (``w_gate``, ``w_in`` by column,
+    ``w_out`` by row; the encoder's too), MLA's shared experts (``sh_gate``,
+    ``sh_in``, ``sh_out``), the shared block's MLP, xLSTM's gates (the
+    mLSTM ``w_gates``, the sLSTM ``w_gates`` and ``r_gates`` by column) and
+    the sLSTM ``w_out`` by row, and ``embed`` by vocab row. Partial
+    (``partial_leaves``): the leaves that stay whole while the consumers of
+    their outputs split by head, so that each rank computes a part of their
+    gradient: ``wk`` and ``wv`` (a rank reads the KV heads of its query
+    heads; the encoder's too, and the cross block's ``xk`` and ``xv``),
+    MLA's latent projections ``wq_a``, ``q_ln``, ``wkv_a`` and ``kv_ln``,
+    and the Mamba-2 layers' ``w_bc`` (B and C feed the rank's heads),
+    ``w_dt``, ``dt_bias``, ``A_log`` and ``D_skip`` (sliced to them). xLSTM
+    has none: its gates are gathered whole at their use, and the gather
+    takes the gradient's part (``lm._whole_over_model``)."""
     if cfg.kind == "hybrid":
         return (("mamba/w_in", "mamba/w_z", "mamba/conv_w", "mamba/w_out",
                  "shared_attn/wq", "shared_attn/wo"),
                 ("shared_attn/w_gate", "shared_attn/w_in", "shared_attn/w_out", "embed"),
                 ("mamba/w_bc", "mamba/w_dt", "mamba/dt_bias", "mamba/A_log", "mamba/D_skip",
                  "shared_attn/wk", "shared_attn/wv"))
+    if cfg.kind == "xlstm":
+        return (tuple(f"mlstm/{n}" for n in ("w_q", "w_k", "w_v", "w_o", "w_out")),
+                ("mlstm/w_gates", "slstm/w_gates", "slstm/r_gates", "slstm/w_out", "embed"),
+                ())
     mla = cfg.attn == "mla"
     heads = ("wq_b", "wkv_b", "wo") if mla else ("wq", "wo")
     partial = ("wq_a", "q_ln", "wkv_a", "kv_ln") if mla else ("wk", "wv")
@@ -282,25 +290,31 @@ def tp_leaves(cfg) -> tuple:
     ffn = (() if mo is not None and not mo.n_shared else
            ("gate", "in", "out") if cfg.act == "swiglu" else ("in", "out"))
     prefix = "sh_" if mo is not None else "w_"
-    return (tuple(f"blocks/{n}" for n in heads),
-            tuple(f"blocks/{prefix}{n}" for n in ffn) + ("embed",),
-            tuple(f"blocks/{n}" for n in partial))
+    stacks = ("blocks", "enc_blocks") if cfg.kind == "encdec" else ("blocks",)
+    cross = cfg.kind == "encdec"
+    return (tuple(f"{g}/{n}" for g in stacks for n in heads)
+            + (("cross/xq", "cross/xo") if cross else ()),
+            tuple(f"{g}/{prefix}{n}" for g in stacks for n in ffn) + ("embed",),
+            tuple(f"{g}/{n}" for g in stacks for n in partial)
+            + (("cross/xk", "cross/xv") if cross else ()))
 
 
 def model_leaves(cfg, mesh) -> frozenset:
     """The leaves (``group/leaf`` paths) whose ``param_pspecs`` entry over
     ``model`` the port keeps on ``mesh`` (where ``_fit`` leaves one): the
-    experts where ``moe_block`` splits them; for ``tensor_parallel``
-    configs ``tp_leaves``'s, those split by head only where the heads
-    divide over ``model`` (never mid-head)."""
+    experts where ``moe_block`` splits them; ``tp_leaves``'s, those split
+    by head only where the heads divide over ``model`` (never
+    mid-head)."""
     if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
         return frozenset()
+    from repro_torch.models import lm
     keep = {f"blocks/{n}" for n in EXPERTS} if sharded_experts(cfg, mesh) else set()
     heads, other, _ = tp_leaves(cfg)
     keep.update(other)
     if cfg.n_heads % axis_size(mesh, "model") == 0:
         keep.update(heads)
-    return frozenset(keep)
+    fitted = _flat(param_pspecs(cfg, lm.param_shapes(cfg), mesh))
+    return frozenset(k for k in keep if ("model",) in fitted[k])
 
 
 def heads_split(cfg, mesh) -> bool:
@@ -316,6 +330,14 @@ def partial_leaves(cfg, mesh) -> frozenset:
     computes a part of on ``mesh`` (where the heads split), to be summed
     over ``model``."""
     return frozenset(tp_leaves(cfg)[2]) if heads_split(cfg, mesh) else frozenset()
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``tree``'s leaves by ``group/leaf`` path."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
 
 
 def _walk(fn, tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -358,13 +380,6 @@ def shard_params(params: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
     return walk(params, specs, shapes, "")
 
 
-def sharded_cache(cfg) -> bool:
-    """Whether the family's decode step takes the mesh (GQA and MLA
-    decoders, the hybrid's shared block): the encoder-decoder and xLSTM
-    decode on one device in the reference, with their cache whole."""
-    return cfg.kind in ("dense", "moe", "hybrid")
-
-
 def check_slots(slots: int, mesh) -> None:
     """Raises ValueError when a cache of ``slots`` slots does not divide
     over the ``model`` ranks, as the reference's ``shard_map`` refuses
@@ -376,18 +391,20 @@ def check_slots(slots: int, mesh) -> None:
 
 
 def shard_cache(cache: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
-    """Whole cache -> this rank's block under ``serve_cache_specs``: K/V
-    (MLA's ``ckv``/``kpe``) cut to the rank's rows over the batch axes when
-    ``batch_spec`` shards them and to its slots over ``model``, the hybrid's
-    ``conv`` and ``ssm`` states to its rows and (where its Mamba-2 layers
-    split) its channels or heads; every other entry the same tensor. Raises
-    ValueError when the slots do not divide over ``model``, as the
-    reference's ``shard_map`` refuses such a cache."""
-    if mesh is None or not sharded_cache(cfg):
+    """Whole cache -> this rank's block under ``serve_cache_specs``: every
+    entry cut to the rank's rows over the batch axes when ``batch_spec``
+    shards them, K/V (MLA's ``ckv``/``kpe``) to its slots over ``model``,
+    the hybrid's ``conv`` and ``ssm`` states (where its Mamba-2 layers
+    split) to its channels or heads, xLSTM's ``mS`` (where its mLSTM layers
+    split) to its heads; ``len`` the same tensor. Raises ValueError when
+    the slots do not divide over ``model``, as the reference's ``shard_map``
+    refuses such a cache."""
+    if mesh is None:
         return cache
     rows = [k for k in CACHE_ROWS if k in cache]
-    batch, slots = cache[rows[0]].shape[1:3]
-    check_slots(slots, mesh)
+    if rows:
+        check_slots(cache[rows[0]].shape[2], mesh)
+    batch = next(cache[k].shape[1] for k in CACHE_ROWS + ("mS",) if k in cache)
     specs = serve_cache_specs(cfg, cache, mesh, batch)
     return {k: local_block(v, specs[k], mesh, ("pod", "data", "model"))
             if spec_axes(specs[k]) else v for k, v in cache.items()}
@@ -410,24 +427,27 @@ def serve_specs(cfg, shapes: Dict[str, Any], mesh) -> Dict[str, Any]:
 
 def serve_cache_specs(cfg, cache: Dict[str, Any], mesh, batch: int) -> Dict[str, Any]:
     """Where a decode step on ``mesh`` keeps each entry of the cache
-    (``shard_cache``, ``lm.init_cache(mesh=)``), for the families whose
-    decode takes the mesh: ``cache_pspecs``'s on K/V (MLA's ``ckv`` and
-    ``kpe``); the hybrid's ``conv`` and ``ssm`` states by rows as
-    ``cache_pspecs`` places them, and over ``model`` by channel (``conv``)
-    and head (``ssm``) where its Mamba-2 leaves split (``model_leaves``;
-    whole over ``model`` where the heads do not divide, with the leaves);
-    every other entry whole."""
+    (``shard_cache``, ``lm.init_cache(mesh=)``): ``cache_pspecs``'s, rows
+    over the batch axes on every entry and K/V (MLA's ``ckv`` and ``kpe``)
+    by slot over ``model``; the hybrid's ``conv`` and ``ssm`` states over
+    ``model`` by channel and head where its Mamba-2 leaves split
+    (``model_leaves``; whole over ``model`` where the heads do not divide,
+    with the leaves). xLSTM's ``mS`` [L, B, H, dh, dh + 1] over ``model`` by
+    head where its mLSTM leaves split, which ``cache_pspecs`` keeps whole
+    over ``model``: the rank steps only its heads' memories, so a decode
+    step moves no memory over ``model`` (following ``cache_pspecs`` would
+    all-gather every layer's memories each step, about 2.8 GB at B 4 for
+    xlstm-1.3b); the rank holds less than the reference's, never more."""
     specs = cache_pspecs(cfg, cache, mesh, batch)
-    if not sharded_cache(cfg):
-        return {k: (None,) * len(sp) for k, sp in specs.items()}
-    ssm = "mamba/w_in" in model_leaves(cfg, mesh)
+    split = model_leaves(cfg, mesh)
 
     def keep(k, sp):
-        if k in CACHE_ROWS:
-            return sp
         if k in ("conv", "ssm"):
-            return tuple(None if ax == ("model",) and not ssm else ax for ax in sp)
-        return (None,) * len(sp)
+            return tuple(None if ax == ("model",) and "mamba/w_in" not in split else ax
+                         for ax in sp)
+        if k == "mS" and "mlstm/w_q" in split:
+            return sp[:2] + (("model",),) + sp[3:]
+        return sp
 
     return {k: keep(k, sp) for k, sp in specs.items()}
 

@@ -24,7 +24,7 @@ decode step copies the new state into its cache in place.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,9 +93,14 @@ def chunked_gla(q, k, v, log_a, gate, chunk: int = 128,
         qb, kb, vb = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
         L, g = L_all[:, c], gate[:, sl]                     # [B,C,H]
         total = L[:, -1:, :]
-        # intra-chunk: D_ij = exp(L_i - L_j) for j <= i, times gate_j
+        # intra-chunk: D_ij = exp(L_i - L_j) for j <= i, times gate_j. The
+        # mask goes inside the exp: above the diagonal L_i - L_j is the
+        # chunk's decay negated and can pass float32's range, and the
+        # reference's where(tri, exp(Ld), 0) then has a gradient of 0 * inf
+        # = NaN there (xlstm-1.3b at full width, 128-token chunks); the
+        # values are the same, and so is every gradient that is finite
         Ld = L[:, :, None, :] - L[:, None, :, :]             # [B,C,C,H]
-        D = torch.where(tri[None, :, :, None], torch.exp(Ld), 0.0)
+        D = torch.exp(torch.where(tri[None, :, :, None], Ld, float("-inf")))
         sc = torch.einsum("bihd,bjhd->bijh", qb, kb)
         w = sc * D * g[:, None, :, :]
         y_intra = torch.einsum("bijh,bjhd->bihd", w, vb)
@@ -195,21 +200,36 @@ def mamba2_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = Fals
 # mLSTM block (xLSTM): matrix memory, chunkwise through the same core
 # ---------------------------------------------------------------------------
 
-def mlstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False):
+def mlstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False,
+                  heads: Optional[slice] = None):
     """x: [B,S,D]. Matrix-memory LSTM with a normalizer, tracked as a ones
     column appended to v; sigmoid input gates, as in the reference. state:
     (S [B,H,dh,dh+1],), the start state of a prefill or the decoded one.
-    Returns (out [B,S,D], (S,))."""
+    Returns (out [B,S,D], (S,)).
+
+    ``heads``: only these heads (a contiguous block, a rank's under tensor
+    parallelism): ``w_q``, ``w_k``, ``w_v`` and ``w_o`` hold their columns
+    and ``w_out`` their rows, the state theirs; ``w_gates`` is whole (every
+    head's input gates, then every head's forget gates) and its gates are
+    sliced to them. ``out`` is then these heads' part of the output, to be
+    summed over the blocks. A leaf of any other width raises ValueError."""
     b, s, _ = x.shape
     d_in = cfg.ssm_expand * cfg.d_model
-    h = cfg.n_heads
-    dh = d_in // h
+    h_all = cfg.n_heads
+    dh = d_in // h_all
+    sel = slice(None) if heads is None else heads
+    h = len(range(h_all)[sel])
+    d_in = h * dh
+    for name, dim in (("w_q", -1), ("w_k", -1), ("w_v", -1), ("w_o", -1), ("w_out", -2)):
+        if p[name].shape[dim] != d_in:
+            raise ValueError(f"mlstm_forward: {name} of {p[name].shape[dim]} channels on "
+                             f"dim {dim}, {h} heads want {d_in}")
     q = (x @ p["w_q"]).reshape(b, s, h, dh)
     k = (x @ p["w_k"]).reshape(b, s, h, dh) * _const(dh ** -0.5, x)
     v = (x @ p["w_v"]).reshape(b, s, h, dh)
     gates = x @ p["w_gates"]                               # [B,S,2H]
-    i_g = sigmoid(gates[..., :h])
-    f_g = sigmoid(gates[..., h:]) * _const(0.999, x) + _const(0.0005, x)
+    i_g = sigmoid(gates[..., :h_all][..., sel])
+    f_g = sigmoid(gates[..., h_all:][..., sel]) * _const(0.999, x) + _const(0.0005, x)
     log_a = torch.log(f_g)
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     if decode:
@@ -229,11 +249,10 @@ def mlstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False
 # sLSTM block: scalar memory, a sequential scan over tokens
 # ---------------------------------------------------------------------------
 
-def _slstm_cell(xg_t, h, c, n, r_gates):
-    """One sLSTM token: xg_t [B,4D] (the input's gate terms), state h, c, n
-    [B,D], all float32. Returns the new (h, c, n)."""
-    d = h.shape[-1]
-    g = xg_t + h @ r_gates
+def _slstm_cell(g, c, n):
+    """One sLSTM token from its gates g [B,4D] (input and recurrent terms
+    summed), state c, n [B,D], all float32. Returns the new (h, c, n)."""
+    d = c.shape[-1]
     i_t = torch.exp(torch.clamp(g[..., :d], -10, 5))
     f_t = sigmoid(g[..., d:2 * d])
     z_t = torch.tanh(g[..., 2 * d:3 * d])
@@ -243,12 +262,19 @@ def _slstm_cell(xg_t, h, c, n, r_gates):
     return o_t * c / torch.clamp(n, min=1.0), c, n
 
 
-def slstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False):
+def slstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False,
+                  gather: Optional[Callable] = None, cut: Optional[Callable] = None):
     """x: [B,S,D] (in the model's type, or float32); gates from the input
     and the recurrent hidden state, in float32 (the reference's float32
     token times its bf16 weights); the output in the weights' type. state:
     (h, c, n), each [B,D] float32, zeros if not given. Returns (out [B,S,D],
-    (h, c, n))."""
+    (h, c, n)).
+
+    Under tensor parallelism (the caller's collectives): ``gather`` takes a
+    token's gates computed from column blocks of ``w_gates`` and
+    ``r_gates`` [B, 4D / ways] to the whole [B, 4D] (an all-gather), each
+    token; ``cut`` takes the hidden states [B,S,D] to the units whose rows
+    of ``w_out`` p holds, and ``out`` is then their part, to be summed."""
     b, s, d = x.shape
     if state is None:
         state = tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
@@ -257,8 +283,12 @@ def slstm_forward(x, p, cfg, state: Optional[Tuple] = None, decode: bool = False
     # every token's input term in one product: the same sums as one a token
     xg = x[:, :1 if decode else s].float() @ p["w_gates"].float()   # [B,S,4D]
     steps = []
+    h, c, n = state
     for t in range(xg.shape[1]):
-        state = _slstm_cell(xg[:, t], *state, r_gates)
-        steps.append(state[0])
+        g = xg[:, t] + h @ r_gates
+        h, c, n = _slstm_cell(g if gather is None else gather(g), c, n)
+        steps.append(h)
     hs = torch.stack(steps, dim=1)
-    return hs.to(p["w_out"].dtype) @ p["w_out"], state
+    if cut is not None:
+        hs = cut(hs)
+    return hs.to(p["w_out"].dtype) @ p["w_out"], (h, c, n)

@@ -652,6 +652,7 @@ LM_MESH_DTYPE = {(2, 4): "bfloat16", (1, 8): "float32"}  # of each 2-D mesh's LM
 LM_POD_RUNS = (("granite-3-2b", "float32"), ("granite-3-2b", "bfloat16"),
                ("granite-moe-1b-a400m", "float32"))
 LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_MAX_LEN, LM_MESH_STEPS = 4, 14, 64, 3
+LM_MESH_FRAMES = 7  # the encoder-decoder's frames (its prefill's enc_embeds)
 LM_F32_TOL, LM_BF16_TOL = 2e-4, 3e-2  # the port's LM bars (tests/test_torch_lm_families.py)
 ATTN_SHAPE = (8, 2, 16)  # query heads, KV heads, head dim of the attention cases
 
@@ -713,11 +714,14 @@ def lm_mesh_cases(shape: tuple) -> list:
 
 def lm_mesh_config(case: dict, smoke_config: Callable):
     """The case's model config from ``smoke_config`` (either package's
-    ``get_smoke_config``), in the case's type."""
+    ``get_smoke_config``), in the case's type, with the case's
+    ``n_heads`` where it names one."""
     import dataclasses
     arch = case.get("arch", "deepseek-v2-236b" if case["kind"] == "mla"
                     else "granite-moe-1b-a400m")
     cfg = dataclasses.replace(smoke_config(arch), dtype=case["dtype"])
+    if case.get("heads"):
+        cfg = dataclasses.replace(cfg, n_heads=case["heads"])
     if case["kind"] == "moe":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                n_experts=case["experts"]))
@@ -775,6 +779,8 @@ def lm_mesh_inputs(case: dict, cfg) -> dict:
     if kind == "lm":
         out["prompt"] = rng.integers(0, cfg.vocab, (LM_MESH_BATCH, case["prompt"])).astype(np.int32)
         out["steps"] = rng.integers(0, cfg.vocab, (LM_MESH_STEPS, LM_MESH_BATCH)).astype(np.int32)
+        if cfg.kind == "encdec":
+            out["enc"] = normal(LM_MESH_BATCH, LM_MESH_FRAMES, cfg.d_model)
     else:  # serve: 6 prompts of 4-11 tokens, 4 new tokens each
         out["prompts"] = [rng.integers(0, cfg.vocab, rng.integers(4, 12)).astype(np.int32)
                           for _ in range(6)]
@@ -881,12 +887,13 @@ def _saved_for_spread(label: str, got, want, note: str, say_line: Callable) -> d
     return {label: got.float().numpy(), label + ONE_DEVICE: want.float().numpy()}
 
 
-def _one_device_logits(cfg, params, prompt, steps):
-    """``prefill`` and a decode step a token of ``steps`` on one device:
-    the logits [1 + steps, B, V]."""
+def _one_device_logits(cfg, params, prompt, steps, enc=None):
+    """``prefill`` (over the frames ``enc`` for the encoder-decoder) and a
+    decode step a token of ``steps`` on one device: the logits [1 + steps,
+    B, V]."""
     import torch
     from repro_torch.models import lm
-    lg, cache = lm.prefill(params, cfg, prompt, LM_MESH_MAX_LEN)
+    lg, cache = lm.prefill(params, cfg, prompt, LM_MESH_MAX_LEN, enc_embeds=enc)
     step = lm.make_decode_step(cfg)
     out = [lg]
     for tok in steps:
@@ -946,12 +953,17 @@ def lm_mesh_suite(rank: int, ways: int, out_dir: Optional[str] = None) -> None:
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism over model: the decoders and the hybrid on a mesh
+# tensor parallelism over model: every family on a mesh
 # ---------------------------------------------------------------------------
 
-TP_SHAPES = ((2, 4), (2, 2, 2), (1, 8))  # on (1, 8) the 4 smoke heads stay whole
+# on (1, 8) the 4 smoke heads stay whole; xLSTM's 2 split only on (2, 2, 2)
+TP_SHAPES = ((2, 4), (2, 2, 2), (1, 8))
 TP_ARCHS = ("deepseek-67b", "deepseek-v2-236b", "granite-3-2b", "granite-moe-1b-a400m",
-            "nemotron-4-15b", "qwen2-vl-72b", "stablelm-12b", "zamba2-1.2b")
+            "nemotron-4-15b", "qwen2-vl-72b", "seamless-m4t-medium", "stablelm-12b",
+            "xlstm-1.3b", "zamba2-1.2b")
+# the float32 xLSTM case whose mLSTM heads split over 4 model ranks: (arch,
+# n_heads, mesh)
+TP_HEADS_CASE = ("xlstm-1.3b", 4, (2, 4))
 TP_MOE = ("deepseek-v2-236b", "granite-moe-1b-a400m")  # 4 experts in the smoke configs
 TP_BATCH = 8  # rows of the loss's batch, of TRAIN_MESH_SEQ tokens
 TP_SERVE_SHAPE = (2, 4)  # the mesh of the float32 serve loops
@@ -959,11 +971,12 @@ TP_SERVE_SHAPE = (2, 4)  # the mesh of the float32 serve loops
 
 def tp_cases() -> list:
     """The cases of the ``tp`` suite, in the order the ranks run them: each
-    decoder's and the hybrid's smoke config in float32 and bfloat16 on each mesh of
-    ``TP_SHAPES``; ``serve``: the float32 cases on ``TP_SERVE_SHAPE`` also
-    run the serve loop. ``ref`` names the reference that the loss's gradient is
-    held to: ``"one"`` where the experts split over more than one ``model``
-    rank (its mesh gradient is not its loss's, ROADMAP §3), else
+    arch's smoke config in float32 and bfloat16 on each mesh of
+    ``TP_SHAPES``, and ``TP_HEADS_CASE`` (``heads``: its ``n_heads``) in
+    float32; ``serve``: the float32 cases on ``TP_SERVE_SHAPE`` also run
+    the serve loop. ``ref`` names the reference that the loss's gradient
+    is held to: ``"one"`` where the experts split over more than one
+    ``model`` rank (its mesh gradient is not its loss's, ROADMAP §3), else
     ``"mesh"``."""
     cases = []
     for shape in TP_SHAPES:
@@ -974,6 +987,10 @@ def tp_cases() -> list:
                                   shape=shape, arch=arch, dtype=dtype, prompt=LM_MESH_PROMPT,
                                   ref="one" if split else "mesh",
                                   serve=dtype == "float32" and shape == TP_SERVE_SHAPE))
+    arch, heads, shape = TP_HEADS_CASE
+    cases.append(dict(label=f"{mesh_tag(shape)}/tp/float32/{arch}/h{heads}", kind="lm",
+                      shape=shape, arch=arch, dtype="float32", prompt=LM_MESH_PROMPT,
+                      heads=heads, ref="mesh", serve=False))
     return cases
 
 
@@ -991,9 +1008,10 @@ def tp_inputs(case: dict, cfg) -> dict:
 
 # the bf16 smoke configs whose reference moves its logits past the LM bar
 # between its own tensor-parallel mesh program (params under param_pspecs)
-# and one device: zamba2's, by 0.046-0.097 on (2, 4), (2, 2, 2) and (1, 8)
-# (its Mamba-2 states carry the partial sums' other rounding)
-SPREAD_ARCHS = ("zamba2-1.2b",)
+# and one device, on (2, 4), (2, 2, 2) and (1, 8): zamba2's by 0.046-0.097
+# (its Mamba-2 states carry the partial sums' other rounding), xLSTM's by
+# 0.061-0.168 (its mLSTM memories and sLSTM states carry it)
+SPREAD_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")
 ONE_DEVICE = "#one-device"  # the key suffix of a rank's one-device logits
 
 
@@ -1072,19 +1090,23 @@ def _tp_case(case: dict, mesh, say_line: Callable) -> dict:
             raise AssertionError(f"{label}: {k} of {tuple(w.shape)}, its block is {want}")
     split = sorted(k for k, sp in specs.items() if sharding.spec_axes(sp))
     prompt, steps = torch.from_numpy(inp["prompt"]), torch.from_numpy(inp["steps"])
-    logits, srv.cache = lm.prefill(srv.params, cfg, prompt, LM_MESH_MAX_LEN, mesh=mesh)
+    enc = torch.from_numpy(inp["enc"]) if "enc" in inp else None
+    logits, srv.cache = lm.prefill(srv.params, cfg, prompt, LM_MESH_MAX_LEN, enc_embeds=enc,
+                                   mesh=mesh)
     got = [logits]
     for tok in steps:
         srv.decode(tok)
         got.append(srv.logits)
-    got, want = torch.stack(got).float(), _one_device_logits(cfg, whole, prompt, steps).float()
+    got = torch.stack(got).float()
+    want = _one_device_logits(cfg, whole, prompt, steps, enc).float()
     tol, spread = lm_tol(case["dtype"]), spread_case(case)
     if spread:  # held to each other in the test (``spread_bar``)
         out = {f"{label}/lm": got.numpy(), f"{label}/lm{ONE_DEVICE}": want.numpy()}
     else:
         torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=lambda m: f"{label}: {m}")
         out = {f"{label}/lm": got.numpy()}
-    note = f"cache block {list(srv.cache[lm._cache_rows(cfg)[0]].shape)}"
+    note = ", ".join(f"{k} block {list(v.shape)}" for k, v in srv.cache.items()
+                     if k in ("k", "ckv", "conv", "mS", "sh", "enc_h"))
     if case["serve"]:
         tokens = serve_tokens(cfg, whole, inp, mesh)[0]
         np.testing.assert_array_equal(tokens, serve_tokens(cfg, whole, inp, None)[0],

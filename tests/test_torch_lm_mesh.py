@@ -157,7 +157,9 @@ def test_placement_cuts_only_experts_and_attention_cache(shape, split):
     the router, the norms) is the same tensor. Of the cache it cuts only
     the attention rows: ``init_cache(mesh=)`` allocates the block that
     ``shard_cache`` cuts, both refuse slots that do not divide over
-    ``model``, and the encoder-decoder's and xLSTM's caches stay whole."""
+    ``model``; the encoder-decoder's cache is cut as a decoder's, its
+    encoder memory by rows, and xLSTM's memories by rows (and ``mS`` by
+    head where its 2 smoke heads divide, on no mesh of these)."""
     class Ranked(_Mesh):
         def get_local_rank(self, axis):
             return 0
@@ -196,10 +198,20 @@ def test_placement_cuts_only_experts_and_attention_cache(shape, split):
                 lambda: lm.init_cache(cfg, 4, 62, device="cpu", mesh=mesh)):
         with pytest.raises(ValueError, match="do not divide"):
             bad()
+    rows = 4 // shape[0]
     for arch in ("seamless-m4t-medium", "xlstm-1.3b"):
         c = get_smoke_config(arch)
-        whole = lm.init_cache(c, 4, 62, enc_len=3, device="cpu")
-        assert sharding.shard_cache(whole, c, mesh) is whole
+        whole = lm.init_cache(c, 4, 64, enc_len=3, device="cpu")
+        local = sharding.shard_cache(whole, c, mesh)
+        made = lm.init_cache(c, 4, 64, enc_len=3, device="cpu", mesh=mesh)
+        assert {k: tuple(v.shape) for k, v in made.items()} == {
+            k: tuple(v.shape) for k, v in local.items()}
+        want = ({"k": (c.n_layers, rows, 64 // ways, c.n_kv_heads, c.hd),
+                 "enc_h": (rows, 3, c.d_model)} if c.kind == "encdec" else
+                {"mS": (2, rows) + tuple(whole["mS"].shape[2:]), "sh": (2, rows, c.d_model)})
+        for k, sh in want.items():
+            assert tuple(local[k].shape) == sh, (arch, k, local[k].shape)
+        assert local["len"] is whole["len"]
 
 
 def test_mesh_entry_points_raise_without_cuda(monkeypatch):

@@ -63,6 +63,37 @@ def test_chunked_gla_matches_jax(s, chunk, with_state, dtype, jd, td):
     _close(St, Sj, TOLS[dtype])
 
 
+@pytest.mark.parametrize("decay", [0.3, 3.0])
+def test_chunked_gla_gradient_is_finite_past_the_decay_range(decay):
+    """The intra-chunk decay exp(L_i - L_j) above the diagonal passes
+    float32's range where a chunk decays by more than about 88 (``decay``
+    3: |log_a| about 2.4 a token over 64 tokens): the reference's
+    ``where(tri, exp(Ld), 0)`` then has a gradient of 0 * inf = NaN for
+    ``log_a``, the port's exp of the masked ``Ld`` none. Where the
+    reference's gradient is finite (``decay`` 0.3) the two agree, as the
+    outputs do in both."""
+    rng = np.random.default_rng(5)
+    q, k, v, log_a, gate = _gla_inputs(rng, 1, 64, 2, 4, 3)
+    log_a = (log_a * decay / 0.3).astype(np.float32)
+    w = rng.standard_normal((1, 64, 2, 3)).astype(np.float32)
+
+    def jloss(la):
+        return jnp.sum(jssm.chunked_gla(*(jnp.asarray(a) for a in (q, k, v)), la,
+                                        jnp.asarray(gate), chunk=64)[0] * w)
+
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(log_a)))
+    la = torch.from_numpy(log_a).requires_grad_()
+    y, _ = ssm.chunked_gla(*(torch.from_numpy(a) for a in (q, k, v)), la,
+                           torch.from_numpy(gate), chunk=64)
+    (y * torch.from_numpy(w)).sum().backward()
+    got = la.grad.numpy()
+    assert np.isfinite(got).all()
+    if decay < 1:
+        _close(got, want, 2e-4)
+    else:
+        assert not np.isfinite(want).all()
+
+
 @pytest.mark.parametrize("n", [1, 12, 16, 17, 37, 128, 300])
 @pytest.mark.parametrize("dtype,jd,td", DTYPES)
 def test_cumsum_matches_xla(n, dtype, jd, td):

@@ -1,25 +1,28 @@
-"""Tensor parallelism over ``model`` for the port's decoders (GQA, M-RoPE
-and MLA) and the Mamba-2 hybrid on a mesh, against the JAX package's
-``param_pspecs`` and ``cache_pspecs`` placement under GSPMD, on the CPU.
+"""Tensor parallelism over ``model`` for every family of the port on a
+mesh (the GQA, M-RoPE and MLA decoders, the encoder-decoder, the Mamba-2
+hybrid and xLSTM), against the JAX package's ``param_pspecs`` and
+``cache_pspecs`` placement under GSPMD, on the CPU.
 
 In process: the serving and training placements (``sharding.serve_specs``,
-``sharding.train_specs``) of the eight archs, full and smoke, give every
+``sharding.train_specs``) of the ten archs, full and smoke, give every
 leaf the block that ``NamedSharding(mesh, param_pspecs)`` gives it on an
 ``AbstractMesh`` of (2, 4), (2, 2, 2), (1, 8), (16, 16) and (2, 16, 16)
 (serving without the ``data`` entries; the experts without theirs, as the
 port's training keeps them), and ``init_cache(mesh=)`` every cache entry
-the block of ``cache_pspecs``, but for the one documented difference:
-where the heads do not divide over ``model`` the port keeps the leaves
-split by head whole (and the hybrid's ``conv`` and ``ssm`` states), where
-the reference's ``_fit`` cuts them mid-head. ``init_params(mesh=)`` draws
-each rank's blocks of the whole init; xLSTM and the encoder-decoder keep
-their placement.
+the block of ``cache_pspecs``, but for two documented differences: where
+the heads do not divide over ``model`` the port keeps the leaves split by
+head whole (and the hybrid's ``conv`` and ``ssm`` states), where the
+reference's ``_fit`` cuts them mid-head; where xLSTM's mLSTM heads divide
+the port splits its ``mS`` memories by head, which ``cache_pspecs`` keeps
+whole over ``model``. ``init_params(mesh=)`` draws each rank's blocks of
+the whole init.
 
 In subprocesses, started together: ``python -m repro_torch.testing tp``
-on an 8-rank gloo group (every case of ``testing.tp_cases``: the eight
+on an 8-rank gloo group (every case of ``testing.tp_cases``: the ten
 archs' smoke configs in float32 and bfloat16 on (2, 4), (2, 2, 2) and
-(1, 8); each rank holds each result to its own one-device run), and this
-file run as a script once an arch on 8 forced host devices
+(1, 8), and xLSTM with 4 heads in float32 on (2, 4); each rank holds each
+result to its own one-device run), and this file run as a script once a
+group of archs (``JAX_GROUPS``) on 8 forced host devices
 (``--xla_force_host_platform_device_count=8``), where the reference's
 params are ``device_put`` under ``NamedSharding(mesh, param_pspecs)`` so
 that GSPMD runs its tensor-parallel program. Each rank's results are held
@@ -30,10 +33,10 @@ block of every gradient leaf at ``testing.tp_bar`` (2e-4 in float32 of the
 leaf's largest |g|, 3e-2 in bfloat16; the MoEs' bfloat16 gradients are not
 held, ``testing.tp_holds_grads``); in float32 the serve loop's tokens
 exactly on (2, 4), against the reference's server and one device. zamba2
-in bfloat16 (``testing.spread_case``), whose reference moves past those
-bars between its own mesh program and one device: its logits against the
-rank's one-device run at ``lm_tol`` more than the reference's spread, its
-gradients at the larger of ``tp_bar`` and that spread. Where the MoE's
+and xLSTM in bfloat16 (``testing.spread_case``), whose reference moves
+past those bars between its own mesh program and one device: their logits
+against the rank's one-device run at ``lm_tol`` more than the reference's
+spread, their gradients at the larger of ``tp_bar`` and that spread. Where the MoE's
 experts split over ``model`` the gradient is held to the reference's
 one-device gradient: its ``shard_map`` gradient is not its loss's there
 (ROADMAP §3).
@@ -65,6 +68,11 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 RUN_TIMEOUT_S = 900
 CASES = T.tp_cases()
 SPEC_SHAPES = T.TP_SHAPES + ((16, 16), (2, 16, 16))
+# the reference's side: one process a group of archs, eight processes for the
+# ten archs (four of the cheaper decoders in pairs) beside the 8 gloo ranks
+JAX_GROUPS = (("deepseek-67b",), ("deepseek-v2-236b",), ("granite-3-2b", "qwen2-vl-72b"),
+              ("granite-moe-1b-a400m",), ("nemotron-4-15b", "stablelm-12b"),
+              ("seamless-m4t-medium",), ("xlstm-1.3b",), ("zamba2-1.2b",))
 
 
 def _names(shape) -> tuple:
@@ -152,32 +160,42 @@ def test_blocks_are_param_pspecs_shard_shapes(arch, which, shape):
 
 @pytest.mark.parametrize("shape", SPEC_SHAPES, ids=T.mesh_tag)
 @pytest.mark.parametrize("batch", [4, 1])
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "seamless-m4t-medium", "xlstm-1.3b",
+                                  "zamba2-1.2b"])
 def test_cache_blocks_are_cache_pspecs_shard_shapes(arch, batch, shape):
     """The cache's blocks under ``serve_cache_specs``: ``init_cache(mesh=)``
     allocates ``NamedSharding(mesh, cache_pspecs).shard_shape`` of every
     entry of the reference's cache (MLA's ``ckv`` and ``kpe`` by rows and
     slots; the hybrid's K/V by rows and slots, its ``conv`` by rows and
-    channels, its ``ssm`` by rows and heads), full and smoke, but for the
-    hybrid's ``conv`` where the SSM heads do not divide over ``model``
-    (the smoke config on (1, 8), 4 heads): whole over ``model``, as its
-    Mamba-2 leaves are, where the reference's ``_fit`` cuts the 128
-    channels mid-head. ``shard_cache`` cuts the same blocks."""
+    channels, its ``ssm`` by rows and heads; the encoder-decoder's K/V by
+    rows and slots, its ``enc_h`` by rows; xLSTM's ``mS``, ``sh``, ``sc``
+    and ``sn`` by rows), full and smoke, but for two documented
+    differences: the hybrid's ``conv`` where the SSM heads do not divide
+    over ``model`` (the smoke config on (1, 8), 4 heads): whole over
+    ``model``, as its Mamba-2 leaves are, where the reference's ``_fit``
+    cuts the 128 channels mid-head; and xLSTM's ``mS`` where its mLSTM
+    heads divide (xlstm-1.3b's 4 on (2, 4) and (2, 2, 2), the smoke
+    config's 2 on (2, 2, 2)): split over ``model`` by head, the rank's
+    heads' memories, where ``cache_pspecs`` keeps them whole.
+    ``shard_cache`` cuts the same blocks."""
     mesh, amesh = _Mesh(shape), AbstractMesh(shape, _names(shape))
     for which in ("full", "smoke"):
         jcfg, tcfg = _configs(arch, which)
-        jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, 64))
+        jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, batch, 64, enc_len=8))
         jspecs = jsharding.cache_pspecs(jcfg, jcache, amesh, batch)
-        made = lm.init_cache(tcfg, batch, 64, device="meta", mesh=mesh)
+        made = lm.init_cache(tcfg, batch, 64, enc_len=8, device="meta", mesh=mesh)
         assert set(made) == set(jcache)
         heads = tcfg.n_heads % shape[-1] == 0
         for k, p in jspecs.items():
             if k == "conv" and not heads:
                 p = jax.sharding.PartitionSpec(*(None if e == "model" else e for e in p))
+            if k == "mS" and heads:
+                assert p[2] is None  # cache_pspecs: whole over model
+                p = jax.sharding.PartitionSpec(*p[:2], "model", *p[3:])
             want = NamedSharding(amesh, p).shard_shape(tuple(jcache[k].shape))
             assert tuple(made[k].shape) == tuple(want), (which, k, made[k].shape, want)
         if which == "smoke":
-            whole = lm.init_cache(tcfg, batch, 64, device="cpu")
+            whole = lm.init_cache(tcfg, batch, 64, enc_len=8, device="cpu")
             cut = sharding.shard_cache(whole, tcfg, mesh)
             assert {k: tuple(v.shape) for k, v in cut.items()} == {
                 k: tuple(v.shape) for k, v in made.items()}
@@ -185,13 +203,16 @@ def test_cache_blocks_are_cache_pspecs_shard_shapes(arch, batch, shape):
 
 @pytest.mark.parametrize("arch", T.TP_ARCHS)
 def test_mid_head_cut_is_refused(arch):
-    """The one difference from the reference, pinned: on (1, 8) the smoke
-    config's 4 heads do not divide, yet the widths of the leaves split by
-    head do (``wq`` 64 columns; MLA's ``wq_b`` 96, ``wkv_b`` 128; the
-    Mamba-2 layers' 128 channels), which the reference's ``_fit`` splits 8
-    ways (half a head a rank); the port keeps those leaves whole (and the
-    hybrid's ``conv`` and ``ssm`` states over ``model``) and still splits
-    the FFN and the vocab."""
+    """The difference from the reference, pinned: on (1, 8) the smoke
+    config's heads (4; xLSTM's 2) do not divide, yet the widths of the
+    leaves split by head do (``wq`` 64 columns; MLA's ``wq_b`` 96,
+    ``wkv_b`` 128; the Mamba-2 layers' 128 channels; the mLSTM's 128),
+    which the reference's ``_fit`` splits 8 ways (half a head a rank or
+    less); the port keeps those leaves whole (and the hybrid's ``conv`` and
+    ``ssm`` states and xLSTM's ``mS`` over ``model``) and still splits the
+    FFN (xLSTM: the sLSTM layers) and the vocab. The same for xlstm-1.3b's
+    4 heads on a 16-wide ``model``, whose ``w_q`` of 4,096 columns the
+    reference cuts in 16."""
     jcfg, tcfg = _configs(arch, "smoke")
     amesh = AbstractMesh((1, 8), ("data", "model"))
     jspecs = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg), amesh)))
@@ -201,30 +222,60 @@ def test_mid_head_cut_is_refused(arch):
     for k in heads:
         assert "model" in tuple(jspecs[k]) and not sharding.spec_axes(got[k]), k
     assert got["embed"][0] == ("model",)
-    ffn = [k for k in other if k.endswith(("/w_in", "/sh_in")) and k in got]
+    ffn = [k for k in other if k.endswith(("/w_in", "/sh_in", "slstm/w_gates")) and k in got]
     assert bool(ffn) == (tcfg.moe is None or tcfg.moe.n_shared > 0), ffn
     assert all(got[k][-1] == ("model",) for k in ffn), ffn
-    if tcfg.kind == "hybrid":
+    if tcfg.kind in ("hybrid", "xlstm"):
         cache = lm.init_cache(tcfg, 4, 64, device="meta")
         jcache = jax.eval_shape(lambda: jlm.init_cache(jcfg, 4, 64))
         jc = jsharding.cache_pspecs(jcfg, jcache, amesh, 4)
         tc = sharding.serve_cache_specs(tcfg, cache, _Mesh((1, 8)), 4)
-        assert "model" in tuple(jc["conv"]) and ("model",) not in tc["conv"]
-        assert ("model",) not in tc["ssm"] and tc["k"][2] == ("model",)
+        if tcfg.kind == "hybrid":
+            assert "model" in tuple(jc["conv"]) and ("model",) not in tc["conv"]
+            assert ("model",) not in tc["ssm"] and tc["k"][2] == ("model",)
+        else:
+            assert ("model",) not in tc["mS"] and "model" not in tuple(jc["mS"])
+    if tcfg.kind == "xlstm":
+        jfull, tfull = _configs(arch, "full")
+        amesh = AbstractMesh((16, 16), ("data", "model"))
+        jspecs = dict(_flat(jsharding.param_pspecs(jfull, jlm.param_shapes(jfull), amesh)))
+        got = dict(_flat(sharding.serve_specs(tfull, lm.param_shapes(tfull), _Mesh((16, 16)))))
+        assert tfull.n_heads % 16
+        for k in heads:
+            assert "model" in tuple(jspecs[k]) and not sharding.spec_axes(got[k]), k
+        assert all(got[k][-1] == ("model",) for k in ("slstm/w_gates", "slstm/r_gates"))
 
 
-@pytest.mark.parametrize("arch", sorted(set(J_ARCHS) - set(T.TP_ARCHS)))
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "xlstm-1.3b"])
 def test_other_families_keep_their_placement(arch):
-    """xLSTM and the encoder-decoder split only the experts over
-    ``model``, as before (they have none), and keep their caches whole."""
+    """The two families that kept every dense leaf whole over ``model``
+    before the rest (the encoder-decoder and xLSTM) now keep the
+    reference's: their leaves of ``tp_leaves`` split as ``param_pspecs``
+    splits them where the heads divide ((2, 4), (16, 16) for seamless's 16
+    heads; (2, 4) alone for xlstm-1.3b's 4), and every entry of their cache
+    by rows over the batch axes (with slots over ``model`` for the
+    encoder-decoder's K/V, heads for xLSTM's ``mS`` where they split)."""
     tcfg = get_config(arch)
-    assert not sharding.tensor_parallel(tcfg) and sharding.tp_leaves(tcfg) == ((), (), ())
+    heads, other, partial = sharding.tp_leaves(tcfg)
+    assert heads and other and ("embed" in other)
+    assert bool(partial) == (tcfg.kind == "encdec")
     for shape in ((2, 4), (16, 16)):
-        for k, sp in _flat(sharding.serve_specs(tcfg, lm.param_shapes(tcfg), _Mesh(shape))):
-            assert not sharding.spec_axes(sp) or k.rsplit("/", 1)[-1] in sharding.EXPERTS, k
-        cache = lm.init_cache(tcfg, 4, 64, enc_len=8, device="meta")
-        for k, sp in sharding.serve_cache_specs(tcfg, cache, _Mesh(shape), 4).items():
-            assert not sharding.spec_axes(sp), k
+        mesh = _Mesh(shape)
+        split = tcfg.n_heads % shape[-1] == 0
+        specs = dict(_flat(sharding.serve_specs(tcfg, lm.param_shapes(tcfg), mesh)))
+        for k in heads:
+            assert (("model",) in specs[k]) == split, (k, shape)
+        for k in other:
+            assert ("model",) in specs[k] or k == "mlstm/w_gates", (k, shape)
+        cache = lm.init_cache(tcfg, 32, 64, enc_len=8, device="meta")
+        cspecs = sharding.serve_cache_specs(tcfg, cache, mesh, 32)
+        for k, sp in cspecs.items():
+            if k != "len":
+                assert sp[0 if k == "enc_h" else 1] == ("data",), (k, sp)
+        if tcfg.kind == "encdec":
+            assert cspecs["k"][2] == ("model",) and cspecs["v"][2] == ("model",)
+        else:
+            assert (cspecs["mS"][2] == ("model",)) == split
 
 
 @pytest.mark.parametrize("shape", T.TP_SHAPES, ids=T.mesh_tag)
@@ -248,16 +299,23 @@ def test_init_params_on_a_mesh_draws_the_rank_blocks(shape):
 
 
 def test_tp_split_reads_the_placement(monkeypatch):
-    """``lm._tp`` follows ``serve_specs``: off a mesh, at one ``model``
-    rank and for the other families there is none; on (1, 8) the smoke
-    heads stay whole while the FFN and vocab split; on (2, 4) a rank's one
-    query head reads one KV head."""
+    """``lm._tp`` follows ``serve_specs``: off a mesh and at one ``model``
+    rank there is none; on (1, 8) the smoke heads stay whole while the FFN
+    and vocab split; on (2, 4) a rank's one query head reads one KV head.
+    xLSTM's 2 smoke heads stay whole on (2, 4), its gates split; the
+    encoder-decoder splits as a decoder, with ``xk``/``xv`` partial."""
     from repro_torch.core import mesh as mesh_util
     monkeypatch.setattr(mesh_util, "rank_of", lambda mesh, axis="data": 1)
     cfg = get_smoke_config("granite-3-2b")
     assert lm._tp(cfg, None) is None
-    assert lm._tp(get_smoke_config("xlstm-1.3b"), _Mesh((2, 4))) is None
-    assert lm._tp(get_smoke_config("seamless-m4t-medium"), _Mesh((2, 4))) is None
+    xl = lm._tp(get_smoke_config("xlstm-1.3b"), _Mesh((2, 4)))
+    assert (xl.ways, xl.rank, xl.heads, xl.vocab) == (4, 1, False, True)
+    assert {"mlstm/w_gates", "slstm/w_gates", "slstm/r_gates", "slstm/w_out"} <= xl.keep
+    ed = lm._tp(get_smoke_config("seamless-m4t-medium"), _Mesh((2, 4)))
+    assert (ed.heads, ed.ffn, ed.vocab, ed.ssm) == (True, True, True, False)
+    assert {"cross/xq", "cross/xo", "enc_blocks/wq"} <= ed.keep
+    assert sharding.partial_leaves(get_smoke_config("seamless-m4t-medium"), _Mesh((2, 4))) == {
+        "blocks/wk", "blocks/wv", "enc_blocks/wk", "enc_blocks/wv", "cross/xk", "cross/xv"}
     assert lm._tp(cfg, _Mesh((8, 1))) is None
     tp = lm._tp(cfg, _Mesh((1, 8)))
     assert (tp.ways, tp.heads, tp.ffn, tp.vocab, tp.ssm) == (8, False, True, True, False)
@@ -354,9 +412,12 @@ def _jax_case(case) -> dict:
     label = case["label"]
     step = jax.jit(jlm.make_decode_step(cfg, mesh=jmesh))
 
+    enc = inp.get("enc")
+
     def run(params, mesh, step):
-        logits, cache = jax.jit(lambda p, t: jlm.prefill(p, cfg, t, T.LM_MESH_MAX_LEN,
-                                                         mesh=mesh))(params, inp["prompt"])
+        logits, cache = jax.jit(lambda p, t, e: jlm.prefill(p, cfg, t, T.LM_MESH_MAX_LEN,
+                                                            enc_embeds=e, mesh=mesh))(
+            params, inp["prompt"], None if enc is None else jnp.asarray(enc, dt))
         out = [logits]
         for tok in inp["steps"]:
             lg, cache = step(params, cache, jnp.asarray(tok))
@@ -384,15 +445,16 @@ def _jax_case(case) -> dict:
     return res
 
 
-def jax_side(arch: str, out_dir) -> None:
-    """Every case of ``arch`` through the reference; saves
-    ``jax_<arch>.npz``."""
+def jax_side(archs: str, out_dir) -> None:
+    """Every case of each arch of ``archs`` (comma-separated) through the
+    reference; saves ``jax_<arch>.npz`` an arch."""
     assert jax.device_count() == 8, jax.devices()
-    res = {}
-    for case in CASES:
-        if case["arch"] == arch:
-            res.update(_jax_case(case))
-    np.savez(Path(out_dir) / f"jax_{arch}.npz", **res)
+    for arch in archs.split(","):
+        res = {}
+        for case in CASES:
+            if case["arch"] == arch:
+                res.update(_jax_case(case))
+        np.savez(Path(out_dir) / f"jax_{arch}.npz", **res)
 
 
 # ---------------------------------------------------------------------------
@@ -407,16 +469,18 @@ def _env(**extra):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Starts the 8 gloo ranks and one JAX process an arch together;
-    returns (the results' directory, the ranks' standard output)."""
+    """Starts the 8 gloo ranks and one JAX process a group of archs
+    (``JAX_GROUPS``) together; returns (the ranks' standard output, the
+    reference's results, each rank's)."""
     out = tmp_path_factory.mktemp("tp")
     flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
              if "xla_force_host_platform_device_count" not in f]
     jenv = _env(JAX_PLATFORMS="cpu", XLA_FLAGS=" ".join(
         flags + ["--xla_force_host_platform_device_count=8"]))
-    procs = {f"jax {a}": subprocess.Popen(
-        [sys.executable, __file__, a, str(out)], env=jenv,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for a in T.TP_ARCHS}
+    assert sorted(a for g in JAX_GROUPS for a in g) == sorted(T.TP_ARCHS)
+    procs = {f"jax {','.join(g)}": subprocess.Popen(
+        [sys.executable, __file__, ",".join(g), str(out)], env=jenv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for g in JAX_GROUPS}
     procs["ranks"] = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.testing", "tp", "--ways", "8",
          "--out", str(out), "--timeout", str(T.GROUP_TIMEOUT_S)],
@@ -532,8 +596,8 @@ SPREAD = [c for c in CASES if T.spread_case(c)]
 
 @pytest.mark.parametrize("case", SPREAD, ids=[c["label"] for c in SPREAD])
 def test_reference_bf16_hybrid_gradient_moves_past_the_bar(runs, case):
-    """Why zamba2's bfloat16 bars against one device take the reference's
-    own spread (``testing.spread_case``): the reference's gradient on the
+    """Why zamba2's and xLSTM's bfloat16 bars against one device take the
+    reference's own spread (``testing.spread_case``): the reference's gradient on the
     mesh (its tensor-parallel program) is further from its one-device
     gradient than ``tp_bar`` of the leaf's largest |g| in some leaf, and its
     logits further than ``lm_tol`` from its one device's, so no port could

@@ -286,9 +286,9 @@ def test_train_specs_keep_data_and_the_experts_model(arch, shape):
     ``param_pspecs`` on an ``AbstractMesh``: each leaf keeps the reference's
     ``data`` entries (FSDP configs) but on the experts, and its ``model``
     entries on the leaves of ``sharding.model_leaves`` (the experts where
-    ``moe_block`` splits them; for the decoders and the hybrid the leaves
-    of ``sharding.tp_leaves``, those split by head only where the heads
-    divide) and nothing else."""
+    ``moe_block`` splits them; every family's leaves of
+    ``sharding.tp_leaves`` that the reference splits over ``model``, those
+    split by head only where the heads divide) and nothing else."""
     jcfg, tcfg = j_config(arch), get_config(arch)
     want = dict(_flat(jsharding.param_pspecs(jcfg, jlm.param_shapes(jcfg),
                                              AbstractMesh(shape, _names(shape)))))
@@ -297,10 +297,10 @@ def test_train_specs_keep_data_and_the_experts_model(arch, shape):
     keep = sharding.model_leaves(tcfg, _Mesh(shape))
     experts = {f"blocks/{e}" for e in sharding.EXPERTS}
     assert (experts <= keep) == sharding.sharded_experts(tcfg, _Mesh(shape))
-    tp = sharding.tensor_parallel(tcfg)
     heads, other, _ = sharding.tp_leaves(tcfg)
-    assert (keep - experts) == (
-        set(other) | (set(heads) if tcfg.n_heads % shape[-1] == 0 else set()) if tp else set())
+    assert (keep - experts) == {
+        k for k in set(other) | (set(heads) if tcfg.n_heads % shape[-1] == 0 else set())
+        if "model" in tuple(want[k])}
     n_data = n_model = 0
     for k, p in want.items():
         leaf = k.rsplit("/", 1)[-1]
@@ -314,7 +314,7 @@ def test_train_specs_keep_data_and_the_experts_model(arch, shape):
         n_data += ("data",) in got[k]
         n_model += ("model",) in got[k] and leaf not in sharding.EXPERTS
     assert (n_data > 0) == (tcfg.fsdp and shape[-2] > 1)
-    assert (n_model > 0) == tp
+    assert n_model > 0
 
 
 class _Mesh:
