@@ -99,7 +99,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 5e. [feedback]: ``calibrate_profile`` on the mix's signatures beside the
    H100 prior, and the signatures whose decisions ``apply_calibration``
    changes. Printed, not installed.
-5f. [mesh]: the multi-device engine on the one card. A 1-wide mesh over an
+5f. [examples]: the port's three examples (examples/torch_*.py) through
+   their functions on the card at their own sizes. quickstart: the
+   estimated costs under the detected profile (the H100 prior on an H100),
+   both plans' results against each other on the card and against the
+   same plans executed on the CPU at 5e-4, ``hits=1 misses=1 traces=1``
+   (one capture), launches by kernel. recommendation_pipeline: the
+   embedder trained on the card by the example's recipe, the six queries'
+   searches, ``core.timing.time_plan``'s base and chosen medians, every
+   chosen plan against its unoptimized plan at 5e-4; the collision rate
+   and node store printed, not asserted. train_lm: 200 steps with the
+   restart at 100, every loss finite and the last below the first, ms a
+   step, flash_attention's forward and backward launches; phase 1's
+   checkpoint resumed on the CPU gives the card's first 3 resumed losses
+   at 1e-4 relative.
+5g. [mesh]: the multi-device engine on the one card. A 1-wide mesh over an
    NCCL group of one rank: ``get_or_compile_partitioned`` is the plain
    entry and nothing shards. Then 4 gloo ranks spawned onto cuda:0 (NCCL
    refuses two ranks on one GPU; gloo takes CUDA tensors), each running
@@ -115,7 +129,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    and their tail padding marked; each engine kernel at its largest
    tail-padded row block against its plain version; the seconds and each
    rank's peak memory: ranks time-slicing one card, no multi-card speed.
-5g. [lm-mesh]: the LM on a (data, model) mesh of the same 4 gloo ranks on
+5h. [lm-mesh]: the LM on a (data, model) mesh of the same 4 gloo ranks on
    cuda:0. Each config runs first on one rank in this process (prefill
    B 4 x 2048, max_len 4096, 2 decode steps on seeded tokens, and one step
    from an empty cache; its logits saved, the rest freed): granite-3-2b
@@ -1684,6 +1698,142 @@ def phase_feedback(server, cache) -> None:
     print(f"[feedback] apply_calibration: profile epoch {cache.profile_epoch}, "
           f"{changed} of {len(before)} signatures' #cl= decisions changed (the fit is "
           f"printed, not installed in core/cost.py)")
+
+
+# ---------------------------------------------------------------------------
+# [examples]: examples/torch_*.py on the card at their own sizes
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RESUMED_LOSSES = 3  # train_lm: card against CPU from one checkpoint
+
+
+def _examples():
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+    import torch_recommendation_pipeline
+    import torch_train_lm
+    return torch_quickstart, torch_recommendation_pipeline, torch_train_lm
+
+
+def canonical_err(a: dict, b: dict) -> float:
+    """Largest |a - b| over the float columns of two ``.canonical()``
+    dicts (int columns are exact)."""
+    return max((float(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)).max())
+                for k in a if np.asarray(a[k]).dtype.kind == "f" and np.asarray(a[k]).size),
+               default=0.0)
+
+
+def _launched(launches: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in launches.items() if v) or "no kernel"
+
+
+def phase_examples(card: str) -> None:
+    """[examples]: the three examples' functions on the card at their own
+    sizes. quickstart: the estimated costs under the detected profile (the
+    H100 prior on an H100), both plans' results on the card against each
+    other and against the same plans executed on the CPU at 5e-4, one
+    capture for two executions, launches. recommendation_pipeline: the
+    embedder trained on the card, every chosen plan against its unoptimized
+    plan at 5e-4, ``time_plan``'s medians, the collision rate and node
+    store (printed, not asserted), launches. train_lm: 200 steps with the
+    restart at 100, every loss finite, the last below the first, ms a step,
+    flash_attention's forward and backward launched; the checkpoint phase 1
+    wrote, resumed on the CPU, gives the card's first resumed losses at
+    1e-4 relative."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import cost
+    from repro_torch.core.executor import execute
+    from repro_torch.train.loop import train
+    quickstart, pipeline, train_lm = _examples()
+    limit = _smi("power.limit")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    q = quickstart.run(device="cuda")
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    profile = cost.catalog_profile(q["catalog"])
+    if torch.cuda.get_device_capability(0) == (9, 0) and profile != cost.H100_PROFILE:
+        raise AssertionError(f"quickstart priced under {profile.signature()}")
+    errs = {}
+    for label, plan, got in (("unoptimized", q["plan"], q["unoptimized_result"]),
+                             ("optimized", q["optimized"], q["optimized_result"])):
+        want = execute(plan, q["catalog"], device="cpu").canonical()
+        assert_canonical_close(want, got, f"[examples] quickstart {label}: card against CPU")
+        errs[label] = canonical_err(want, got)
+    assert_canonical_close(q["optimized_result"], q["served_result"],
+                           "[examples] quickstart: the cache's replay against execute")
+    if (q["hits"], q["misses"], q["traces"]) != (1, 1, 1):
+        raise AssertionError(f"[examples] quickstart cache: hits={q['hits']} "
+                             f"misses={q['misses']} traces={q['traces']}")
+    print(f"[examples] quickstart ({secs:.1f} s): estimated cost {q['cost_before']:.4e} s -> "
+          f"{q['cost_after']:.4e} s ({q['stats']['speedup']:.2f}x) under "
+          f"{profile.signature()}; {len(q['unoptimized_result']['score'])} scored pairs, "
+          f"optimized == unoptimized on the card at 5e-4 (max|err| "
+          f"{canonical_err(q['unoptimized_result'], q['optimized_result']):.3g}); card == "
+          f"CPU at 5e-4 (unoptimized {errs['unoptimized']:.3g}, optimized "
+          f"{errs['optimized']:.3g}); plan cache hits=1 misses=1 traces=1 (one CUDA graph "
+          f"capture, one replay); launches: {_launched(launches)}; {card}, {limit}")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    p = pipeline.run(device="cuda")
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    for r in p["rows"]:
+        print(f"[examples] pipeline {r['name']}: opt {r['opt_s']:.3f} s, collision "
+              f"{r['stats']['collision']}, {r['stats']['iterations']} iterations, estimated "
+              f"{r['stats']['speedup']:.4f}x; time_plan median base {r['base_s'] * 1e3:.3f} ms / "
+              f"chosen {r['opt_wall_s'] * 1e3:.3f} ms ({r['wall_speedup']:.2f}x; first calls "
+              f"{r['base_first_s'] * 1e3:.1f} / {r['opt_first_s'] * 1e3:.1f} ms); chosen == "
+              f"unoptimized on the card at 5e-4 (max|err| "
+              f"{canonical_err(r['unoptimized_result'], r['result']):.3g})")
+    losses = "; ".join(f"{k} {v['loss_first']:.4f} -> {v['loss_last']:.4f}"
+                       for k, v in p["train"].items())
+    print(f"[examples] pipeline ({secs:.1f} s): embedder trained on the card ({losses}); "
+          f"collision rate {p['collision_rate']:.2f}, node store {p['states']} states, "
+          f"{p['storage_bytes']} B (printed, not asserted); launches: {_launched(launches)}; "
+          f"{card}, {limit}")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, copy = os.path.join(tmp, "ckpt"), os.path.join(tmp, "phase1")
+        t = train_lm.run(device="cuda", ckpt_dir=ckpt,
+                         on_restart=lambda d: shutil.copytree(d, copy))
+        launches = read_launches()
+        secs = time.perf_counter() - t0
+        first, res = t["phase1"], t["resumed"]
+        every = first.losses + res.losses
+        if res.resumed_from != 100 or len(every) != 200:
+            raise AssertionError(f"[examples] train_lm resumed from {res.resumed_from}, "
+                                 f"{len(every)} steps")
+        if not np.isfinite(every).all() or not every[-1] < every[0]:
+            raise AssertionError(f"[examples] train_lm losses {every[0]} -> {every[-1]}")
+        if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
+            raise AssertionError(f"[examples] train_lm launches {launches}")
+        cpu = train(t["config"], steps=res.resumed_from + EXAMPLE_RESUMED_LOSSES, batch=8,
+                    seq=64, lr=train_lm.LR, ckpt_dir=copy, ckpt_every=train_lm.CKPT_EVERY,
+                    device="cpu")
+    if cpu.resumed_from != res.resumed_from:
+        raise AssertionError(f"[examples] train_lm: the CPU resumed from {cpu.resumed_from}")
+    want = np.asarray(cpu.losses)
+    got = np.asarray(res.losses[:EXAMPLE_RESUMED_LOSSES])
+    rel = np.abs(got - want) / np.abs(want)
+    if not (rel <= TRAIN_LOSS_TOL).all():
+        raise AssertionError(f"[examples] train_lm resumed losses card {got} CPU {want}")
+    ms = t["step_ms"]
+    print(f"[examples] train_lm ({secs:.1f} s): loss {every[0]:.4f} -> {every[-1]:.4f} over "
+          f"200 steps, resumed from step {res.resumed_from}; "
+          f"{statistics.median(ms):.2f} ms a step (median host ms, a step waits for its "
+          f"loss; first step {ms[0]:.1f} ms); launches: {_launched(launches)} "
+          f"({launches['flash_attention'] / 200:g} and {launches['flash_attention_bwd'] / 200:g} "
+          f"a step); the first {EXAMPLE_RESUMED_LOSSES} resumed losses card "
+          f"{', '.join(f'{x:.6f}' for x in got)} against CPU "
+          f"{', '.join(f'{x:.6f}' for x in want)} (max rel {rel.max():.3g}, bar "
+          f"{TRAIN_LOSS_TOL:g}); {card}, {limit}")
 
 
 MESH_RANKS = 4  # gloo ranks time-slicing cuda:0 in [mesh]
@@ -4266,6 +4416,7 @@ def main() -> int:
     timed(phase_feedback)(server, cache)
     del server, cache
     torch.cuda.empty_cache()
+    timed(phase_examples)(card)
     timed(phase_mesh)()
     timed(phase_lm_mesh)()
     timed(phase_lm_f32)()

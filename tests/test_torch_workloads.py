@@ -10,6 +10,7 @@ CPU tensors). ``convert`` carries JAX-built, JAX-rewritten plans across.
 """
 import dataclasses
 import functools
+import importlib
 import os
 import subprocess
 import sys
@@ -45,6 +46,17 @@ NAMES = sorted(jwl.ALL_WORKLOADS)
 PORT_RULES = ("R3-1", "R3-2", "R3-3", "R4-1-split", "R4-1-fuse", "R4-1-unfuse",
               "R4-2", "R4-4")
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
+PORT_EXAMPLES = ("torch_quickstart", "torch_recommendation_pipeline", "torch_train_lm")
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module."""
+    sys.path.insert(0, str(EXAMPLES))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(str(EXAMPLES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,13 +219,18 @@ def test_convert_maps_backends_and_refuses_non_ir():
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port and the port's examples load without the
+    JAX package, JAX or the reference's benchmarks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"sys.path.insert(0, {str(EXAMPLES)!r})\n"
+        f"for name in {PORT_EXAMPLES!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "assert {'repro_torch.core.plan_cache', 'repro_torch.serving.server',\n"
         "        'repro_torch.serving.feedback', 'repro_torch.core.embedding',\n"
@@ -226,7 +243,9 @@ def test_port_imports_neither_jax_nor_repro():
         "        'repro_torch.train.compress', 'repro_torch.train.elastic',\n"
         "        'repro_torch.train.stragglers', 'repro_torch.launch.train',\n"
         "        'repro_torch.launch.dryrun', 'repro_torch.launch.specs',\n"
-        "        'repro_torch.launch.trace_cost', 'repro_torch.launch.trace_stats'\n"
+        "        'repro_torch.launch.trace_cost', 'repro_torch.launch.trace_stats',\n"
+        "        'repro_torch.core.timing', 'torch_quickstart',\n"
+        "        'torch_recommendation_pipeline', 'torch_train_lm'\n"
         "        } <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -236,7 +255,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(res.stdout.strip()) > 20
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         common.resolve_device()
@@ -271,6 +290,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                       dict({p: {} for p in convert.EMBEDDER_PARTS}, one_model=False))):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
+    quickstart, pipeline, train_lm = (_example(n) for n in PORT_EXAMPLES)
+    ckpt = tmp_path / "kept"
+    ckpt.mkdir()
+    for entry in (quickstart.run, pipeline.run,
+                  lambda: train_lm.run(ckpt_dir=str(ckpt)),
+                  lambda: quickstart.main([]), lambda: pipeline.main([]),
+                  lambda: train_lm.main(["--ckpt-dir", str(ckpt)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert ckpt.is_dir()  # raised before emptying the checkpoint directory
     assert common.resolve_device("cpu") == torch.device("cpu")
 
 
